@@ -1,0 +1,116 @@
+"""Shared builders for the PyTorch port's parity tests: the same geometry
+in both frameworks, the JAX weights (with zero-init leaves randomized, or
+parity would be vacuous) carried into the port through its key map."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from pbe_tpu.models.clip_vit import CLIPVisionConfig as JClip
+from pbe_tpu.models.exemplar import ExemplarEncoderConfig as JExemplar
+from pbe_tpu.models.pbe import PaintByExample as JPBE
+from pbe_tpu.models.pbe import build_from_yaml as j_build_from_yaml
+from pbe_tpu.models.unet import UNetConfig as JUNet
+from pbe_tpu.models.vae import AutoencoderKLConfig as JVAE
+from pbe_tpu.pipelines.loading import randomize_zero_params
+
+from pbe_tpu_torch.convert import state_dict_from_flax
+from pbe_tpu_torch.models.clip_vit import CLIPVisionConfig as TClip
+from pbe_tpu_torch.models.exemplar import ExemplarEncoderConfig as TExemplar
+from pbe_tpu_torch.models.pbe import PaintByExample as TPBE
+from pbe_tpu_torch.models.pbe import build_from_yaml as t_build_from_yaml
+from pbe_tpu_torch.models.unet import UNetConfig as TUNet
+from pbe_tpu_torch.models.vae import AutoencoderKLConfig as TVAE
+
+# the geometry of tests/test_pipeline.py:18-31 (32x32 images, 8x8 latents)
+PIPELINE_GEO = dict(
+    unet=dict(model_channels=8, channel_mult=(1, 2), num_res_blocks=1,
+              attention_resolutions=(1,), num_heads=2, context_dim=768,
+              use_checkpoint=False),
+    vae=dict(ddconfig={"ch": 8, "ch_mult": [1, 2, 2], "num_res_blocks": 1,
+                       "z_channels": 4, "double_z": True, "out_ch": 3,
+                       "in_channels": 3, "resolution": 32}, embed_dim=4),
+    clip=dict(hidden_size=1024, num_layers=1, num_heads=4, mlp_dim=32,
+              patch_size=8, image_size=32),
+    mapper_layers=1,
+)
+
+
+def jax_pipeline_model():
+    g = PIPELINE_GEO
+    return JPBE(unet_config=JUNet(**g["unet"]), vae_config=JVAE(**g["vae"]),
+                cond_config=JExemplar(clip=JClip(**g["clip"]),
+                                      mapper_layers=g["mapper_layers"]))
+
+
+def torch_pipeline_model():
+    g = PIPELINE_GEO
+    return TPBE(unet_config=TUNet(**g["unet"]), vae_config=TVAE(**g["vae"]),
+                cond_config=TExemplar(clip=TClip(**g["clip"]),
+                                      mapper_layers=g["mapper_layers"]),
+                attn_impl="flash")
+
+
+def init_jax(model, image_size, ref_size, seed=0):
+    """Seeded weights for every parameter of the flax model, then
+    randomize_zero_params (which gives the zero biases values too).
+
+    The shapes come from jax.eval_shape, which traces without compiling
+    (an XLA compile of the whole init is slow on the CPU). Kernels are
+    lecun-normal like flax's init (so activations keep their scale through
+    the layers), norm scales and embeddings as flax initializes them."""
+    shapes = jax.eval_shape(lambda r: model.init(
+        {"params": r}, jnp.zeros((1, image_size, image_size, 3)),
+        jnp.ones((1, image_size, image_size, 1)),
+        jnp.zeros((1, ref_size, ref_size, 3)), r,
+        method=JPBE.initialize_all), jax.random.PRNGKey(seed))
+    g = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['kernel']"):
+            fan_in = int(np.prod(s.shape[:-1]))
+            return g.standard_normal(s.shape) / np.sqrt(fan_in)
+        if name.endswith("['scale']"):
+            return np.ones(s.shape)
+        if name.endswith("['bias']"):
+            return np.zeros(s.shape)
+        return g.standard_normal(s.shape) * 0.02  # embeddings, learnable vector
+
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, s: jnp.asarray(leaf(p, s), jnp.float32), shapes)
+    return randomize_zero_params(variables, seed=seed)
+
+
+def load_into(tmodel, variables):
+    """Carry JAX weights into the port with a strict load."""
+    params = jax.tree.map(np.asarray, variables["params"])
+    tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
+    return tmodel.eval()
+
+
+def pipeline_pair():
+    """(jax model, variables, port model) at PIPELINE_GEO, same weights."""
+    jm = jax_pipeline_model()
+    variables = init_jax(jm, 32, 32)
+    return jm, variables, load_into(torch_pipeline_model(), variables)
+
+
+def tiny_yaml_pair():
+    """(jax model, variables, port model) at configs/tiny.yaml."""
+    jm, _ = j_build_from_yaml("configs/tiny.yaml")
+    variables = init_jax(jm, 64, 224)
+    tm, _ = t_build_from_yaml("configs/tiny.yaml", attn_impl="flash", device="cpu")
+    return jm, variables, load_into(tm, variables)
+
+
+def to_t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def sub_params(variables, *path):
+    """The flax params under one submodule path, as its own tree."""
+    tree = variables["params"]
+    for p in path:
+        tree = tree[p]
+    return {"params": tree}
