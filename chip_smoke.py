@@ -4,8 +4,9 @@
     python3 chip_smoke.py    # every phase; exits 0 only if all pass
 
 Phases:
-  1. card name and power limit, torch/CUDA versions; build the flash kernel
-     from csrc/flash_fwd.cu and print its -Xptxas -v report.
+  1. card name and power limit, torch/CUDA versions; build the kernels
+     from csrc/flash_fwd.cu and csrc/flash_bwd.cu (one nvcc each, started
+     together) and print their -Xptxas -v reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
      edit gives it (bf16), then timed with CUDA events beside the plain
      version and the one PyTorch call that computes the same function.
@@ -18,6 +19,23 @@ Phases:
      and the device's idle share.
   6. a small edit (configs/tiny.yaml, 64^2) on the card in bf16 against the
      same edit on the CPU in fp32, the path the CPU tests hold against JAX.
+Training (the second slice):
+  7. the backward kernels (csrc/flash_bwd.cu) against their plain versions
+     at the v1 training shapes (batch 4) and at ragged and odd ones, then
+     timed beside the plain versions and SDPA's backward; the forward
+     kernel with the LSE timed at the same shapes.
+  8. one v1 UNet loss at batch 4 (bf16, remat) backpropagated through the
+     flash kernels and through plain attention: the gradients compared.
+  9. the slice: Trainer.fit on v1 at full width, batch 4, 512^2, with the
+     launch counts per step checked, loss, grad_norm, frozen weights and
+     AdamW state checked, step p50, images/s, peak memory and one step's
+     device time by group (torch.profiler).
+ 10. 3 training steps of configs/tiny.yaml on the card in bf16 against the
+     same steps on the CPU in fp32 (the path the CPU tests hold against
+     JAX).
+
+A run takes them in the order 1, 2, 7, 3-5, 8, 9, 6, 10: kernels first,
+the card-vs-CPU comparisons last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -41,6 +59,8 @@ EXP2_PER_S = 3.9e12
 
 K1 = "pbe_tpu/ops/flash_attention.py:85"   # _flash_kernel_rowblock
 K2 = "pbe_tpu/ops/flash_attention.py:218"  # _flash_kernel (streamed)
+K5 = "pbe_tpu/ops/flash_attention.py:408"  # _flash_bwd_dq_kernel
+K6 = "pbe_tpu/ops/flash_attention.py:445"  # _flash_bwd_dkv_kernel
 # (name, (B, N, H, D), TPU kernel it replaces, launches per 512^2 CFG edit):
 # UNet self-attention at CFG batch 2 (8 heads) and the VAE mid attention
 FLASH_SHAPES = (
@@ -61,6 +81,24 @@ OUT_MAX_REL = 2.0 ** -6
 OUT_L2_REL = 1e-2
 LSE_ATOL = 1e-3  # fp32 log2-domain statistics (~12), summed in another order
 
+# (name, (B, N, H, D), launches of each backward kernel per v1 training step):
+# the UNet self-attention at batch 4. Under remat the forward kernel runs
+# twice per step at each (once more in the backward's recompute), and the
+# frozen VAE's mid attention (4, 4096, 1, 512) twice (the two encodes).
+TRAIN_SHAPES = (
+    ("unet_ds1", (4, 4096, 8, 40), 5),
+    ("unet_ds2", (4, 1024, 8, 80), 5),
+    ("unet_ds4", (4, 256, 8, 160), 5),
+    ("unet_ds8", (4, 64, 8, 160), 1),
+)
+BWD_PER_STEP = sum(s[2] for s in TRAIN_SHAPES)  # 16 each of dQ and dK/dV
+FWD_PER_STEP = 2 * BWD_PER_STEP + 2             # 34
+# bf16 tolerance of the backward kernels vs their plain versions, relative
+# to the gradient's scale: both round P and dS to bf16 at the same points
+# and differ only in the order of the fp32 sums (and in the ulp of S that
+# order moves), so an element may land a few bf16 ulps away, never more.
+GRAD_MAX_REL = 2.0 ** -5
+GRAD_L2_REL = 1e-2
 
 def log(*a):
     print(*a, flush=True)
@@ -89,12 +127,20 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def phase_build():
+    """Both kernel sources, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pbe_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build("flash_fwd")
-    log(f"[build] flash_fwd.cu built in {time.perf_counter() - t0:.1f} s; ptxas report:\n"
-        f"{cuda_build.build_log('flash_fwd').strip()}")
+    names = ("flash_fwd", "flash_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        for f in [pool.submit(cuda_build.build, n) for n in names]:
+            f.result()
+    log(f"[build] {', '.join(n + '.cu' for n in names)} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for n in names:
+        log(f"[build] {n}.cu ptxas report:\n{cuda_build.build_log(n).strip()}")
 
 
 def check_flash(fa, q, k, v, label: str) -> tuple[float, float]:
@@ -165,6 +211,119 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
+def check_bwd(fa, q, k, v, do, label: str) -> dict:
+    """The dQ and dK/dV kernels against their plain versions on the same
+    inputs (O and the LSE from the forward kernel) -> {output: (max abs
+    err, max|g|, rel L2)}; raises past the tolerances above."""
+    import torch
+
+    out, lse = fa.flash_fwd(q, k, v, return_lse=True)
+    dd = fa.rowsum_do_o(do, out)
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, dd), *fa.flash_bwd_dkv(q, k, v, do, lse, dd))
+    want = (fa.flash_bwd_dq_plain(q, k, v, do, lse, dd),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd))
+    torch.cuda.synchronize()
+    res, ok = {}, True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = g.float() - w.float()
+        err, scale = diff.abs().max().item(), w.float().abs().max().item()
+        rel_l2 = (diff.norm() / w.float().norm()).item()
+        res[name] = (err, scale, rel_l2)
+        ok = ok and err <= GRAD_MAX_REL * scale and rel_l2 <= GRAD_L2_REL
+    log(f"[bwd] {label}: " + "; ".join(
+        f"{n} max|err| {e:.3e} (max|g| {m:.3e}, tol {GRAD_MAX_REL * m:.3e}) rel L2 {r:.3e}"
+        for n, (e, m, r) in res.items()) + f" (tol {GRAD_L2_REL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash backward kernels disagree with their plain versions "
+                             f"at {label}")
+    return res
+
+
+def bound(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float):
+    """(least ms, binding term) for B*H*N^2*D*flop_per_n2d tensor-core FLOP,
+    B*H*N^2 exponentials and nbytes of device memory traffic."""
+    terms = (("mma", flop_per_n2d * b * h * n * n * d / BF16_FLOP_PER_S * 1e3),
+             ("exp2", 1.0 * b * h * n * n / EXP2_PER_S * 1e3),
+             ("bytes", nbytes / HBM_BYTES_PER_S * 1e3))
+    return max(terms, key=lambda x: x[1])
+
+
+def phase_train_kernels() -> list[dict]:
+    """The backward kernels, and the forward kernel with the LSE, at the
+    v1 training shapes (plus ragged and odd ones for the backward): each
+    against its plain version, then timed beside it and beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for shape in ((1, 100, 2, 40), (2, 333, 3, 80), (2, 130, 4, 16), (1, 70, 2, 160)):
+        check_bwd(fa, rand(shape), rand(shape), rand(shape), rand(shape), f"check {shape}")
+
+    rows = []
+    for name, shape, per_step in TRAIN_SHAPES:
+        b, n, h, d = shape
+        q, k, v, do = (rand(shape) for _ in range(4))
+        errs = check_bwd(fa, q, k, v, do, f"{name} {shape}")
+        ferr, flerr = check_flash(fa, q, k, v, f"{name} fwd+lse {shape}")
+        out, lse = fa.flash_fwd(q, k, v, return_lse=True)
+        dd = fa.rowsum_do_o(do, out)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+        sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms
+        bnhd, bhn = b * n * h * d * 2, b * h * n * 4
+        common = {"route": "cuda", "source": "pbe_tpu_torch/csrc/flash_bwd.cu"}
+        for kname, replaces, flop, nbytes, launch, plain in (
+                ("flash_bwd_dq", K5, 6.0, 5 * bnhd + 2 * bhn,
+                 lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd),
+                 lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, dd)),
+                ("flash_bwd_dkv", K6, 8.0, 6 * bnhd + 2 * bhn,
+                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd),
+                 lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd))):
+            by, ms_bound = bound(flop, b, n, h, d, nbytes)
+            outs = ("dq",) if kname == "flash_bwd_dq" else ("dk", "dv")
+            rows.append({"name": f"{kname}/{name}", **common, "replaces": replaces,
+                         "launches": None, "expected_launches_per_step": per_step,
+                         "max_abs_err": max(errs[o][0] for o in outs),
+                         "max_abs_g": max(errs[o][1] for o in outs),
+                         "rel_l2": max(errs[o][2] for o in outs),
+                         "ms": cuda_ms(launch, 20), "plain_ms": cuda_ms(plain, 3, 1),
+                         "bound_ms": ms_bound,
+                         "bound_by": "bytes" if by == "bytes" else "operations",
+                         # SDPA's whole backward (dQ, dK and dV), the yardstick
+                         # of the two kernels' sum
+                         "library_ms": sdpa_bwd_ms})
+        by, ms_bound = bound(4.0, b, n, h, d, 4 * bnhd + bhn)
+        rows.append({"name": f"flash_fwd_lse/{name}_train", "route": "cuda",
+                     "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": K1,
+                     "launches": None, "expected_launches_per_step": 2 * per_step,
+                     "max_abs_err": ferr, "lse_max_abs_err": flerr,
+                     "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, return_lse=True), 20),
+                     "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+                         q, k, v, return_lse=True), 3, 1),
+                     "bound_ms": ms_bound,
+                     "bound_by": "bytes" if by == "bytes" else "operations",
+                     "library_ms": sdpa_fwd_ms})
+        dq_row, dkv_row, f_row = rows[-3:]
+        log(f"[bwd] {name} {shape}: dq {dq_row['ms']:.4f} ms (plain {dq_row['plain_ms']:.4f}, "
+            f"bound {dq_row['bound_ms']:.4f}); dkv {dkv_row['ms']:.4f} ms (plain "
+            f"{dkv_row['plain_ms']:.4f}, bound {dkv_row['bound_ms']:.4f}); sum "
+            f"{dq_row['ms'] + dkv_row['ms']:.4f} vs SDPA backward {sdpa_bwd_ms:.4f} ms; "
+            f"fwd+lse {f_row['ms']:.4f} ms (plain {f_row['plain_ms']:.4f}, SDPA "
+            f"{sdpa_fwd_ms:.4f}, bound {f_row['bound_ms']:.4f})")
+        del q, k, v, do, out, lse, dd, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
 def set_attn_impl(model, impl: str) -> None:
     for m in model.modules():
         if hasattr(m, "attn_impl"):
@@ -194,12 +353,48 @@ def phase_unet(model) -> None:
         raise AssertionError("full UNet with the flash kernel disagrees with plain attention")
 
 
+DEV_MS = lambda e: getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+
+def kernel_group(name: str) -> str:
+    n = name.lower()
+    return ("flash_fwd" if "flash_fwd" in n else
+            "flash_bwd_dq" if "flash_bwd_dq" in n else
+            "flash_bwd_dkv" if "flash_bwd_dkv" in n else
+            "optimizer (adamw, grad norm)" if "multi_tensor" in n or "adam" in n else
+            "layout (nchw<->nhwc)" if "nchwtonhwc" in n or "nhwctonchw" in n else
+            "conv" if any(s in n for s in ("conv", "fprop", "implicit", "dgrad", "wgrad")) else
+            "gemm" if any(s in n for s in ("gemm", "nvjet", "cublas", "cutlass")) else
+            "norm" if "norm" in n or "moments" in n else
+            "copy/cast" if "copy" in n else "elementwise/other")
+
+
+def device_time(prof):
+    """Device-side kernels of a profile, slowest first, their summed time
+    (ms) and that time by kernel_group; the CPU ops' entries, and the user
+    annotations drawn on the device timeline (Optimizer.step#AdamW.step),
+    repeat their kernels' time and are left out."""
+    from torch.autograd import DeviceType
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and DEV_MS(e) > 0
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=DEV_MS, reverse=True)
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    groups: dict[str, float] = {}
+    for e in kernels:
+        g = kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + DEV_MS(e)
+    return kernels, sum(DEV_MS(e) for e in kernels), groups
+
+
 def phase_profile(model) -> None:
     """Where one warm v1 CFG UNet call spends the card's time: device time
     by kernel (torch.profiler) and the device's idle share, taken against
     the call's wall time without the profiler (which slows the host)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -222,32 +417,14 @@ def phase_profile(model) -> None:
                 model.apply_model(x9, t, ctx)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-    # device-side entries only: the CPU ops' entries repeat their kernels' time
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and dev_ms(e) > 0),
-                     key=dev_ms, reverse=True)
-    if not kernels:
-        raise AssertionError("the profiler recorded no device time")
-    busy = sum(dev_ms(e) for e in kernels)
-    groups: dict[str, float] = {}
-    for e in kernels:
-        n = e.key.lower()
-        g = ("flash_fwd" if "flash_fwd" in n else
-             "layout (nchw<->nhwc)" if "nchwtonhwc" in n or "nhwctonchw" in n else
-             "conv" if any(s in n for s in ("conv", "fprop", "implicit", "dgrad")) else
-             "gemm" if any(s in n for s in ("gemm", "nvjet", "cublas", "cutlass")) else
-             "norm" if "norm" in n or "moments" in n else
-             "copy/cast" if "copy" in n else "elementwise/other")
-        groups[g] = groups.get(g, 0.0) + dev_ms(e)
+    kernels, busy, groups = device_time(prof)
     log(f"[profile] v1 CFG UNet call x{calls}: wall {plain_wall_ms / calls:.3f} ms/call "
         f"({wall_ms / calls:.3f} under the profiler), device busy {busy / calls:.3f} "
         f"ms/call, idle share {1 - busy / plain_wall_ms:.3f}")
     log(f"[profile] by group (ms/call): "
         f"{json.dumps({k: round(v / calls, 4) for k, v in sorted(groups.items())})}")
     for e in kernels[:15]:
-        log(f"[profile]   {dev_ms(e) / calls:9.4f} ms/call  x{e.count // calls:4d}  "
+        log(f"[profile]   {DEV_MS(e) / calls:9.4f} ms/call  x{e.count // calls:4d}  "
             f"{e.key[:110]}")
 
 
@@ -329,6 +506,251 @@ def phase_reference() -> None:
         raise AssertionError("card edit disagrees with the CPU fp32 reference")
 
 
+def build_v1_for_training():
+    """configs/v1.yaml at full width on the card, bf16, flash attention and
+    remat (use_checkpoint), random weights with the zero-init heads
+    randomized so that every layer gets a gradient. At scale 0.02 the eps
+    of random inputs has rms 0.57 (0.29 at 0.01, 2.6 at 0.1; measured on
+    the card), so the eps-MSE against a unit-variance target starts near
+    1 + 0.57^2."""
+    import torch
+
+    from pbe_tpu_torch.models.pbe import build_from_yaml
+    from pbe_tpu_torch.pipelines.loading import init_parameters, randomize_zero_params
+
+    t0 = time.perf_counter()
+    model, _ = build_from_yaml("configs/v1.yaml", dtype=torch.bfloat16, attn_impl="flash",
+                               device="cuda")
+    init_parameters(model, seed=0)
+    randomize_zero_params(model, seed=0, scale=0.02)
+    torch.cuda.synchronize()
+    log(f"[train] v1 built for training (remat {model.model.diffusion_model.remat}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_unet_grad(model) -> None:
+    """One v1 UNet eps-MSE at batch 4 (64^2 latent, bf16) backpropagated
+    through the flash autograd function and through plain attention; the
+    gradients over the UNet's parameters compared as one vector."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x9 = torch.randn((4, 64, 64, 9), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((4, 1, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    noise = torch.randn((4, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.tensor([10, 300, 600, 990], device="cuda")
+    params = list(model.model.diffusion_model.parameters())
+
+    def grad(impl):
+        set_attn_impl(model, impl)
+        loss = (model.apply_model(x9, t, ctx).float() - noise).square().mean()
+        # attn2's norm2 gets none: one context token makes attn2 ignore it
+        g = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        return loss.item(), torch.cat([x.float().flatten() for x in g])
+
+    loss_f, g_flash = grad("flash")
+    loss_p, g_plain = grad("plain")
+    set_attn_impl(model, "flash")
+    rel = ((g_flash - g_plain).norm() / g_plain.norm()).item()
+    finite = bool(torch.isfinite(g_flash).all())
+    # bf16 through 16 transformer and 25 res blocks, forward and backward:
+    # P and dS are rounded to bf16 at other points than in the plain
+    # einsum path (2^-8), which the residual streams carry; a wrong
+    # backward kernel gives O(1)
+    log(f"[grad] v1 UNet loss batch 4 bf16: loss flash {loss_f:.5f} plain {loss_p:.5f}; "
+        f"global gradient over {len(params)} tensors ({g_plain.numel()} values) flash vs "
+        f"plain rel L2 {rel:.3e} (tol 5e-2), |g| {g_plain.norm().item():.4e}")
+    if not (finite and rel <= 5e-2):
+        raise AssertionError("the v1 UNet gradient through the flash kernels disagrees "
+                             "with plain attention")
+    del g_flash, g_plain
+    torch.cuda.empty_cache()
+
+
+def train_batches(n: int, size: int, ref_size: int, batch: int, seed: int) -> list[dict]:
+    """Seeded numpy batches as scripts/bench_train.py makes them: image
+    U[-1,1], a square hole in the mask, ref N(0,1)."""
+    g = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        image = g.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+        mask = np.ones((batch, size, size, 1), np.float32)
+        mask[:, size // 4:3 * size // 4, size // 4:3 * size // 4] = 0.0
+        ref = g.standard_normal((batch, ref_size, ref_size, 3)).astype(np.float32)
+        out.append({"image": image, "inpaint_image": image * mask, "mask": mask, "ref": ref})
+    return out
+
+
+def phase_train(model, card: str, rows: list[dict]) -> dict:
+    """The slice: Trainer.fit on v1 at full width, batch 4, 512^2: 4 warm
+    steps, then 12 steps with every kernel's launch count set to 0 just
+    before and read just after, timed by CUDA events recorded as the
+    trainer pulls each batch (no host sync inside the run: the one metric
+    log falls on the last step)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.training.trainer import Trainer
+
+    warm, steps = 4, 12
+    batches = train_batches(warm + steps, 512, 224, 4, seed=12)
+    with tempfile.TemporaryDirectory() as logdir:
+        trainer = Trainer(model, logdir=logdir, seed=0)
+        frozen = [p for p in model.parameters() if not p.requires_grad]
+        checksum = lambda: torch.stack([torch.stack([p.double().sum(), p.double().square().sum()])
+                                        for p in frozen]).cpu()
+        before = checksum()
+        t0 = time.perf_counter()
+        trainer.fit(batches[:warm], max_steps=warm, log_every=warm, ckpt_every=10**9)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+
+        events = []
+
+        def timed(bs):
+            for b in bs:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                yield b
+
+        kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        for k in kernels:
+            k.launches = 0
+            k.launches_by_shape.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.fit(timed(batches[warm:]), max_steps=warm + steps,
+                    log_every=warm + steps, ckpt_every=10**9)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {k.symbol: (k.launches, dict(k.launches_by_shape)) for k in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        with open(trainer.logger.path) as f:
+            last = json.loads(f.readlines()[-1])
+        after = checksum()
+
+        # step i's time: from batch i+1's pull to batch i+2's (one batch ahead)
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, len(events) - 1)]
+        p50 = float(np.median(step_ms))
+        log(f"[train] v1 batch 4 512^2 Trainer.fit: {warm} warm steps {warm_s:.2f} s; "
+            f"{steps} steps {wall_s:.3f} s wall; step ms {['%.2f' % t for t in step_ms]}: "
+            f"p50 {p50:.3f} ms, {4e3 / p50:.4f} images/s; peak memory "
+            f"{peak / 2**30:.3f} GiB ({card})")
+        log(f"[train] last step: loss {last['train/loss']:.5f} grad_norm "
+            f"{last['train/grad_norm']:.5f} loss_vlb {last['train/loss_vlb']:.6f} (step "
+            f"{last['step']})")
+        log(f"[train] launches in {steps} steps: {json.dumps({k: v[0] for k, v in counts.items()})}; "
+            f"by shape {counts}")
+        if not (np.isfinite(last["train/loss"]) and np.isfinite(last["train/grad_norm"])
+                and 0.5 <= last["train/loss"] <= 2.0):
+            raise AssertionError(f"training loss {last['train/loss']} or grad_norm "
+                                 f"{last['train/grad_norm']} out of range")
+        if not torch.equal(before, after):
+            raise AssertionError("a frozen parameter changed during training")
+        state = trainer.optimizer.state
+        trainable = list(trainer.params.values())
+        if not (len(state) == len(trainable) and all("exp_avg" in state[p] for p in trainable)
+                and not any(p in state for p in frozen)):
+            raise AssertionError("AdamW state is not exactly the trainable parameters'")
+        log(f"[train] frozen parameters unchanged ({len(frozen)} tensors); AdamW state for "
+            f"all {len(trainable)} trainable tensors and no frozen one")
+        per_step = {"pbe_flash_fwd_bf16": FWD_PER_STEP, "pbe_flash_bwd_dq_bf16": BWD_PER_STEP,
+                    "pbe_flash_bwd_dkv_bf16": BWD_PER_STEP}
+        for sym, want in per_step.items():
+            if counts[sym][0] != want * steps:
+                raise AssertionError(f"{sym}: {counts[sym][0]} launches in {steps} steps, "
+                                     f"expected {want} per step")
+        vae = counts["pbe_flash_fwd_bf16"][1].get((4, 4096, 1, 512), 0)
+        if vae != 2 * steps:
+            raise AssertionError(f"VAE attention launched {vae} times, expected 2 per step")
+        sym_of = {"flash_bwd_dq": "pbe_flash_bwd_dq_bf16",
+                  "flash_bwd_dkv": "pbe_flash_bwd_dkv_bf16",
+                  "flash_fwd_lse": "pbe_flash_fwd_bf16"}
+        for row in rows:
+            kname, sname = row["name"].split("/")
+            shape = dict((n, sh) for n, sh, _ in TRAIN_SHAPES)[sname.removesuffix("_train")]
+            n = counts[sym_of[kname]][1].get(shape, 0)
+            want = row.pop("expected_launches_per_step")
+            if n != want * steps:
+                raise AssertionError(f"{row['name']}: {n} launches in {steps} steps, "
+                                     f"expected {want} per step")
+            row["launches"] = n // steps  # per training step
+            row["launches_in_run"], row["run_steps"] = n, steps
+
+        # where one step's device time goes: one more step under the
+        # profiler, against the unprofiled p50
+        dbatch = trainer._put_batch(batches[-1])
+        trainer.train_step(dbatch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(dbatch)
+            torch.cuda.synchronize()
+        kern, busy, groups = device_time(prof)
+        log(f"[train-profile] one step: device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / p50:.3f} of the p50 step")
+        log(f"[train-profile] by group (ms/step): "
+            f"{json.dumps({k: round(v, 4) for k, v in sorted(groups.items())})}")
+        for e in kern[:15]:
+            log(f"[train-profile]   {DEV_MS(e):9.4f} ms/step  x{e.count:4d}  {e.key[:110]}")
+        trainer.logger.close()
+    return {"step_ms": step_ms, "p50_ms": p50, "images_per_s": 4e3 / p50,
+            "peak_gib": peak / 2**30, "loss": last["train/loss"],
+            "grad_norm": last["train/grad_norm"], "device_busy_ms": busy,
+            "idle_share": 1 - busy / p50, "groups_ms": groups}
+
+
+def phase_train_reference() -> None:
+    """configs/tiny.yaml: 3 train steps on the card (bf16, the kernels)
+    against the same steps on the CPU (fp32, the kernels' plain versions):
+    the same seeded weights, batches and draws, the posterior mode, a
+    constant LR multiplier."""
+    import torch
+
+    from pbe_tpu_torch.models.pbe import build_from_yaml
+    from pbe_tpu_torch.pipelines.loading import init_parameters, randomize_zero_params
+    from pbe_tpu_torch.training.partition import split_parameters
+    from pbe_tpu_torch.training.train_step import make_optimizer, train_step
+
+    gpu, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.bfloat16, attn_impl="flash",
+                             device="cuda")
+    init_parameters(gpu, seed=0)
+    randomize_zero_params(gpu, seed=0)
+    cpu, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.float32, attn_impl="flash",
+                             device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batches = train_batches(3, 64, 224, 2, seed=13)
+    g = np.random.default_rng(14)
+    n = 64 // gpu.latent_downsample
+    draws = [(g.integers(0, 1000, (2,)), g.standard_normal((2, n, n, 4)).astype(np.float32))
+             for _ in batches]
+    losses = {}
+    for name, model, dev in (("card", gpu, "cuda"), ("cpu", cpu, "cpu")):
+        params, _ = split_parameters(model)
+        opt, sched = make_optimizer(params, base_lr=1e-4, scheduler=lambda n: 1.0)
+        out = []
+        for batch, (t, noise) in zip(batches, draws):
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            m = train_step(model, params, opt, sched, tb, torch.from_numpy(t).to(dev),
+                           torch.from_numpy(noise).to(dev), torch.tensor(0.5, device=dev))
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        losses[name] = out
+    # bf16 activations round each element by up to 2^-8 (3.9e-3); the
+    # loss and the gradient norm are sums over thousands of elements, in
+    # which that rounding mostly cancels, so they stay well inside 1e-2 of
+    # the fp32 values; a wrong kernel, LR step or optimizer state moves
+    # them further by the second or third step
+    rel = [(abs(a[0] - b[0]) / b[0], abs(a[1] - b[1]) / b[1])
+           for a, b in zip(losses["card"], losses["cpu"])]
+    log(f"[train-reference] tiny 3 steps, card bf16 vs CPU fp32: (loss, grad_norm) card "
+        f"{losses['card']} cpu {losses['cpu']}; rel diff {rel} (tol 1e-2 each)")
+    if not all(np.isfinite(x).all() and max(r) <= 1e-2 for x, r in zip(losses["card"], rel)):
+        raise AssertionError("card training disagrees with the CPU fp32 reference")
+
+
 def main() -> int:
     import torch
 
@@ -349,6 +771,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     phase_build()
     rows = phase_kernels()
+    train_rows = phase_train_kernels()
     from pbe_tpu_torch.pipelines.loading import (eps_rms_probe, load_pipeline,
                                                  randomize_zero_params)
 
@@ -366,9 +789,16 @@ def main() -> int:
     phase_profile(pipe.model)  # after the timed edits: the profiler slows the host
     del pipe
     torch.cuda.empty_cache()
+    model = build_v1_for_training()
+    phase_unet_grad(model)
+    train = phase_train(model, card, train_rows)
+    del model
+    torch.cuda.empty_cache()
     phase_reference()
+    phase_train_reference()
     log(f"[edit] summary {json.dumps(edit)}")
-    print(json.dumps({"kernels": rows}), flush=True)
+    log(f"[train] summary {json.dumps(train)}")
+    print(json.dumps({"kernels": rows + train_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

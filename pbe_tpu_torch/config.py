@@ -2,9 +2,9 @@
 
 The port's copy of ``pbe_tpu/config.py``: the same configs/v1.yaml and
 configs/tiny.yaml load here, with the reference's dotted ``target`` strings
-remapped onto this package's config classes. Only the targets the edit path
-needs are registered; anything else resolves by plain dotted import. The
-VAE's ``lossconfig`` is kept as a dict and never built.
+remapped onto this package's config classes. Only the targets the edit and
+training paths need are registered; anything else resolves by plain dotted
+import. The VAE's ``lossconfig`` is kept as a dict and never built.
 """
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ _TARGET_ALIASES: dict[str, str] = {
     "ldm.modules.diffusionmodules.openaimodel.UNetModel": "pbe_tpu_torch.models.unet.UNetConfig",
     "ldm.models.autoencoder.AutoencoderKL": "pbe_tpu_torch.models.vae.AutoencoderKLConfig",
     "ldm.modules.encoders.modules.FrozenCLIPImageEmbedder": "pbe_tpu_torch.models.exemplar.ExemplarEncoderConfig",
+    "ldm.lr_scheduler.LambdaLinearScheduler": "pbe_tpu_torch.training.lr_schedule.LambdaLinearScheduler",
+    "ldm.lr_scheduler.LambdaWarmUpCosineScheduler": "pbe_tpu_torch.training.lr_schedule.LambdaWarmUpCosineScheduler",
+    "ldm.lr_scheduler.LambdaWarmUpCosineScheduler2": "pbe_tpu_torch.training.lr_schedule.LambdaWarmUpCosineScheduler2",
 }
 
 

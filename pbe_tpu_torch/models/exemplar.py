@@ -72,7 +72,10 @@ class ExemplarEncoder(nn.Module):
         self.final_ln = LayerNormF32(clip.hidden_size)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
-        _, pooled = self.transformer(image)
+        return self.map_pooled(self.transformer(image)[1])
+
+    def map_pooled(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The trainable tail: (B, 1024) pooled CLIP output -> (B, 1, 1024)."""
         return self.final_ln(self.mapper(pooled[:, None, :]))
 
 

@@ -22,6 +22,7 @@ from pbe_tpu_torch.models.exemplar import ExemplarEncoderConfig
 from pbe_tpu_torch.models.layers import Linear
 from pbe_tpu_torch.models.unet import UNetConfig
 from pbe_tpu_torch.models.vae import AutoencoderKLConfig, sample_diagonal_gaussian
+from pbe_tpu_torch.ops.image import resize_mask
 from pbe_tpu_torch.schedules import DiffusionSchedule
 
 _DEFAULT_DDCONFIG = {
@@ -53,18 +54,27 @@ class PaintByExample(nn.Module):
     def __init__(self, unet_config: UNetConfig, vae_config: AutoencoderKLConfig,
                  cond_config: ExemplarEncoderConfig, scale_factor: float = 0.18215,
                  timesteps: int = 1000, linear_start: float = 0.00085,
-                 linear_end: float = 0.0120, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "plain"):
+                 linear_end: float = 0.0120, u_cond_percent: float = 0.2,
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "plain",
+                 remat: bool | None = None):
         super().__init__()
         self.unet_config = unet_config
         self.vae_config = vae_config
         self.cond_config = cond_config
         self.scale_factor = scale_factor
+        self.u_cond_percent = u_cond_percent
         self.dtype = dtype
         self.schedule = DiffusionSchedule.create(
             timesteps=timesteps, beta_schedule="linear",
             linear_start=linear_start, linear_end=linear_end)
-        self.model = _DiffusionWrapper(unet_config.build(dtype, attn_impl))
+        # the q-sample and loss-weight tables of the training step, on the
+        # model's device (not part of the state_dict)
+        for name in ("sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+                     "lvlb_weights"):
+            self.register_buffer(name, torch.as_tensor(getattr(self.schedule, name),
+                                                       dtype=torch.float32),
+                                 persistent=False)
+        self.model = _DiffusionWrapper(unet_config.build(dtype, attn_impl, remat))
         self.first_stage_model = vae_config.build(dtype, attn_impl)
         self.cond_stage_model = cond_config.build(dtype)
         self.proj_out = Linear(1024, 768)
@@ -90,6 +100,17 @@ class PaintByExample(nn.Module):
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.first_stage_model.decode(z / self.scale_factor)
+
+    def prepare_latents(self, image: torch.Tensor, inpaint_image: torch.Tensor,
+                        mask: torch.Tensor, generator: torch.Generator | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(z, z_inpaint, mask_latent) of the training step: image and
+        inpaint_image NHWC in [-1,1], mask (B,H,W,1) with 1 = keep, resized
+        bilinearly to the latent grid. Posterior modes when generator is
+        None, else samples drawn from it."""
+        z = self.encode_first_stage(image, generator)
+        z_inpaint = self.encode_first_stage(inpaint_image, generator)
+        return z, z_inpaint, resize_mask(mask, z.shape[1:3]).to(z.dtype)
 
     # ---- conditioning ----------------------------------------------------
     def get_conditioning(self, ref: torch.Tensor) -> torch.Tensor:
@@ -140,9 +161,11 @@ class PaintByExampleConfig:
         return cfg
 
     def build(self, dtype: torch.dtype = torch.float32, attn_impl: str = "plain",
-              device: str | torch.device | None = "cuda") -> PaintByExample:
+              device: str | torch.device | None = "cuda",
+              remat: bool | None = None) -> PaintByExample:
         """The model with its parameters allocated on ``device`` (see
-        :func:`resolve_device`), not yet initialized."""
+        :func:`resolve_device`), not yet initialized. ``remat=None`` takes
+        the UNet config's ``use_checkpoint``."""
         with torch.device(resolve_device(device)):
             return PaintByExample(
                 unet_config=self._sub(self.unet_config, UNetConfig),
@@ -151,15 +174,18 @@ class PaintByExampleConfig:
                 cond_config=self._sub(self.cond_stage_config, ExemplarEncoderConfig),
                 scale_factor=self.scale_factor, timesteps=self.timesteps,
                 linear_start=self.linear_start, linear_end=self.linear_end,
-                dtype=dtype, attn_impl=attn_impl,
+                u_cond_percent=self.u_cond_percent, dtype=dtype, attn_impl=attn_impl,
+                remat=remat,
             )
 
 
 def build_from_yaml(path: str, dtype: torch.dtype = torch.float32,
                     attn_impl: str = "plain",
-                    device: str | torch.device | None = "cuda") -> tuple[PaintByExample, dict]:
+                    device: str | torch.device | None = "cuda",
+                    remat: bool | None = None) -> tuple[PaintByExample, dict]:
     """Load a configs/v1.yaml-style file and build the model on ``device``
     -> (model, raw config)."""
     raw = config_lib.load_config(path)
     model_cfg = config_lib.instantiate_from_config(raw["model"])
-    return model_cfg.build(dtype=dtype, attn_impl=attn_impl, device=device), raw
+    return model_cfg.build(dtype=dtype, attn_impl=attn_impl, device=device,
+                           remat=remat), raw

@@ -10,6 +10,11 @@ Modules carry the reference state_dict names (``input_blocks.1.0.in_layers.2``
 JAX package, the single-token cross-attention has no to_q/to_k and the
 front-block MyResBlock has no skip. Internally NCHW; ``UNetModel.forward``
 takes and returns NHWC like the JAX module.
+
+With ``remat`` (configs/v1.yaml's ``use_checkpoint``), every ResBlock and
+SpatialTransformer runs under non-reentrant activation checkpointing when
+grad is enabled, as the JAX module wraps them in ``nn.remat``: their
+activations are recomputed in the backward instead of being kept.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pbe_tpu_torch.models.layers import Conv2d, Linear, to_nchw, to_nhwc
 from pbe_tpu_torch.ops.attention import multi_head_attention, single_token_attention
@@ -202,15 +208,19 @@ class Upsample(nn.Module):
 
 class TimestepSequential(nn.ModuleList):
     """One input/middle/output block: its layers run in order, ResBlocks
-    with the time embedding, SpatialTransformers with the context."""
+    with the time embedding, SpatialTransformers with the context; with
+    ``remat`` and grad enabled, those two under activation checkpointing."""
 
-    def forward(self, h: torch.Tensor, emb: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, emb: torch.Tensor, context: torch.Tensor,
+                remat: bool = False) -> torch.Tensor:
+        remat = remat and torch.is_grad_enabled()
         for layer in self:
-            if isinstance(layer, (ResBlock, MyResBlock)):
+            if isinstance(layer, (ResBlock, SpatialTransformer)):
+                arg = emb if isinstance(layer, ResBlock) else context
+                h = (checkpoint(layer, h, arg, use_reentrant=False) if remat
+                     else layer(h, arg))
+            elif isinstance(layer, MyResBlock):
                 h = layer(h, emb)
-            elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context)
             else:
                 h = layer(h)
         return h
@@ -226,12 +236,13 @@ class UNetModel(nn.Module):
                  transformer_depth: int = 1, context_dim: int = 768,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "plain",
                  add_conv_in_front_of_unet: bool = False,
-                 num_classes: int | None = None):
+                 num_classes: int | None = None, remat: bool = False):
         super().__init__()
         mc = model_channels
         emb_dim = mc * 4
         self.model_channels = mc
         self.dtype = dtype
+        self.remat = remat
         self.num_classes = num_classes
         self.time_embed = nn.Sequential(Linear(mc, emb_dim), nn.SiLU(),
                                         Linear(emb_dim, emb_dim))
@@ -299,11 +310,11 @@ class UNetModel(nn.Module):
                 h = block(h, emb, context)
         hs = []
         for block in self.input_blocks:
-            h = block(h, emb, context)
+            h = block(h, emb, context, self.remat)
             hs.append(h)
-        h = self.middle_block(h, emb, context)
+        h = self.middle_block(h, emb, context, self.remat)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb, context)
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, context, self.remat)
         return to_nhwc(self.out(h)).to(x.dtype)
 
 
@@ -322,13 +333,13 @@ class UNetConfig:
     use_spatial_transformer: bool = True
     transformer_depth: int = 1
     context_dim: int = 768
-    use_checkpoint: bool = True  # no effect: the port runs inference only
+    use_checkpoint: bool = True  # remat when build() is given remat=None
     legacy: bool = False
     add_conv_in_front_of_unet: bool = False
     num_classes: int | None = None
 
-    def build(self, dtype: torch.dtype = torch.float32,
-              attn_impl: str = "plain") -> UNetModel:
+    def build(self, dtype: torch.dtype = torch.float32, attn_impl: str = "plain",
+              remat: bool | None = None) -> UNetModel:
         return UNetModel(
             in_channels=self.in_channels, model_channels=self.model_channels,
             out_channels=self.out_channels, num_res_blocks=self.num_res_blocks,
@@ -338,4 +349,5 @@ class UNetConfig:
             dtype=dtype, attn_impl=attn_impl,
             add_conv_in_front_of_unet=self.add_conv_in_front_of_unet,
             num_classes=self.num_classes,
+            remat=self.use_checkpoint if remat is None else remat,
         )

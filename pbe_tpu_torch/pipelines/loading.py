@@ -142,7 +142,7 @@ def load_pipeline(config_path: str, ckpt_path: str | None = None,
     self-attention through the Hopper kernel on CUDA (bf16 only) and its
     plain version on the CPU; ``"plain"`` runs einsum attention."""
     model, raw = build_from_yaml(config_path, dtype=dtype, attn_impl=attn_impl,
-                                 device=device)
+                                 device=device, remat=False)
     init_parameters(model, seed)
     if ckpt_path:
         load_checkpoint(model, ckpt_path, verbose=verbose)

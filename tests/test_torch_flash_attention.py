@@ -90,14 +90,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("batch", [1, 2])
 def test_model_hands_the_kernel_tensors_it_can_read(monkeypatch, batch):
-    """Every q/k/v the UNet and the VAE pass to flash attention meets the
-    kernel's layout contract (unit head-dim stride, aligned rows), at batch
-    1 too, where a permuted reshape can leave a strided view; CPU, bf16."""
+    """Every q/k/v the UNet and the VAE pass to flash attention, and every
+    q/k/v/O/dO the UNet's backward passes to the backward kernels, meets
+    the kernels' layout contract (unit head-dim stride, aligned rows), at
+    batch 1 too, where a permuted reshape can leave a strided view; CPU,
+    bf16. The backward is checked for configs/tiny.yaml's UNet and for the
+    v1 UNet's transformers at their three widths (d = 40, 80, 160)."""
     from pbe_tpu_torch.models.pbe import build_from_yaml
+    from pbe_tpu_torch.models.unet import SpatialTransformer
     from pbe_tpu_torch.ops import attention
     from pbe_tpu_torch.pipelines.loading import init_parameters
 
-    seen = []
+    seen, seen_bwd = [], []
 
     def checked(q, k, v, return_lse=False):
         for x in (q, k, v):
@@ -105,7 +109,16 @@ def test_model_hands_the_kernel_tensors_it_can_read(monkeypatch, batch):
         seen.append(tuple(q.shape))
         return tfa.flash_attention(q, k, v, return_lse)
 
+    real_bwd = tfa.flash_attention_bwd_plain
+
+    def checked_bwd(q, k, v, o, lse, do):
+        for x in (q, k, v, o, do):
+            assert tfa.layout_error(x) is None, tfa.layout_error(x)
+        seen_bwd.append(tuple(do.shape))
+        return real_bwd(q, k, v, o, lse, do)
+
     monkeypatch.setattr(attention, "flash_attention", checked)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_plain", checked_bwd)
     model, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.bfloat16,
                                attn_impl="flash", device="cpu")
     init_parameters(model, seed=0)
@@ -117,8 +130,17 @@ def test_model_hands_the_kernel_tensors_it_can_read(monkeypatch, batch):
     with torch.no_grad():
         z = model.encode_first_stage(nhwc(batch, 3, 64, 64))
         model.decode_first_stage(z.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
-        x9 = nhwc(batch, 9, *z.shape[1:3])
-        model.apply_model(x9, torch.full((batch,), 500.0), torch.randn(batch, 1, 768))
-    # VAE mid attention in encode and decode (1 head, d=32); UNet ds1/ds2 (d=8, 16)
-    assert (batch, 1024, 1, 32) in seen and (batch, 1024, 4, 8) in seen
-    assert (batch, 256, 4, 16) in seen
+    # VAE mid attention in encode and decode (1 head, d=32)
+    assert (batch, 1024, 1, 32) in seen
+    x9 = nhwc(batch, 9, *z.shape[1:3])
+    eps = model.apply_model(x9, torch.full((batch,), 500.0), torch.randn(batch, 1, 768))
+    eps.float().square().mean().backward()
+    # UNet ds1/ds2 (d=8, 16), forward and backward
+    assert (batch, 1024, 4, 8) in seen and (batch, 256, 4, 16) in seen
+    assert (batch, 1024, 4, 8) in seen_bwd and (batch, 256, 4, 16) in seen_bwd
+    for ch in (320, 640, 1280):
+        tf = SpatialTransformer(ch, 8, ch // 8, 1, 768, attn_impl="flash")
+        out = tf(torch.randn(batch, ch, 4, 4, generator=g).to(torch.bfloat16),
+                 torch.randn(batch, 1, 768, generator=g))
+        out.float().square().mean().backward()
+        assert seen_bwd[-1] == (batch, 16, 8, ch // 8)
