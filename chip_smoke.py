@@ -5,8 +5,8 @@
 
 Phases:
   1. card name and power limit, torch/CUDA versions; build the kernels
-     from csrc/flash_fwd.cu and csrc/flash_bwd.cu (one nvcc each, started
-     together) and print their -Xptxas -v reports.
+     from csrc/flash_fwd.cu (the three forward kernels) and flash_bwd.cu
+     (one nvcc each, started together) and print their -Xptxas -v reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
      edit gives it (bf16), then timed with CUDA events beside the plain
      version and the one PyTorch call that computes the same function.
@@ -34,7 +34,19 @@ Training (the second slice):
      same steps on the CPU in fp32 (the path the CPU tests hold against
      JAX).
 
-A run takes them in the order 1, 2, 7, 3-5, 8, 9, 6, 10: kernels first,
+The attention benchmark (the third slice):
+ 11. the resident kernel's shared-memory layout as Python reckons it
+     against the kernel's own; the resident and pipelined kernels
+     (csrc/flash_fwd.cu) against the plain version at ragged and odd
+     shapes; at the benchmark's shapes every flash_forward(variant=...)
+     call against the plain version and counted as one launch of its
+     kernel, the resident kernel's refusal of the VAE shape, and the
+     resident and pipelined kernels at every key block they instantiate,
+     each timed beside the plain version and SDPA; then the bench entry
+     (pbe_tpu_torch.scripts.bench_attention) over every shape and impl, with
+     every kernel's launch count set to 0 just before and read just after.
+
+A run takes them in the order 1, 2, 7, 11, 3-5, 8, 9, 6, 10: kernels first,
 the card-vs-CPU comparisons last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
@@ -44,7 +56,6 @@ result, when any phase fails or there is no CUDA device.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -59,6 +70,8 @@ EXP2_PER_S = 3.9e12
 
 K1 = "pbe_tpu/ops/flash_attention.py:85"   # _flash_kernel_rowblock
 K2 = "pbe_tpu/ops/flash_attention.py:218"  # _flash_kernel (streamed)
+K3 = "pbe_tpu/ops/flash_attention.py:182"  # _flash_kernel_resident
+K4 = "pbe_tpu/ops/flash_attention.py:111"  # _flash_kernel_pipelined
 K5 = "pbe_tpu/ops/flash_attention.py:408"  # _flash_bwd_dq_kernel
 K6 = "pbe_tpu/ops/flash_attention.py:445"  # _flash_bwd_dkv_kernel
 # (name, (B, N, H, D), TPU kernel it replaces, launches per 512^2 CFG edit):
@@ -93,6 +106,7 @@ TRAIN_SHAPES = (
 )
 BWD_PER_STEP = sum(s[2] for s in TRAIN_SHAPES)  # 16 each of dQ and dK/dV
 FWD_PER_STEP = 2 * BWD_PER_STEP + 2             # 34
+VAE_TRAIN_SHAPE = (4, 4096, 1, 512)  # the frozen VAE's mid attention, 2 a step
 # bf16 tolerance of the backward kernels vs their plain versions, relative
 # to the gradient's scale: both round P and dS to bf16 at the same points
 # and differ only in the order of the fp32 sums (and in the ulp of S that
@@ -100,15 +114,15 @@ FWD_PER_STEP = 2 * BWD_PER_STEP + 2             # 34
 GRAD_MAX_REL = 2.0 ** -5
 GRAD_L2_REL = 1e-2
 
+# K3 and K4 beyond the benchmark's shapes: ds8, N that no tile divides, head
+# dims 16 and 512, and (for K3) clusters of 4 and 8 whose last share is
+# part-filled ((1,1000,2,80) and (1,77,1,512): C=4, (1,4000,2,40): C=8)
+VARIANT_CHECKS = ((2, 64, 8, 160), (1, 100, 2, 40), (2, 333, 3, 80), (1, 70, 2, 160),
+                  (2, 130, 4, 16), (1, 1000, 2, 80), (1, 4000, 2, 40), (1, 77, 1, 512))
+
+
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -127,7 +141,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def phase_build():
-    """Both kernel sources, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pbe_tpu_torch.ops import cuda_build
@@ -144,12 +158,18 @@ def phase_build():
 
 
 def check_flash(fa, q, k, v, label: str) -> tuple[float, float]:
-    """Kernel against its plain version on the same inputs -> (max abs err
-    of O, max abs err of the LSE); raises past the tolerances above."""
+    """flash_fwd against its plain version on the same inputs -> (max abs
+    err of O, max abs err of the LSE); raises past the tolerances above."""
+    return compare_flash(fa.flash_fwd(q, k, v, return_lse=True),
+                         fa.flash_attention_plain(q, k, v, return_lse=True), label)
+
+
+def compare_flash(got, want, label: str) -> tuple[float, float]:
+    """(O, LSE) of a kernel against (O, LSE) of the plain version; raises
+    past the tolerances above."""
     import torch
 
-    out, lse = fa.flash_fwd(q, k, v, return_lse=True)
-    want, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    (out, lse), (want, want_lse) = got, want
     diff = out.float() - want.float()
     err = diff.abs().max().item()
     scale = want.float().abs().max().item()
@@ -162,7 +182,7 @@ def check_flash(fa, q, k, v, label: str) -> tuple[float, float]:
         f"{lerr:.3e} (tol {LSE_ATOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees with its plain version at {label}")
-    del out, lse, want, want_lse, diff
+    del out, lse, diff
     torch.cuda.synchronize()
     return err, lerr
 
@@ -321,6 +341,159 @@ def phase_train_kernels() -> list[dict]:
             f"{sdpa_fwd_ms:.4f}, bound {f_row['bound_ms']:.4f})")
         del q, k, v, do, out, lse, dd, qt, kt, vt, dot
         torch.cuda.empty_cache()
+
+    # K2 at the frozen VAE's mid attention in the training step (no LSE)
+    b, n, h, d = VAE_TRAIN_SHAPE
+    q, k, v = (rand(VAE_TRAIN_SHAPE) for _ in range(3))
+    err, lerr = check_flash(fa, q, k, v, f"vae_mid_train {VAE_TRAIN_SHAPE}")
+    by, ms_bound = bound(4.0, b, n, h, d, 4 * b * n * h * d * 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows.append({"name": "flash_fwd/vae_mid_train", "route": "cuda",
+                 "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": K2,
+                 "launches": None, "expected_launches_per_step": 2,
+                 "max_abs_err": err, "lse_max_abs_err": lerr,
+                 "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 20),
+                 "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, 1),
+                 "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
+                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)})
+    r = rows[-1]
+    log(f"[bwd] vae_mid_train {VAE_TRAIN_SHAPE}: fwd {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {by})")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_resident_layout(fa) -> None:
+    """resident_smem, Python's reckoning of the resident kernel's shared
+    memory (which picks its cluster size on either device), against the
+    kernel's own (pbe_flash_resident_smem) at every instantiated head dim
+    and key block; -1 where a key block is not instantiated."""
+    import ctypes
+
+    from pbe_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("flash_fwd").pbe_flash_resident_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for dp, blocks in fa.RESIDENT_BLOCKS.items():
+        for bk in (32, 64, 128):
+            for rows in (bk, 8 * bk):
+                got = fn(dp, bk, rows)
+                want = fa.resident_smem(dp, bk, rows)[1] if bk in blocks else -1
+                if got != want:
+                    raise AssertionError(f"resident kernel at d={dp}, block_k {bk}, {rows} "
+                                         f"rows: {got} bytes of shared memory, Python "
+                                         f"reckons {want}")
+    log("[variants] the resident kernel's shared memory matches resident_smem at every "
+        "head dim and key block")
+
+
+def phase_variants() -> list[dict]:
+    """The third slice: K3 (resident) and K4 (pipelined) against the plain
+    version at VARIANT_CHECKS; at the attention benchmark's shapes, every
+    flash_forward(variant=...) call against the plain version with one
+    launch of the matching kernel and of no other, the resident kernel's
+    refusal of the VAE shape, and K3 and K4 at each key block they
+    instantiate; kernel, plain and SDPA times and the function's bound;
+    then the bench entry over every shape and impl, with every kernel's
+    count set to 0 just before and read just after."""
+    import torch
+    import torch.nn.functional as F
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import bench_attention as bench
+
+    check_resident_layout(fa)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    kernels = {"resident": fa.flash_fwd_resident, "pipelined": fa.flash_fwd_pipelined}
+    blocks = {"resident": fa.RESIDENT_BLOCKS, "pipelined": fa.PIPELINED_BLOCKS}
+    for shape in VARIANT_CHECKS:
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        want = fa.flash_attention_plain(q, k, v, return_lse=True)
+        for variant, kern in kernels.items():
+            c = fa.resident_cluster_size(shape[1], shape[3]) if variant == "resident" else ""
+            compare_flash(kern(q, k, v, return_lse=True), want,
+                          f"{variant} check {shape}" + (f" cluster {c}" if c else ""))
+
+    fwd_kernels = (fa.flash_fwd, fa.flash_fwd_resident, fa.flash_fwd_pipelined)
+    kernel_of = {"resident": 1, "pipelined": 2}  # index in fwd_kernels; others 0
+    rows = []
+    for name, shape in bench.SHAPES.items():
+        b, n, h, d = shape
+        dp = (d + 15) // 16 * 16
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        want = fa.flash_attention_plain(q, k, v, return_lse=True)
+        # every flash_forward(variant=...) call: the plain version's O and
+        # LSE, and one launch of its kernel
+        for variant in fa.VARIANTS:
+            before = [x.launches for x in fwd_kernels]
+            if variant == "resident" and fa.resident_cluster_size(n, d) is None:
+                try:
+                    fa.flash_forward(q, k, v, variant=variant)
+                except ValueError as e:
+                    log(f"[variants] {name} {shape}: resident refused: {e}")
+                else:
+                    raise AssertionError(f"the resident kernel took {shape}")
+                want_diff = [0, 0, 0]
+            else:
+                compare_flash(fa.flash_forward(q, k, v, variant=variant, return_lse=True),
+                              want, f"flash_forward(variant={variant!r}) {name} {shape}")
+                want_diff = [int(i == kernel_of.get(variant, 0)) for i in range(3)]
+            diff = [x.launches - b0 for x, b0 in zip(fwd_kernels, before)]
+            if diff != want_diff:
+                raise AssertionError(f"flash_forward(variant={variant!r}) at {shape} launched "
+                                     f"{diff} of (flash_fwd, resident, pipelined)")
+        log(f"[variants] {name}: each flash_forward variant launched its own kernel once")
+
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5, 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+        by, ms_bound = bound(4.0, b, n, h, d, 4 * b * n * h * d * 2)
+        for variant, kern in kernels.items():
+            cluster = fa.resident_cluster_size(n, d) if variant == "resident" else None
+            if variant == "resident" and cluster is None:
+                continue
+            errs = [compare_flash(kern(q, k, v, return_lse=True, block=blk), want,
+                                  f"{variant} {name} {shape} block {blk}")
+                    for blk in blocks[variant][dp]
+                    if variant != "resident" or fa.resident_cluster_size(n, d, blk)]
+            row = {"name": f"flash_fwd_{variant}/{name}", "route": "cuda",
+                   "source": "pbe_tpu_torch/csrc/flash_fwd.cu",
+                   "replaces": K3 if variant == "resident" else K4, "launches": None,
+                   "max_abs_err": max(e for e, _ in errs),
+                   "lse_max_abs_err": max(e for _, e in errs),
+                   "ms": cuda_ms(lambda: kern(q, k, v), 20), "plain_ms": plain_ms,
+                   "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
+                   "library_ms": sdpa_ms}
+            if cluster:
+                row["cluster"] = cluster
+            log(f"[variants] {variant} {name} {shape} (block {fa.key_block(variant, d)}"
+                f"{f', cluster {cluster}' if cluster else ''}): {row['ms']:.4f} ms, plain "
+                f"{plain_ms:.4f}, SDPA {sdpa_ms:.4f}, bound {ms_bound:.4f} by {by}")
+            rows.append(row)
+        del q, k, v, qt, kt, vt, want
+        torch.cuda.empty_cache()
+
+    # this slice's path: the bench entry, every kernel's count from 0
+    every = (*fwd_kernels, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for kern in every:
+        kern.launches = 0
+        kern.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    bench.main(["--repeats", "10"])
+    counts = {kern.symbol: (kern.launches, dict(kern.launches_by_shape)) for kern in every}
+    log(f"[variants] bench entry in {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps({s: c[0] for s, c in counts.items()})}")
+    if not all(kern.launches for kern in fwd_kernels) or fa.flash_bwd_dq.launches \
+            or fa.flash_bwd_dkv.launches:
+        raise AssertionError("the bench entry did not launch every forward kernel, or "
+                             "launched a backward one")
+    for row in rows:
+        kern = kernels[row["name"].split("/")[0].removeprefix("flash_fwd_")]
+        row["launches"] = counts[kern.symbol][1].get(bench.SHAPES[row["name"].split("/")[1]], 0)
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on the bench entry's path")
     return rows
 
 
@@ -444,15 +617,20 @@ def phase_edit(pipe, card: str, rows: list[dict]) -> dict:
     from pbe_tpu_torch.ops import flash_attention as fa
 
     image, mask, ref = edit_inputs(512, 224, seed=2)
-    fa.flash_fwd.launches = 0
-    fa.flash_fwd.launches_by_shape.clear()
+    variants = (fa.flash_fwd_resident, fa.flash_fwd_pipelined)
+    for kern in (fa.flash_fwd, *variants):
+        kern.launches = 0
+        kern.launches_by_shape.clear()
     t0 = time.perf_counter()
     out = pipe.edit_batch(image, mask, ref, steps=50, scale=5.0, seed=3)
     first_s = time.perf_counter() - t0
     launches = fa.flash_fwd.launches
     by_shape = dict(fa.flash_fwd.launches_by_shape)
     log(f"[edit] 512^2 50-step PLMS scale 5 batch 1: first edit {first_s:.3f} s, "
-        f"flash launches {launches} (expected {LAUNCHES_PER_EDIT}), by shape {by_shape}")
+        f"flash launches {launches} (expected {LAUNCHES_PER_EDIT}), by shape {by_shape}; "
+        f"resident {variants[0].launches}, pipelined {variants[1].launches} (expected 0)")
+    if any(kern.launches for kern in variants):
+        raise AssertionError("the edit launched the resident or pipelined kernel")
     if out.shape != (1, 512, 512, 3) or not np.isfinite(out).all():
         raise AssertionError(f"edit output shape {out.shape} or non-finite values")
     if out.min() < 0.0 or out.max() > 1.0:
@@ -617,7 +795,8 @@ def phase_train(model, card: str, rows: list[dict]) -> dict:
                 events[-1].record()
                 yield b
 
-        kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_fwd_resident,
+                   fa.flash_fwd_pipelined)
         for k in kernels:
             k.launches = 0
             k.launches_by_shape.clear()
@@ -659,20 +838,19 @@ def phase_train(model, card: str, rows: list[dict]) -> dict:
         log(f"[train] frozen parameters unchanged ({len(frozen)} tensors); AdamW state for "
             f"all {len(trainable)} trainable tensors and no frozen one")
         per_step = {"pbe_flash_fwd_bf16": FWD_PER_STEP, "pbe_flash_bwd_dq_bf16": BWD_PER_STEP,
-                    "pbe_flash_bwd_dkv_bf16": BWD_PER_STEP}
+                    "pbe_flash_bwd_dkv_bf16": BWD_PER_STEP, "pbe_flash_resident_bf16": 0,
+                    "pbe_flash_pipelined_bf16": 0}
         for sym, want in per_step.items():
             if counts[sym][0] != want * steps:
                 raise AssertionError(f"{sym}: {counts[sym][0]} launches in {steps} steps, "
                                      f"expected {want} per step")
-        vae = counts["pbe_flash_fwd_bf16"][1].get((4, 4096, 1, 512), 0)
-        if vae != 2 * steps:
-            raise AssertionError(f"VAE attention launched {vae} times, expected 2 per step")
         sym_of = {"flash_bwd_dq": "pbe_flash_bwd_dq_bf16",
                   "flash_bwd_dkv": "pbe_flash_bwd_dkv_bf16",
-                  "flash_fwd_lse": "pbe_flash_fwd_bf16"}
+                  "flash_fwd_lse": "pbe_flash_fwd_bf16", "flash_fwd": "pbe_flash_fwd_bf16"}
+        shape_of = {**{n: sh for n, sh, _ in TRAIN_SHAPES}, "vae_mid": VAE_TRAIN_SHAPE}
         for row in rows:
             kname, sname = row["name"].split("/")
-            shape = dict((n, sh) for n, sh, _ in TRAIN_SHAPES)[sname.removesuffix("_train")]
+            shape = shape_of[sname.removesuffix("_train")]
             n = counts[sym_of[kname]][1].get(shape, 0)
             want = row.pop("expected_launches_per_step")
             if n != want * steps:
@@ -765,6 +943,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from pbe_tpu_torch.scripts.bench_attention import card_line
 
     card = card_line()
     log(f"[env] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -772,6 +951,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     train_rows = phase_train_kernels()
+    variant_rows = phase_variants()
     from pbe_tpu_torch.pipelines.loading import (eps_rms_probe, load_pipeline,
                                                  randomize_zero_params)
 
@@ -798,7 +978,7 @@ def main() -> int:
     phase_train_reference()
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
-    print(json.dumps({"kernels": rows + train_rows}), flush=True)
+    print(json.dumps({"kernels": rows + train_rows + variant_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

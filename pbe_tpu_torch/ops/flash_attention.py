@@ -1,12 +1,14 @@
 """Fused flash attention, forward and backward: the Hopper kernels and
 their plain versions.
 
-Replaces the Pallas kernels of ``pbe_tpu/ops/flash_attention.py`` that the
-port's paths reach: the forward kernels ``_flash_kernel_rowblock`` (UNet
-self-attention) and ``_flash_kernel`` (streamed; VAE mid-block attention),
-and the backward kernels ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel`` of the training step. All four Pallas forward
-variants compute the same function:
+Replaces the six Pallas kernels of ``pbe_tpu/ops/flash_attention.py``: the
+forward kernels ``_flash_kernel_rowblock`` (UNet self-attention) and
+``_flash_kernel`` (streamed; VAE mid-block attention), both served by one
+kernel of ``csrc/flash_fwd.cu``; ``_flash_kernel_resident`` and
+``_flash_kernel_pipelined``, two more kernels of that file, which only a
+named variant of :func:`flash_forward` reaches; and the backward kernels
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` of the training step.
+All four Pallas forward variants compute the same function:
 
     q2  = round_to_dtype(q * d^-1/2 * log2(e))      (prescale, exp2 domain)
     S2  = q2 K^T                                    (fp32)
@@ -21,8 +23,8 @@ and the backward recomputes P from the same q2 and the LSE:
     dQ = round(dS.to(dtype) K)                       (dQ kernel)
     dV = round(P.to(dtype)^T dO),  dK = round(dS.to(dtype)^T Q)   (dK/dV kernel)
 
-The kernels, ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, are built
-with nvcc at first use and bound with ctypes. Layout: (B, N, H, D) with
+The kernels in ``csrc/`` are built with nvcc at first use and bound with
+ctypes. Layout: (B, N, H, D) with
 strides, as the attention projections produce it, so no transpose copy is
 made; the LSE and D are (B*H, N).
 
@@ -46,6 +48,20 @@ LOG2E = 1.4426950408889634  # log2(e): exp(x) == exp2(x * LOG2E)
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
 # ... and in csrc/flash_bwd.cu: the UNet's; the VAE (d=512) is frozen
 BWD_HEAD_DIMS = (16, 32, 48, 80, 160)
+# q tile of csrc/flash_fwd.cu's kernels by padded head dim (its by_head_dim):
+# resident_smem lays out the resident kernel's shared memory with it, and
+# chip_smoke.py holds that layout to the kernel's own (pbe_flash_resident_smem)
+BLOCK_Q = {**{dp: 64 for dp in (16, 32, 48, 80, 160)}, 512: 32}
+# key blocks instantiated by padded head dim in csrc/flash_fwd.cu: the
+# resident kernel's block_k (past these, the working tiles leave no room for
+# a share of K and V of one key block) and the pipelined kernel's block_c (at
+# d=512, K and V chunks of 128 rows do not fit beside the rest)
+RESIDENT_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80)}, 160: (32, 64),
+                   512: (32,)}
+PIPELINED_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80, 160)}, 512: (32, 64)}
+VARIANTS = ("auto", "rowblock", "streamed", "resident", "pipelined")
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block can use
+CLUSTER_SIZES = (1, 2, 4, 8)  # the portable thread-block cluster sizes
 
 
 def prescale(q: torch.Tensor) -> torch.Tensor:
@@ -131,6 +147,65 @@ def layout_error(x: torch.Tensor) -> str | None:
     return None
 
 
+def key_block(variant: str, d: int, block: int | None = None) -> int:
+    """The key block the resident (block_k) or pipelined (block_c) kernel
+    runs at head dim d: ``block``, or by default 64 (32 from a padded head
+    dim of 160). Raises ValueError for a head dim or block it does not
+    instantiate."""
+    table = RESIDENT_BLOCKS if variant == "resident" else PIPELINED_BLOCKS
+    dp = _round_up(d, 16)
+    if dp not in table:
+        raise ValueError(f"{variant}: head dim {d} unsupported (pads to one of {tuple(table)})")
+    block = (64 if dp < 160 else 32) if block is None else block
+    if block not in table[dp]:
+        raise ValueError(f"{variant}: key block {block} is not instantiated at padded head "
+                         f"dim {dp} (one of {table[dp]})")
+    return block
+
+
+def resident_rows(n: int, block_k: int, cluster: int) -> int:
+    """Rows of K and of V each block of a cluster holds: N / cluster
+    rounded up to the key block, so no key block straddles two shares."""
+    return _round_up(-(-n // cluster), block_k)
+
+
+def resident_smem(d: int, block_k: int, rows: int) -> tuple[int, int]:
+    """(working tiles, whole block) shared-memory bytes of one block of the
+    resident kernel (csrc/flash_fwd.cu Tile and resident_smem): Q, m and l,
+    S (fp32), P (bf16), the fp32 accumulator and one K-or-V staging tile,
+    each 128-byte aligned, then the block's shares of K and of V."""
+    dp = _round_up(d, 16)
+    bq, ldq = BLOCK_Q[dp], dp + 8
+    work = sum(_round_up(x, 128) for x in (
+        bq * ldq * 2, bq * 8, bq * (block_k + 4) * 4, bq * (block_k + 8) * 2,
+        bq * (dp + 4) * 4, block_k * ldq * 2))
+    return work, work + 2 * _round_up(rows * ldq * 2, 128)
+
+
+def resident_cluster_size(n: int, d: int, block_k: int | None = None) -> int | None:
+    """Blocks in the thread-block cluster that holds one head's K and V for
+    the resident kernel: the smallest of CLUSTER_SIZES whose blocks' shares
+    fit SMEM_PER_BLOCK beside their working tiles, or None where none does
+    (the VAE's N=4096, d=512: 8.5 MB of K and V)."""
+    block_k = key_block("resident", d, block_k)
+    return next((c for c in CLUSTER_SIZES if resident_smem(
+        d, block_k, resident_rows(n, block_k, c))[1] <= SMEM_PER_BLOCK), None)
+
+
+def resident_footprint(n: int, d: int, block_k: int | None = None) -> str:
+    """What the resident kernel's shared memory must hold at (N, d), and what
+    the largest cluster has room for: the reason behind a None of
+    :func:`resident_cluster_size`."""
+    block_k = key_block("resident", d, block_k)
+    work, _ = resident_smem(d, block_k, 0)
+    room = CLUSTER_SIZES[-1] * (SMEM_PER_BLOCK - work)
+    kv = 2 * n * (_round_up(d, 16) + 8) * 2
+    return (f"resident: K and V of one head take {kv} bytes of shared memory at N={n}, "
+            f"d={d} (rows padded to {_round_up(d, 16) + 8} bf16); a cluster of "
+            f"{CLUSTER_SIZES[-1]} blocks has {room} beside its working tiles ({work} bytes "
+            f"a block of {SMEM_PER_BLOCK}, block_k {block_k})")
+
+
 class _Kernel:
     """A kernel's ctypes entry point in ``csrc/<lib>.cu``, loaded at first
     launch, and its launch counts: ``launches`` in all and
@@ -181,23 +256,49 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 
 
 class FlashForward(_Kernel):
-    """``pbe_flash_fwd_bf16`` (csrc/flash_fwd.cu): (q, k, v) -> O [, LSE]."""
+    """A forward kernel of csrc/flash_fwd.cu: (q, k, v) -> O [, LSE].
+    ``variant`` None is ``pbe_flash_fwd_bf16``, the models' kernel (K1/K2);
+    "resident" ``pbe_flash_resident_bf16`` (K3) and "pipelined"
+    ``pbe_flash_pipelined_bf16`` (K4) take a key block ``block`` (block_k
+    or block_c)."""
 
-    def __init__(self):
-        super().__init__("flash_fwd", "pbe_flash_fwd_bf16",
-                         [_PTR] * 5 + [_I32] * 4 + [_I64] * 9 + [_F32, _PTR])
+    def __init__(self, variant: str | None = None):
+        self.variant = variant
+        # [key block [, cluster size, rows a block]]
+        extra = {None: [], "resident": [_I32] * 3, "pipelined": [_I32]}[variant]
+        super().__init__("flash_fwd", f"pbe_flash_{variant or 'fwd'}_bf16",
+                         [_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32] + extra
+                         + [_PTR])
+
+    def plan(self, n: int, d: int, block: int | None = None) -> list[int]:
+        """The launch's extra arguments at (N, d): none, [key block]
+        (pipelined) or [key block, cluster size, rows a block] (resident);
+        raises ValueError where the kernel cannot take them, with the
+        reason."""
+        if self.variant is None:
+            return []
+        block = key_block(self.variant, d, block)
+        if self.variant != "resident":
+            return [block]
+        cluster = resident_cluster_size(n, d, block)
+        if cluster is None:
+            raise ValueError(resident_footprint(n, d, block))
+        return [block, cluster, resident_rows(n, block, cluster)]
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 return_lse: bool = False):
-        _check_operands("flash kernel", SUPPORTED_HEAD_DIMS, q=q, k=k, v=v)
+                 return_lse: bool = False, block: int | None = None):
         b, n, h, d = q.shape
+        extra = self.plan(n, d, block)
+        _check_operands(f"{self.variant or 'flash'} kernel", SUPPORTED_HEAD_DIMS,
+                        q=q, k=k, v=v)
         out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
         lse = (torch.empty((b * h, n), device=q.device, dtype=torch.float32)
                if return_lse else None)
+        strides = (_I64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
         self._launch((b, n, h, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), None if lse is None else lse.data_ptr(),
-                     b, n, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                     d ** -0.5 * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+                     b, n, h, d, strides, d ** -0.5 * LOG2E, *extra,
+                     torch.cuda.current_stream(q.device).cuda_stream)
         return (out, lse) if return_lse else out
 
 
@@ -234,16 +335,40 @@ class FlashBackward(_Kernel):
 
 
 flash_fwd = FlashForward()
+flash_fwd_resident = FlashForward("resident")
+flash_fwd_pipelined = FlashForward("pipelined")
 flash_bwd_dq = FlashBackward("dq")
 flash_bwd_dkv = FlashBackward("dkv")
 
 
-def _forward(q, k, v, return_lse=False):
-    if q.device.type == "cuda":
-        return flash_fwd(q, k, v, return_lse)
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  variant: str = "auto", block_k: int | None = None,
+                  block_c: int | None = None, return_lse: bool = False):
+    """(B,N,H,D) attention [, LSE] by one named forward variant: the port of
+    ``_flash_fwd_bhnd``. "auto", "rowblock" and "streamed" run
+    :data:`flash_fwd`; "resident" :data:`flash_fwd_resident` with key blocks
+    of ``block_k``; "pipelined" :data:`flash_fwd_pipelined` with key chunks
+    of ``block_c``. A name, block or shape that the variant's kernel does not
+    take raises ValueError with the reason, on either device; no call moves
+    to another variant. CUDA tensors launch the kernel (or raise); CPU
+    tensors run :func:`flash_attention_plain`."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown flash variant {variant!r} (one of {VARIANTS})")
+    if block_k is not None and variant != "resident":
+        raise ValueError(f"block_k is the resident kernel's key block, not {variant}'s")
+    if block_c is not None and variant != "pipelined":
+        raise ValueError(f"block_c is the pipelined kernel's key chunk, not {variant}'s")
+    kernel = {"resident": flash_fwd_resident, "pipelined": flash_fwd_pipelined}.get(variant)
+    block = block_k if variant == "resident" else block_c
+    if kernel is not None:
+        kernel.plan(q.shape[1], q.shape[3], block)  # raises here on either device
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, return_lse)
-    raise ValueError(f"flash attention has no path for device {q.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention has no path for device {q.device}")
+    if kernel is None:
+        return flash_fwd(q, k, v, return_lse)
+    return kernel(q, k, v, return_lse, block)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -257,8 +382,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         if not any(ctx.needs_input_grad):
-            return _forward(q, k, v)
-        out, lse = _forward(q, k, v, return_lse=True)
+            return flash_forward(q, k, v)
+        out, lse = flash_forward(q, k, v, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -279,5 +404,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise); CPU tensors run their plain versions. ``return_lse=True`` also
     returns the (B*H, N) log2-domain LSE, outside autograd."""
     if return_lse:
-        return _forward(q, k, v, return_lse=True)
+        return flash_forward(q, k, v, return_lse=True)
     return FlashAttention.apply(q, k, v)

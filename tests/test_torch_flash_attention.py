@@ -24,9 +24,11 @@ def _qkv(shape, seed=0):
 SHAPES = [(2, 256, 40), (2, 128, 80), (2, 64, 160), (1, 256, 512)]
 
 
-@pytest.mark.parametrize("variant", ["rowblock", "streamed"])
+@pytest.mark.parametrize("variant", ["rowblock", "streamed", "resident", "pipelined"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_matches_pallas_kernel(shape, variant):
+    """Each Pallas forward variant against the port's flash_forward with
+    the same variant named (on the CPU: its plain version)."""
     q, k, v = _qkv(shape)
     with pltpu.force_tpu_interpret_mode():
         want, want_lse = jfa._flash_fwd_bhnd(
@@ -34,11 +36,11 @@ def test_plain_matches_pallas_kernel(shape, variant):
             block_k=64, return_stats=True, variant=variant)
     # (BH, N, D) is (B, N, H, D) with B = BH and H = 1
     as_bnhd = lambda a: torch.from_numpy(a)[:, :, None, :]
-    got, got_lse = tfa.flash_attention(as_bnhd(q), as_bnhd(k), as_bnhd(v),
-                                       return_lse=True)
+    got, got_lse = tfa.flash_forward(as_bnhd(q), as_bnhd(k), as_bnhd(v),
+                                     variant=variant, return_lse=True)
     # the bounds of tests/test_flash_attention.py: fp32 throughout, the two
-    # differ only in summation order (and the streamed kernel's online
-    # rescaling); LSE is lane 0 of the JAX kernel's lane-broadcast output
+    # differ only in summation order (and the streamed and resident kernels'
+    # online rescaling); LSE is lane 0 of the JAX kernel's lane-broadcast output
     np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(want), atol=2e-5)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4)
 

@@ -1,0 +1,122 @@
+"""The port's variant-selecting forward (``flash_forward``), the resident
+kernel's footprint rule and the attention benchmark entry, on the CPU. The
+resident and pipelined CUDA kernels themselves are held against the plain
+version on the card by chip_smoke.py; here every variant runs the plain
+version and launches nothing."""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from pbe_tpu.ops import flash_attention as jfa
+
+from pbe_tpu_torch.ops import flash_attention as tfa
+from pbe_tpu_torch.scripts import bench_attention as bench
+
+KERNELS = (tfa.flash_fwd, tfa.flash_fwd_resident, tfa.flash_fwd_pipelined,
+           tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+
+
+def _qkv(shape, seed=0):
+    g = np.random.default_rng(seed)
+    return [g.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def test_pipelined_multichunk_matches_pallas_kernel():
+    """Four key chunks of 64, as tests/test_flash_attention.py runs the
+    Pallas kernel; the port's block_c names the same chunk."""
+    q, k, v = _qkv((2, 256, 40), seed=1)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = jfa._flash_fwd_bhnd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128, block_k=128,
+            return_stats=True, variant="pipelined", block_c=64)
+    as_bnhd = lambda a: torch.from_numpy(a)[:, :, None, :]
+    got, got_lse = tfa.flash_forward(as_bnhd(q), as_bnhd(k), as_bnhd(v),
+                                     variant="pipelined", block_c=64, return_lse=True)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(want), atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4)
+
+
+def test_cpu_tensors_launch_no_kernel_under_any_variant():
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 64, 2, 40), seed=2))
+    want, want_lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
+    before = [x.launches for x in KERNELS]
+    for variant in tfa.VARIANTS:
+        got, got_lse = tfa.flash_forward(q, k, v, variant=variant, return_lse=True)
+        assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
+    assert [x.launches for x in KERNELS] == before
+
+
+def test_unknown_variant_and_foreign_blocks_raise():
+    q = torch.zeros(1, 64, 1, 40)
+    with pytest.raises(ValueError, match="unknown flash variant"):
+        tfa.flash_forward(q, q, q, variant="blocked")
+    with pytest.raises(ValueError, match="block_k is the resident"):
+        tfa.flash_forward(q, q, q, variant="pipelined", block_k=64)
+    with pytest.raises(ValueError, match="block_c is the pipelined"):
+        tfa.flash_forward(q, q, q, variant="auto", block_c=64)
+    with pytest.raises(ValueError, match="not instantiated"):
+        tfa.flash_forward(q, q, q, variant="pipelined", block_c=512)
+    with pytest.raises(ValueError, match="not instantiated"):
+        tfa.flash_forward(torch.zeros(1, 64, 1, 160), *[torch.zeros(1, 64, 1, 160)] * 2,
+                          variant="resident", block_k=128)
+    with pytest.raises(ValueError, match="head dim 64 unsupported"):
+        tfa.flash_forward(*[torch.zeros(1, 64, 1, 64)] * 3, variant="resident")
+
+
+# the benchmark's shapes and ds8: K and V of one head (rows padded to d+8
+# bf16) against 227 KB a block beside the working tiles
+@pytest.mark.parametrize("shape, cluster", [
+    ((2, 4096, 8, 40), 8),   # 896 KB
+    ((2, 1024, 8, 80), 4),   # 352 KB
+    ((2, 256, 8, 160), 2),   # 168 KB, fails one block beside its tiles
+    ((2, 64, 8, 160), 1),
+    ((2, 4096, 1, 512), None),  # 8.5 MB: no cluster of 8 holds it
+])
+def test_resident_cluster_size(shape, cluster):
+    _, n, _, d = shape
+    assert tfa.resident_cluster_size(n, d) == cluster
+
+
+def test_resident_refuses_the_vae_shape_and_cpu_tensors():
+    vae = torch.empty(2, 4096, 1, 512, device="meta")
+    with pytest.raises(ValueError, match="8519680 bytes of shared memory"):
+        tfa.flash_forward(vae, vae, vae, variant="resident")  # on any device
+    with pytest.raises(ValueError, match="8519680 bytes of shared memory"):
+        tfa.flash_fwd_resident(vae, vae, vae)
+    x = torch.zeros(2, 64, 8, 160, dtype=torch.bfloat16)
+    for kernel in (tfa.flash_fwd_resident, tfa.flash_fwd_pipelined):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel(x, x, x)
+
+
+def test_bench_entry_on_the_cpu(capsys):
+    rows = bench.main(["--device", "cpu", "--repeats", "1"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert lines[0] == {"card": None, "device": "cpu"}
+    assert lines[1:] == rows and len(rows) == 1
+    keys = {"shape", "bh", "n", "d", "impl", "blocks", "us", "ideal_unpadded_us",
+            "ideal_padded_us", "mxu_util_vs_unpadded"}  # scripts/bench_attention.py's
+    assert keys <= rows[0].keys()
+    assert (rows[0]["impl"], rows[0]["shape"], rows[0]["device"]) == ("plain", "tiny", "cpu")
+    assert rows[0]["us"] > 0 and rows[0]["ideal_padded_us"] > rows[0]["ideal_unpadded_us"]
+
+
+def test_bench_plan_over_the_card_shapes():
+    """Every (shape, impl, blocks) line the card run prints, decided from
+    the shapes alone: the resident kernel's VAE line is skipped with the
+    footprint, every resident and pipelined line names its key block (and
+    cluster), and the models' kernel is timed once a shape."""
+    plan = bench.configs(bench.SHAPES, bench.IMPLS)
+    by = {(name, impl, None if blocks is None else blocks[0]): (cluster, skip)
+          for name, impl, blocks, cluster, skip in plan}
+    assert len(by) == len(plan) == 28
+    assert [impl for _, impl, _, _, _ in plan].count("auto") == len(bench.SHAPES)
+    assert by[("vae_mid", "resident", 32)][1].startswith("resident: K and V of one head")
+    assert [skip for _, _, _, _, skip in plan].count(None) == 27
+    assert by[("unet_ds1", "resident", 128)] == (8, None)
+    assert by[("unet_ds4", "pipelined", 128)] == (None, None)
+    assert {impl for _, impl, _, _, _ in plan} == set(bench.IMPLS)
