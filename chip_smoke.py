@@ -5,11 +5,14 @@
 
 Phases:
   1. card name and power limit, torch/CUDA versions; build the kernels
-     from csrc/flash_fwd.cu (the three forward kernels) and flash_bwd.cu
+     from csrc/flash_fwd.cu (the four forward kernels) and flash_bwd.cu
      (one nvcc each, started together) and print their -Xptxas -v reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
-     edit gives it (bf16), then timed with CUDA events beside the plain
-     version and the one PyTorch call that computes the same function.
+     edit gives it (bf16), at ragged N for every padded head dim, and with
+     peaked scores, a row max rising at every key tile and packed q/k/v
+     views at the edit's head dims; then timed beside the plain version and
+     the one PyTorch call that computes the same function (CUDA events
+     around a CUDA graph of 20 calls, and the kernel's eager launches too).
   3. one full-width v1 CFG UNet call (64^2 latent, batch 2, bf16) with the
      flash kernel and with plain attention.
   4. the slice: load_pipeline("configs/v1.yaml") with random weights, a
@@ -93,6 +96,15 @@ LAUNCHES_PER_EDIT = sum(s[3] for s in FLASH_SHAPES)  # 818
 OUT_MAX_REL = 2.0 ** -6
 OUT_L2_REL = 1e-2
 LSE_ATOL = 1e-3  # fp32 log2-domain statistics (~12), summed in another order
+# N that no q tile (256 rows at d=40, 128 at 80, 64 at 8-32 and 160, 32 at
+# 512) or key tile (128, 64 or 32) of flash_fwd divides, at every padded
+# head dim: 48, 80, 512, 16 (d=8 and 16), 32, 160
+RAGGED_CHECKS = ((1, 100, 2, 40), (2, 333, 3, 80), (1, 77, 1, 512), (2, 130, 4, 8),
+                 (2, 130, 4, 16), (1, 90, 2, 32), (1, 70, 2, 160), (1, 1000, 1, 512),
+                 (3, 47, 2, 48))
+# the shapes at which phase 2 also feeds inputs that randn's nearly uniform
+# softmax cannot stand in for: the four head dims of the edit's path
+STRESS_SHAPES = ((2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (1, 4096, 1, 512))
 
 # (name, (B, N, H, D), launches of each backward kernel per v1 training step):
 # the UNet self-attention at batch 4. Under remat the forward kernel runs
@@ -137,6 +149,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one fn() call: `iters` calls captured into one CUDA
+    graph, replayed between two CUDA events. Back-to-back eager launches
+    of the small shapes (ds4, ds8) run at the host's launch rate, which
+    this takes out for the kernel, its plain version and SDPA alike."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -187,6 +227,45 @@ def compare_flash(got, want, label: str) -> tuple[float, float]:
     return err, lerr
 
 
+def rising_scores(shape, gen):
+    """q and k (bf16, on the card) whose scores grow with the key's position:
+    q[..., 0] = 1 and k[:, j, :, 0] = j * 0.02 / (d^-1/2 log2 e), so a score
+    rises by 0.02 a key in the exp2 domain (1.28 a 64-key tile), far above
+    the other columns' noise (0.1 randn each): every key tile raises the row
+    max, and O is rescaled at every tile."""
+    import torch
+
+    from pbe_tpu_torch.ops.flash_attention import LOG2E
+
+    n, d = shape[1], shape[3]
+    q = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+    k = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+    q[..., 0] = 1.0
+    step = 0.02 / (d ** -0.5 * LOG2E)
+    k[..., 0] = (torch.arange(n, device="cuda", dtype=torch.float32) * step)[None, :, None]
+    return q.to(torch.bfloat16), k.to(torch.bfloat16)
+
+
+def check_stress(fa, rand, gen) -> None:
+    """flash_fwd where a wrong rescale cannot hide (with randn inputs at
+    N=4096 the softmax is nearly uniform, |O| ~ 0.02): peaked scores (q and
+    k x8), a row max that rises at every key tile, and q, k, v as the three
+    strided views of one packed (B, N, 3, H, D) tensor, as the UNet hands
+    them over; the same tolerances as every other check."""
+    import torch
+
+    for shape in STRESS_SHAPES:
+        b, n, h, d = shape
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        check_flash(fa, q * 8, k * 8, v, f"peaked (q, k x8) {shape}")
+        qr, kr = rising_scores(shape, gen)
+        check_flash(fa, qr, kr, v, f"rising max {shape}")
+        q, k, v = rand((b, n, 3, h, d)).unbind(2)
+        check_flash(fa, q, k, v, f"packed qkv views {shape} strides {q.stride()}")
+        del q, k, v, qr, kr
+        torch.cuda.empty_cache()
+
+
 def phase_kernels() -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -196,9 +275,11 @@ def phase_kernels() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    # masking and padding beyond the main-path shapes: ragged N, other dims
-    for shape in ((1, 100, 2, 40), (2, 333, 3, 80), (1, 77, 1, 512), (2, 130, 4, 8)):
+    # masking and padding beyond the main-path shapes: ragged N, every
+    # padded head dim
+    for shape in RAGGED_CHECKS:
         check_flash(fa, rand(shape), rand(shape), rand(shape), f"check {shape}")
+    check_stress(fa, rand, gen)
 
     rows = []
     for name, shape, replaces, _ in FLASH_SHAPES:
@@ -217,14 +298,16 @@ def phase_kernels() -> list[dict]:
         row = {"name": f"flash_fwd/{name}", "route": "cuda",
                "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": replaces,
                "launches": None, "max_abs_err": err, "lse_max_abs_err": lerr,
-               "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 20),
-               "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5, 1),
+               "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
+               "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
                "bound_ms": binding[1],
                "bound_by": "bytes" if binding[0] == "bytes" else "operations",
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)}
-        log(f"[kernel] {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-            f"ms, sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-            f"{binding[0]} (mma {t_mma:.4f}, exp2 {t_exp2:.4f}, bytes {t_bytes:.4f})")
+               "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20),
+               "eager_ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 20)}
+        log(f"[kernel] {name}: kernel {row['ms']:.4f} ms ({row['eager_ms']:.4f} launched "
+            f"eagerly), plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms by {binding[0]} (mma {t_mma:.4f}, exp2 "
+            f"{t_exp2:.4f}, bytes {t_bytes:.4f})")
         rows.append(row)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
@@ -326,19 +409,20 @@ def phase_train_kernels() -> list[dict]:
                      "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": K1,
                      "launches": None, "expected_launches_per_step": 2 * per_step,
                      "max_abs_err": ferr, "lse_max_abs_err": flerr,
-                     "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, return_lse=True), 20),
-                     "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
-                         q, k, v, return_lse=True), 3, 1),
+                     "ms": graph_ms(lambda: fa.flash_fwd(q, k, v, return_lse=True), 20),
+                     "plain_ms": graph_ms(lambda: fa.flash_attention_plain(
+                         q, k, v, return_lse=True), 3),
                      "bound_ms": ms_bound,
                      "bound_by": "bytes" if by == "bytes" else "operations",
-                     "library_ms": sdpa_fwd_ms})
+                     "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                            20)})
         dq_row, dkv_row, f_row = rows[-3:]
         log(f"[bwd] {name} {shape}: dq {dq_row['ms']:.4f} ms (plain {dq_row['plain_ms']:.4f}, "
             f"bound {dq_row['bound_ms']:.4f}); dkv {dkv_row['ms']:.4f} ms (plain "
             f"{dkv_row['plain_ms']:.4f}, bound {dkv_row['bound_ms']:.4f}); sum "
             f"{dq_row['ms'] + dkv_row['ms']:.4f} vs SDPA backward {sdpa_bwd_ms:.4f} ms; "
             f"fwd+lse {f_row['ms']:.4f} ms (plain {f_row['plain_ms']:.4f}, SDPA "
-            f"{sdpa_fwd_ms:.4f}, bound {f_row['bound_ms']:.4f})")
+            f"{f_row['library_ms']:.4f}, bound {f_row['bound_ms']:.4f}; graph-timed)")
         del q, k, v, do, out, lse, dd, qt, kt, vt, dot
         torch.cuda.empty_cache()
 
@@ -352,10 +436,11 @@ def phase_train_kernels() -> list[dict]:
                  "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": K2,
                  "launches": None, "expected_launches_per_step": 2,
                  "max_abs_err": err, "lse_max_abs_err": lerr,
-                 "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 20),
-                 "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, 1),
+                 "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
+                 "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v), 3),
                  "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
-                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)})
+                 "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                        20)})
     r = rows[-1]
     log(f"[bwd] vae_mid_train {VAE_TRAIN_SHAPE}: fwd {r['ms']:.4f} ms (plain "
         f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {by})")

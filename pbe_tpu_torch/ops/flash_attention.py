@@ -3,10 +3,11 @@ their plain versions.
 
 Replaces the six Pallas kernels of ``pbe_tpu/ops/flash_attention.py``: the
 forward kernels ``_flash_kernel_rowblock`` (UNet self-attention) and
-``_flash_kernel`` (streamed; VAE mid-block attention), both served by one
-kernel of ``csrc/flash_fwd.cu``; ``_flash_kernel_resident`` and
-``_flash_kernel_pipelined``, two more kernels of that file, which only a
-named variant of :func:`flash_forward` reaches; and the backward kernels
+``_flash_kernel`` (streamed; VAE mid-block attention), served by two
+kernels of ``csrc/flash_fwd.cu`` behind one entry (the VAE's d=512 takes
+its own); ``_flash_kernel_resident`` and ``_flash_kernel_pipelined``,
+two more kernels of that file, which only a named variant of
+:func:`flash_forward` reaches; and the backward kernels
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` of the training step.
 All four Pallas forward variants compute the same function:
 
@@ -48,7 +49,8 @@ LOG2E = 1.4426950408889634  # log2(e): exp(x) == exp2(x * LOG2E)
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
 # ... and in csrc/flash_bwd.cu: the UNet's; the VAE (d=512) is frozen
 BWD_HEAD_DIMS = (16, 32, 48, 80, 160)
-# q tile of csrc/flash_fwd.cu's kernels by padded head dim (its by_head_dim):
+# q tile of csrc/flash_fwd.cu's resident and pipelined kernels by padded
+# head dim (its by_head_dim; the models' kernels pick their own):
 # resident_smem lays out the resident kernel's shared memory with it, and
 # chip_smoke.py holds that layout to the kernel's own (pbe_flash_resident_smem)
 BLOCK_Q = {**{dp: 64 for dp in (16, 32, 48, 80, 160)}, 512: 32}
@@ -257,7 +259,7 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 
 class FlashForward(_Kernel):
     """A forward kernel of csrc/flash_fwd.cu: (q, k, v) -> O [, LSE].
-    ``variant`` None is ``pbe_flash_fwd_bf16``, the models' kernel (K1/K2);
+    ``variant`` None is ``pbe_flash_fwd_bf16``, the models' kernels (K1/K2);
     "resident" ``pbe_flash_resident_bf16`` (K3) and "pipelined"
     ``pbe_flash_pipelined_bf16`` (K4) take a key block ``block`` (block_k
     or block_c)."""

@@ -10,9 +10,9 @@ UNet self-attention and VAE mid-block shapes of the 512^2 edit at CFG batch
 2, beside the plain version, with CUDA events (warm-up launches, then
 ``--repeats`` launches between two events). Impls: ``plain``
 (``flash_attention_plain``, the counterpart of the JAX script's ``xla``);
-``auto`` (the models' kernel, which serves both of the JAX script's
-``rowblock`` and ``streamed``, so it is timed once); ``resident`` and
-``pipelined``, over the key blocks they instantiate. All three kernels are
+``auto`` (the models' kernels, which serve both of the JAX script's
+``rowblock`` and ``streamed``, so they are timed once); ``resident`` and
+``pipelined``, over the key blocks they instantiate. All four kernels are
 in csrc/flash_fwd.cu.
 
 Prints the card's name and power limit on its first line, then one JSON line

@@ -45,6 +45,31 @@ def test_plain_matches_pallas_kernel(shape, variant):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4)
 
 
+@pytest.mark.parametrize("variant", ["rowblock", "streamed"])
+@pytest.mark.parametrize("d", [40, 512])
+def test_plain_matches_pallas_kernel_on_peaked_scores(d, variant):
+    """Peaked scores (q and k x8: a softmax close to one-hot, where a wrong
+    rescale cannot hide) at N = 100, which no q tile or key tile of the
+    card's kernels divides: the plain version that chip_smoke.py holds
+    them to, against the Pallas rowblock and streamed kernels on q blocks
+    of 50 rows (the streamed kernel rescales over 4 key blocks of 25)."""
+    q, k, v = _qkv((1, 100, d), seed=4)
+    q, k = 8 * q, 8 * k
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = jfa._flash_fwd_bhnd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=50,
+            block_k=25, return_stats=True, variant=variant)
+    as_bnhd = lambda a: torch.from_numpy(a)[:, :, None, :]
+    got, got_lse = tfa.flash_forward(as_bnhd(q), as_bnhd(k), as_bnhd(v),
+                                     variant=variant, return_lse=True)
+    # fp32 throughout; the logits reach |S2| ~ 400, and at d = 512 their
+    # sums in another order differ by a few ulps of that (3e-5 each), which
+    # moves the LSE by as much and the near-max keys' P by as much
+    # relatively, so O (|O| <= |v| ~ 4) by up to ~1e-4
+    np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(want), atol=2e-4)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], rtol=1e-6)
+
+
 def test_plain_ragged_length_matches_xla_reference():
     """A sequence length no block divides (the kernel masks the last k-tile;
     the JAX package falls back to its O(N^2) path there)."""

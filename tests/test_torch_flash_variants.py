@@ -1,8 +1,9 @@
 """The port's variant-selecting forward (``flash_forward``), the resident
-kernel's footprint rule and the attention benchmark entry, on the CPU. The
-resident and pipelined CUDA kernels themselves are held against the plain
-version on the card by chip_smoke.py; here every variant runs the plain
-version and launches nothing."""
+kernel's footprint rule, the attention benchmark entry and the forward
+kernel's tile sweep, on the CPU. The resident and pipelined CUDA kernels
+themselves are held against the plain version on the card by
+chip_smoke.py; here every variant runs the plain version and launches
+nothing."""
 import json
 
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from pbe_tpu.ops import flash_attention as jfa
 
 from pbe_tpu_torch.ops import flash_attention as tfa
 from pbe_tpu_torch.scripts import bench_attention as bench
+from pbe_tpu_torch.scripts import sweep_flash_tiles as sweep
 
 KERNELS = (tfa.flash_fwd, tfa.flash_fwd_resident, tfa.flash_fwd_pipelined,
            tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
@@ -120,3 +122,29 @@ def test_bench_plan_over_the_card_shapes():
     assert by[("unet_ds1", "resident", 128)] == (8, None)
     assert by[("unet_ds4", "pipelined", 128)] == (None, None)
     assert {impl for _, impl, _, _, _ in plan} == set(bench.IMPLS)
+
+
+@pytest.mark.parametrize("setting", sweep.SETTINGS)
+def test_tile_sweep_rewrites_only_its_tiles(setting):
+    """Each setting of the tile sweep (built and timed on the card) changes
+    exactly the launch lines it names, or exp2 inside the softmax step for
+    ``ftz``, and leaves the rest of csrc/flash_fwd.cu as it is."""
+    import re
+
+    shipped = sweep.variant_source("")
+    spec = setting.split(":", 1)[1]
+    src = sweep.variant_source(spec)
+    tiles = lambda s: dict(re.findall(r"launch_fwd<(\d+), (\d+, \d+)>", s))
+    want = tiles(shipped)
+    for item in spec.split(","):
+        if "=" in item:
+            dp, t = item.split("=")
+            want[dp] = t.replace("x", ", ")
+    assert tiles(src) == want and len(want) == 5
+    if spec == "ftz":
+        assert src.count("ex2_ftz(") > 0
+        assert src.replace(sweep.FTZ_EXP2, "").replace("ex2_ftz(", "exp2f(") == shipped
+    else:
+        assert "ex2_ftz" not in src
+    with pytest.raises(ValueError, match="head dim 64"):
+        sweep.variant_source("64=4x64")
