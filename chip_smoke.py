@@ -24,9 +24,11 @@ Phases:
      same edit on the CPU in fp32, the path the CPU tests hold against JAX.
 Training (the second slice):
   7. the backward kernels (csrc/flash_bwd.cu) against their plain versions
-     at the v1 training shapes (batch 4) and at ragged and odd ones, then
-     timed beside the plain versions and SDPA's backward; the forward
-     kernel with the LSE timed at the same shapes.
+     at the v1 training shapes (batch 4), with peaked scores and packed
+     q/k/v views there, and at ragged N for every padded head dim, each
+     launched twice and compared bitwise; then timed beside the plain
+     versions and SDPA's backward alone (all around CUDA graphs); the
+     forward kernel with the LSE timed at the same shapes.
   8. one v1 UNet loss at batch 4 (bf16, remat) backpropagated through the
      flash kernels and through plain attention: the gradients compared.
   9. the slice: Trainer.fit on v1 at full width, batch 4, 512^2, with the
@@ -125,6 +127,11 @@ VAE_TRAIN_SHAPE = (4, 4096, 1, 512)  # the frozen VAE's mid attention, 2 a step
 # order moves), so an element may land a few bf16 ulps away, never more.
 GRAD_MAX_REL = 2.0 ** -5
 GRAD_L2_REL = 1e-2
+# the backward kernels beyond the training shapes: N that no q or key tile
+# divides at every padded head dim (48, 80, 16, 32, 160), and N below one
+# tile
+BWD_CHECKS = ((1, 100, 2, 40), (2, 333, 3, 80), (2, 130, 4, 16), (1, 90, 2, 32),
+              (1, 70, 2, 160), (3, 47, 2, 48))
 
 # K3 and K4 beyond the benchmark's shapes: ds8, N that no tile divides, head
 # dims 16 and 512, and (for K3) clusters of 4 and 8 whose last share is
@@ -152,21 +159,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
+def graph_ms(fn, iters: int, stream=None) -> float:
     """Device time of one fn() call: `iters` calls captured into one CUDA
     graph, replayed between two CUDA events. Back-to-back eager launches
     of the small shapes (ds4, ds8) run at the host's launch rate, which
-    this takes out for the kernel, its plain version and SDPA alike."""
+    this takes out for the kernel, its plain version and SDPA alike.
+    `stream` (default: a new one) is where fn is warmed up and captured:
+    an autograd backward runs on its forward's stream, so a backward is
+    captured on the stream its forward ran on."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -186,13 +196,17 @@ def phase_build():
 
     from pbe_tpu_torch.ops import cuda_build
 
+    def timed_build(name):
+        t = time.perf_counter()
+        cuda_build.build(name)
+        return f"{name}.cu {time.perf_counter() - t:.1f} s"
+
     t0 = time.perf_counter()
     names = ("flash_fwd", "flash_bwd")
     with ThreadPoolExecutor(len(names)) as pool:
-        for f in [pool.submit(cuda_build.build, n) for n in names]:
-            f.result()
-    log(f"[build] {', '.join(n + '.cu' for n in names)} built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        each = list(pool.map(timed_build, names))
+    log(f"[build] {', '.join(n + '.cu' for n in names)} built side by side in "
+        f"{time.perf_counter() - t0:.1f} s ({', '.join(each)})")
     for n in names:
         log(f"[build] {n}.cu ptxas report:\n{cuda_build.build_log(n).strip()}")
 
@@ -322,9 +336,15 @@ def check_bwd(fa, q, k, v, do, label: str) -> dict:
 
     out, lse = fa.flash_fwd(q, k, v, return_lse=True)
     dd = fa.rowsum_do_o(do, out)
-    got = (fa.flash_bwd_dq(q, k, v, do, lse, dd), *fa.flash_bwd_dkv(q, k, v, do, lse, dd))
+    launch = lambda: (fa.flash_bwd_dq(q, k, v, do, lse, dd),
+                      *fa.flash_bwd_dkv(q, k, v, do, lse, dd))
+    got = launch()
     want = (fa.flash_bwd_dq_plain(q, k, v, do, lse, dd),
             *fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd))
+    # every output tile has one owner and no atomics: a second launch on
+    # the same inputs gives the same bits
+    if not all(torch.equal(a, b) for a, b in zip(got, launch())):
+        raise AssertionError(f"flash backward kernels are not bitwise repeatable at {label}")
     torch.cuda.synchronize()
     res, ok = {}, True
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -333,7 +353,7 @@ def check_bwd(fa, q, k, v, do, label: str) -> dict:
         rel_l2 = (diff.norm() / w.float().norm()).item()
         res[name] = (err, scale, rel_l2)
         ok = ok and err <= GRAD_MAX_REL * scale and rel_l2 <= GRAD_L2_REL
-    log(f"[bwd] {label}: " + "; ".join(
+    log(f"[bwd] {label} (repeat bitwise equal): " + "; ".join(
         f"{n} max|err| {e:.3e} (max|g| {m:.3e}, tol {GRAD_MAX_REL * m:.3e}) rel L2 {r:.3e}"
         for n, (e, m, r) in res.items()) + f" (tol {GRAD_L2_REL}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -362,8 +382,19 @@ def phase_train_kernels() -> list[dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    for shape in ((1, 100, 2, 40), (2, 333, 3, 80), (2, 130, 4, 16), (1, 70, 2, 160)):
+    for shape in BWD_CHECKS:
         check_bwd(fa, rand(shape), rand(shape), rand(shape), rand(shape), f"check {shape}")
+    # where a wrong register layout or prescale cannot hide behind randn's
+    # nearly uniform P: peaked scores (q and k x8, P nearly one-hot) and q,
+    # k, v as the strided views of one packed (B, N, 3, H, D) tensor
+    for _, shape, _ in TRAIN_SHAPES:
+        b, n, h, d = shape
+        q, k, v, do = (rand(shape) for _ in range(4))
+        check_bwd(fa, q * 8, k * 8, v, do, f"peaked (q, k x8) {shape}")
+        q, k, v = rand((b, n, 3, h, d)).unbind(2)
+        check_bwd(fa, q, k, v, do, f"packed qkv views {shape} strides {q.stride()}")
+        del q, k, v, do
+        torch.cuda.empty_cache()
 
     rows = []
     for name, shape, per_step in TRAIN_SHAPES:
@@ -375,13 +406,15 @@ def phase_train_kernels() -> list[dict]:
         dd = fa.rowsum_do_o(do, out)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         dot = do.transpose(1, 2)
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qt, kt, vt)
-            torch.autograd.grad(o, (qt, kt, vt), dot)
-
-        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
-        sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms
+        # SDPA's backward alone: the gradient of one saved output, taken on
+        # the stream its forward ran on and captured there
+        sdpa_stream = torch.cuda.Stream()
+        sdpa_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(sdpa_stream):
+            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+        sdpa_bwd_ms = graph_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
+                                                           retain_graph=True),
+                               20, stream=sdpa_stream)
         bnhd, bhn = b * n * h * d * 2, b * h * n * 4
         common = {"route": "cuda", "source": "pbe_tpu_torch/csrc/flash_bwd.cu"}
         for kname, replaces, flop, nbytes, launch, plain in (
@@ -398,12 +431,12 @@ def phase_train_kernels() -> list[dict]:
                          "max_abs_err": max(errs[o][0] for o in outs),
                          "max_abs_g": max(errs[o][1] for o in outs),
                          "rel_l2": max(errs[o][2] for o in outs),
-                         "ms": cuda_ms(launch, 20), "plain_ms": cuda_ms(plain, 3, 1),
+                         "ms": graph_ms(launch, 20), "plain_ms": graph_ms(plain, 3),
                          "bound_ms": ms_bound,
                          "bound_by": "bytes" if by == "bytes" else "operations",
                          # SDPA's whole backward (dQ, dK and dV), the yardstick
                          # of the two kernels' sum
-                         "library_ms": sdpa_bwd_ms})
+                         "library_ms": sdpa_bwd_ms, "eager_ms": cuda_ms(launch, 20)})
         by, ms_bound = bound(4.0, b, n, h, d, 4 * bnhd + bhn)
         rows.append({"name": f"flash_fwd_lse/{name}_train", "route": "cuda",
                      "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": K1,
@@ -417,13 +450,15 @@ def phase_train_kernels() -> list[dict]:
                      "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                                             20)})
         dq_row, dkv_row, f_row = rows[-3:]
-        log(f"[bwd] {name} {shape}: dq {dq_row['ms']:.4f} ms (plain {dq_row['plain_ms']:.4f}, "
-            f"bound {dq_row['bound_ms']:.4f}); dkv {dkv_row['ms']:.4f} ms (plain "
-            f"{dkv_row['plain_ms']:.4f}, bound {dkv_row['bound_ms']:.4f}); sum "
-            f"{dq_row['ms'] + dkv_row['ms']:.4f} vs SDPA backward {sdpa_bwd_ms:.4f} ms; "
-            f"fwd+lse {f_row['ms']:.4f} ms (plain {f_row['plain_ms']:.4f}, SDPA "
-            f"{f_row['library_ms']:.4f}, bound {f_row['bound_ms']:.4f}; graph-timed)")
-        del q, k, v, do, out, lse, dd, qt, kt, vt, dot
+        log(f"[bwd] {name} {shape} (graph-timed): dq {dq_row['ms']:.4f} ms (eager "
+            f"{dq_row['eager_ms']:.4f}, plain {dq_row['plain_ms']:.4f}, bound "
+            f"{dq_row['bound_ms']:.4f}); dkv {dkv_row['ms']:.4f} ms (eager "
+            f"{dkv_row['eager_ms']:.4f}, plain {dkv_row['plain_ms']:.4f}, bound "
+            f"{dkv_row['bound_ms']:.4f}); pair {dq_row['ms'] + dkv_row['ms']:.4f} ms vs SDPA "
+            f"backward {sdpa_bwd_ms:.4f} ms; fwd+lse {f_row['ms']:.4f} ms (plain "
+            f"{f_row['plain_ms']:.4f}, SDPA {f_row['library_ms']:.4f}, bound "
+            f"{f_row['bound_ms']:.4f})")
+        del q, k, v, do, out, lse, dd, qt, kt, vt, dot, o_sdpa
         torch.cuda.empty_cache()
 
     # K2 at the frozen VAE's mid attention in the training step (no LSE)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``csrc/build/lib<name>-<hash>.so``, keyed on a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. The ``-Xptxas -v`` report (registers, shared
+hash of the source, the headers beside it (``csrc/*.cuh``, which the
+sources include) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused. The ``-Xptxas -v`` report (registers, shared
 memory, spills per kernel) is kept beside the library as ``.log``.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -35,9 +36,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,20 +1,27 @@
-"""Tile sweep of the models' forward kernel (csrc/flash_fwd.cu
-``flash_fwd_kernel``) on one card.
+"""Tile sweep of the models' flash kernels on one card: the forward
+(csrc/flash_fwd.cu ``flash_fwd_kernel``) or, with ``--bwd``, the backward
+(csrc/flash_bwd.cu ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``).
 
-    python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--repeats 50]
+    python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--bwd] [--repeats 50]
         [--settings "first:48=4x64,80=4x64,160=2x32" ...]
 
 ``pbe_flash_fwd_bf16`` picks (warps, key tile) by padded head dim in its
 ``launch_fwd<DP, WARPS, BK>`` lines. Each setting rewrites some of those
 lines (``DP=WARPSxBK``, comma-separated; ``ftz`` also takes exp2 through
-``ex2.approx.ftz`` in the softmax step), and the settings are built side by
-side with nvcc into ``csrc/build/sweep/`` (the shipped library is not
-touched). Each is checked against ``flash_attention_plain`` (rel L2 <= 1e-2)
-and timed at the edit's and the training step's UNet shapes: the kernel's
-device time (torch.profiler over ``--repeats`` launches, with the LSE) and
-CUDA events around the same launches made eagerly. Prints the card's name
-and power limit, the build time and each setting's ptxas report, then one
-JSON line per (setting, shape).
+``ex2.approx.ftz`` in the softmax step). With ``--bwd`` a setting rewrites
+the backward's lines instead: ``dqDP=WARPSxBKxHOLDxMINB`` for
+``launch_dq<DP, WARPS, BK, HOLD, MINB>`` and
+``dkvDP=WARPSxBQxHOLDxSPLITxMINB`` for ``launch_dkv<DP, WARPS, BQ, HOLD,
+SPLIT, MINB>`` (HOLD 1 or 0). The settings are
+built side by side with nvcc into ``csrc/build/sweep/`` (the shipped
+library is not touched). Each is checked against its plain version (rel
+L2 <= 1e-2 for every output) and timed at the UNet shapes of the edit and
+the training step (forward) or of the training step (backward): the
+kernel's device time (torch.profiler over ``--repeats`` launches, the
+forward with the LSE) and CUDA events around the same launches made
+eagerly. Prints the card's name and power limit, the build time and each
+setting's ptxas report (registers and spill bytes of every
+instantiation), then one JSON line per (setting, shape[, kernel]).
 """
 from __future__ import annotations
 
@@ -46,6 +53,22 @@ SHAPES = {
     "unet_ds4": (2, 256, 8, 160), "unet_ds8": (2, 64, 8, 160),
     "unet_ds1_train": (4, 4096, 8, 40), "unet_ds4_train": (4, 256, 8, 160),
 }
+# the backward's settings, the shipped tiles first
+BWD_SETTINGS = (
+    "shipped:",
+    "first:dq48=8x64x1x1,dq80=4x64x1x1,dq160=4x32x0x1,dkv48=8x64x1x1x1,dkv80=4x32x1x1x1",
+    "w8x2:dq48=8x32x1x2,dkv48=8x32x0x1x2,dkv80=8x32x1x1x1,dq160=4x32x0x1",
+    "t64:dq48=16x64x1x1,dkv48=8x64x0x1x2,dq80=4x64x1x1,dkv160=4x64x0x2x1",
+    "m4:dq48=4x32x1x4,dkv48=4x32x0x1x4,dkv80=8x32x0x2x2,dkv160=4x32x0x2x2",
+    "t16:dkv48=16x16x1x1x1,dkv80=8x16x1x1x1,dkv160=4x16x0x2x1",
+)
+BWD_SHAPES = {
+    "unet_ds1_train": (4, 4096, 8, 40), "unet_ds2_train": (4, 1024, 8, 80),
+    "unet_ds4_train": (4, 256, 8, 160), "unet_ds8_train": (4, 64, 8, 160),
+}
+# template arguments after the head dim of each backward launch line
+BWD_ARGS = {"dq": ("warps", "bk", "hold", "minb"),
+            "dkv": ("warps", "bq", "hold", "split", "minb")}
 FTZ_EXP2 = """__device__ __forceinline__ float ex2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -55,47 +78,63 @@ FTZ_EXP2 = """__device__ __forceinline__ float ex2_ftz(float x) {
 """
 
 
-def variant_source(spec: str) -> str:
-    """csrc/flash_fwd.cu with the tiles (and exp2) of one setting."""
-    src = (cuda_build.CSRC / "flash_fwd.cu").read_text()
+def variant_source(spec: str, source: str = "flash_fwd") -> str:
+    """csrc/<source>.cu with the tiles (and exp2) of one setting."""
+    src = (cuda_build.CSRC / f"{source}.cu").read_text()
     for item in filter(None, spec.split(",")):
         if item == "ftz":
             a = src.index("template <int NT, int NO>\n__device__ __forceinline__ void softmax_step")
-            b = src.index("// o += P V for one warp")
+            b = src.index("\n}\n", a)
             src = src[:a] + FTZ_EXP2 + src[a:b].replace("exp2f(", "ex2_ftz(") + src[b:]
             continue
-        dp, tiles = item.split("=")
-        warps, bk = tiles.split("x")
-        src, n = re.subn(rf"launch_fwd<{dp}, \d+, \d+>", f"launch_fwd<{dp}, {warps}, {bk}>", src)
+        key, tiles = item.split("=")
+        m = re.fullmatch(r"(dq|dkv)?(\d+)", key)
+        if m is None or (m[1] is None) != (source == "flash_fwd"):
+            raise ValueError(f"setting item {item!r} names no launch line of {source}.cu")
+        kern, dp, args = m[1] or "fwd", m[2], tiles.split("x")
+        if kern != "fwd":
+            if len(args) != len(BWD_ARGS[kern]):
+                raise ValueError(f"{item!r}: launch_{kern} takes {', '.join(BWD_ARGS[kern])}")
+            args[2] = {"1": "true", "0": "false"}[args[2]]
+        src, n = re.subn(rf"launch_{kern}<{dp}, [^>]+>", f"launch_{kern}<{dp}, {', '.join(args)}>",
+                         src)
         if n != 1:
-            raise ValueError(f"no launch_fwd line for padded head dim {dp}")
+            raise ValueError(f"no launch_{kern} line for padded head dim {dp}")
     return src
 
 
-def build(name: str, spec: str) -> tuple[str, str]:
-    """-> (library path, ptxas lines of the models' kernels)."""
-    out_dir = cuda_build.BUILD_DIR / "sweep"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-    src.write_text(variant_source(spec))
-    proc = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                           str(src)], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for setting {name}:\n{proc.stderr[-4000:]}")
-    lines = (proc.stdout + proc.stderr).splitlines()
+def ptxas_report(log: str) -> str:
+    """One line per instantiation of the models' kernels (forward and
+    backward) in a -Xptxas -v log: its template arguments, registers and
+    spill bytes."""
+    lines = log.splitlines()
     report = []
     for i, line in enumerate(lines):
-        m = re.search(r"flash_fwd_(wide_kernel|kernelILi(\d+)ELi(\d+)ELi(\d+))", line)
-        if "Compiling entry" in line and m:
-            what = ("wide" if m[1] == "wide_kernel"
-                    else f"DP {m[2]}, {m[3]} warps, key tile {m[4]}")
-            report.append(f"  {what}: {lines[i + 2].strip()}; "
+        m = re.search(r"Compiling entry function '_Z\w*?"
+                      r"(flash_(?:fwd|fwd_wide|bwd_dq|bwd_dkv)_kernel)(I\w+?EE)?", line)
+        if m and i + 3 < len(lines):
+            args = ", ".join(re.findall(r"L[ib](\d+)E", m[2] or "")) or "-"
+            report.append(f"  {m[1]}<{args}>: {lines[i + 2].strip()}; "
                           f"{lines[i + 3].split(':', 1)[1].strip()}")
-    return str(lib), "\n".join(report)
+    return "\n".join(report)
 
 
-def device_ms(fn, repeats: int) -> float:
-    """Mean device time of the flash_fwd kernels fn launches."""
+def build(name: str, spec: str, source: str = "flash_fwd") -> tuple[str, str]:
+    """-> (library path, ptxas lines of the kernels)."""
+    out_dir = cuda_build.BUILD_DIR / "sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / f"{source}_{name}.cu", out_dir / f"lib{source}_{name}.so"
+    src.write_text(variant_source(spec, source))
+    proc = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                           str(cuda_build.CSRC), "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for setting {name}:\n{proc.stderr[-4000:]}")
+    return str(lib), ptxas_report(proc.stdout + proc.stderr)
+
+
+def device_ms(fn, repeats: int, kernel: str = "flash_fwd") -> float:
+    """Mean device time of the kernels named `kernel` that fn launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,7 +145,7 @@ def device_ms(fn, repeats: int) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "flash_fwd" in e.key) / 1e3 / repeats
+               if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / repeats
 
 
 def event_ms(fn, repeats: int) -> float:
@@ -121,21 +160,7 @@ def event_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--repeats", type=int, default=50)
-    p.add_argument("--settings", nargs="+", default=list(SETTINGS),
-                   help="name:DP=WARPSxBK,... or name:ftz")
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("sweep_flash_tiles: no CUDA device; the sweep runs on the card")
-    print(card_line(), flush=True)
-    settings = dict(s.split(":", 1) for s in args.settings)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(settings)) as pool:
-        built = dict(zip(settings, pool.map(build, settings, settings.values())))
-    print(f"built {len(built)} settings side by side in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+def sweep_forward(built: dict, settings: dict, repeats: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     data = {name: [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3)] for name, shape in SHAPES.items()}
@@ -154,8 +179,66 @@ def main(argv=None) -> None:
                                      f"{sname}: rel L2 {rel_l2:.3e}")
             print(json.dumps({
                 "setting": name, "shape": sname, "rel_l2": rel_l2,
-                "device_ms": device_ms(lambda: kern(q, k, v, return_lse=True), args.repeats),
-                "event_ms": event_ms(lambda: kern(q, k, v), args.repeats)}), flush=True)
+                "device_ms": device_ms(lambda: kern(q, k, v, return_lse=True), repeats),
+                "event_ms": event_ms(lambda: kern(q, k, v), repeats)}), flush=True)
+
+
+def sweep_backward(built: dict, settings: dict, repeats: int) -> None:
+    """Each setting's dQ and dK/dV kernels at the training shapes, on
+    inputs whose O and LSE come from the shipped forward kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = {}
+    for sname, shape in BWD_SHAPES.items():
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = fa.flash_fwd(q, k, v, return_lse=True)
+        data[sname] = (q, k, v, do, lse, fa.rowsum_do_o(do, out))
+    plain = {"dq": fa.flash_bwd_dq_plain, "dkv": fa.flash_bwd_dkv_plain}
+    kerns = {which: fa.FlashBackward(which) for which in plain}
+    for name, (lib, report) in built.items():
+        print(f"[{name}] {settings[name] or 'as shipped'}\n{report}", flush=True)
+        for which, kern in kerns.items():
+            fn = getattr(ctypes.CDLL(lib), kern.symbol)
+            fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+            kern._fn = fn
+        for sname, args in data.items():
+            for which, kern in kerns.items():
+                got, want = kern(*args), plain[which](*args)
+                if which == "dq":
+                    got, want = (got,), (want,)
+                rel_l2 = max(((g.float() - w.float()).norm() / w.float().norm()).item()
+                             for g, w in zip(got, want))
+                if rel_l2 > 1e-2:
+                    raise AssertionError(f"setting {name} {which} disagrees with the plain "
+                                         f"version at {sname}: rel L2 {rel_l2:.3e}")
+                print(json.dumps({
+                    "setting": name, "shape": sname, "kernel": which, "rel_l2": rel_l2,
+                    "device_ms": device_ms(lambda: kern(*args), repeats, f"flash_bwd_{which}_"),
+                    "event_ms": event_ms(lambda: kern(*args), repeats)}), flush=True)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--bwd", action="store_true",
+                   help="sweep the backward kernels (csrc/flash_bwd.cu)")
+    p.add_argument("--repeats", type=int, default=50)
+    p.add_argument("--settings", nargs="+", default=None,
+                   help="name:DP=WARPSxBK,... or name:ftz (forward); "
+                        "name:dqDP=WARPSxBKxHOLDxMINB,dkvDP=WARPSxBQxHOLDxSPLITxMINB,... (--bwd)")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_flash_tiles: no CUDA device; the sweep runs on the card")
+    print(card_line(), flush=True)
+    source = "flash_bwd" if args.bwd else "flash_fwd"
+    settings = dict(s.split(":", 1) for s in
+                    args.settings or (BWD_SETTINGS if args.bwd else SETTINGS))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(settings)) as pool:
+        built = dict(zip(settings, pool.map(build, settings, settings.values(),
+                                            [source] * len(settings))))
+    print(f"built {len(built)} settings of {source}.cu side by side in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    (sweep_backward if args.bwd else sweep_forward)(built, settings, args.repeats)
 
 
 if __name__ == "__main__":

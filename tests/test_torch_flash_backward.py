@@ -16,8 +16,9 @@ from pbe_tpu.ops import flash_attention as jfa
 from pbe_tpu_torch.ops import flash_attention as tfa
 from pbe_tpu_torch.ops.attention import multi_head_attention
 
-# (B, N, H, D): a padded head dim (40 -> 48) and the tiny config's 16
-SHAPES = [(1, 128, 2, 40), (2, 256, 2, 16)]
+# (B, N, H, D): a padded head dim (40 -> 48), the tiny config's 16, and
+# the v1 UNet's other two head dims (80, 160) at a tiny N
+SHAPES = [(1, 128, 2, 40), (2, 256, 2, 16), (1, 128, 2, 80), (1, 64, 2, 160)]
 
 
 def _inputs(shape, seed=0):
@@ -51,6 +52,25 @@ def test_plain_backward_matches_pallas_kernels(shape):
         o, lse = jfa._flash_fwd_bhnd(_bhnd(q), _bhnd(k), _bhnd(v), return_stats=True)
         want = jfa._flash_bwd_bhnd(_bhnd(q), _bhnd(k), _bhnd(v), o, lse, _bhnd(do))
     # the port keeps the LSE as (B*H, N); JAX broadcasts it over 128 lanes
+    t = lambda a: torch.from_numpy(np.array(a))
+    got = tfa.flash_attention_bwd_plain(t(q), t(k), t(v), t(_bnhd(o, shape)),
+                                        t(np.asarray(lse)[..., 0]), t(do))
+    for g, w in zip(got, want):
+        _assert_rel(g.numpy(), _bnhd(w, shape), 1e-5)
+
+
+def test_plain_backward_matches_pallas_kernels_on_peaked_scores():
+    """q and k x4: a row's largest P averages 0.88 (randn's P is nearly
+    uniform), where a wrong prescale or a wrong row of the LSE moves the
+    gradients far more. (At x8 P is one-hot, dQ and dK are mostly
+    cancellation, and fp32 sums in two orders differ by more than 1e-5 of
+    their scale.)"""
+    shape = (1, 100, 2, 40)
+    q, k, v, do = _inputs(shape, seed=3)
+    q, k = 4 * q, 4 * k
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = jfa._flash_fwd_bhnd(_bhnd(q), _bhnd(k), _bhnd(v), return_stats=True)
+        want = jfa._flash_bwd_bhnd(_bhnd(q), _bhnd(k), _bhnd(v), o, lse, _bhnd(do))
     t = lambda a: torch.from_numpy(np.array(a))
     got = tfa.flash_attention_bwd_plain(t(q), t(k), t(v), t(_bnhd(o, shape)),
                                         t(np.asarray(lse)[..., 0]), t(do))

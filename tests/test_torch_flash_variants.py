@@ -148,3 +148,51 @@ def test_tile_sweep_rewrites_only_its_tiles(setting):
         assert "ex2_ftz" not in src
     with pytest.raises(ValueError, match="head dim 64"):
         sweep.variant_source("64=4x64")
+
+
+@pytest.mark.parametrize("setting", sweep.BWD_SETTINGS)
+def test_bwd_tile_sweep_rewrites_only_its_tiles(setting):
+    """Each backward setting of the tile sweep changes exactly the
+    launch_dq / launch_dkv lines it names in csrc/flash_bwd.cu (HOLD 1/0
+    written as true/false) and nothing else."""
+    import re
+
+    shipped = sweep.variant_source("", "flash_bwd")
+    spec = setting.split(":", 1)[1]
+    src = sweep.variant_source(spec, "flash_bwd")
+    tiles = lambda s: dict(re.findall(r"launch_((?:dq|dkv)<\d+), ([^>]+)>\(a, s\)", s))
+    want = tiles(shipped)
+    for item in filter(None, spec.split(",")):
+        key, args = item.split("=")
+        kern, dp = re.fullmatch(r"(dq|dkv)(\d+)", key).groups()
+        vals = args.split("x")
+        vals[2] = {"1": "true", "0": "false"}[vals[2]]
+        want[f"{kern}<{dp}"] = ", ".join(vals)
+    assert tiles(src) == want and len(want) == 10
+    unchanged = lambda s: re.sub(r"launch_(dq|dkv)<\d+, [^>]+>\(a, s\)", "", s)
+    assert unchanged(src) == unchanged(shipped)
+    with pytest.raises(ValueError, match="names no launch line"):
+        sweep.variant_source("48=4x64", "flash_bwd")
+    with pytest.raises(ValueError, match="takes warps, bk, hold, minb"):
+        sweep.variant_source("dq48=4x64", "flash_bwd")
+
+
+def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """The sources include csrc/*.cuh, so an edited header must give a new
+    library path (a rebuild), not the library built from the old one."""
+    import shutil
+
+    from pbe_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", csrc / "build")
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers and all(f'#include "{h.name}"' in (csrc / f"{n}.cu").read_text()
+                           for h in headers for n in ("flash_fwd", "flash_bwd"))
+    before = {n: cuda_build.library_path(n) for n in ("flash_fwd", "flash_bwd")}
+    assert before == {n: cuda_build.library_path(n) for n in before}  # stable
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {n: cuda_build.library_path(n) for n in before}
+    assert all(after[n] != before[n] and after[n].parent == csrc / "build" for n in before)
