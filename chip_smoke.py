@@ -5,8 +5,10 @@
 
 Phases:
   1. card name and power limit, torch/CUDA versions; build the kernels
-     from csrc/flash_fwd.cu (the four forward kernels) and flash_bwd.cu
-     (one nvcc each, started together) and print their -Xptxas -v reports.
+     from csrc/flash_fwd.cu (the models' forward kernels), flash_variants.cu
+     (the resident and pipelined kernels) and flash_bwd.cu (one nvcc each,
+     started together) and print each kernel's registers and spills from
+     their -Xptxas -v reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
      edit gives it (bf16), at ragged N for every padded head dim, and with
      peaked scores, a row max rising at every key tile and packed q/k/v
@@ -17,7 +19,9 @@ Phases:
      flash kernel and with plain attention.
   4. the slice: load_pipeline("configs/v1.yaml") with random weights, a
      512^2 50-step PLMS edit at CFG scale 5 with every kernel's launch count
-     set to 0 just before and read just after, then timed warm edits.
+     set to 0 just before and read just after, then timed warm edits, and
+     one edit with block=False polled with is_ready() and read back
+     against the same edit with block=True.
   5. device time of one warm v1 CFG UNet call by kernel (torch.profiler)
      and the device's idle share.
   6. a small edit (configs/tiny.yaml, 64^2) on the card in bf16 against the
@@ -39,17 +43,20 @@ Training (the second slice):
      same steps on the CPU in fp32 (the path the CPU tests hold against
      JAX).
 
-The attention benchmark (the third slice):
- 11. the resident kernel's shared-memory layout as Python reckons it
-     against the kernel's own; the resident and pipelined kernels
-     (csrc/flash_fwd.cu) against the plain version at ragged and odd
-     shapes; at the benchmark's shapes every flash_forward(variant=...)
-     call against the plain version and counted as one launch of its
-     kernel, the resident kernel's refusal of the VAE shape, and the
-     resident and pipelined kernels at every key block they instantiate,
-     each timed beside the plain version and SDPA; then the bench entry
-     (pbe_tpu_torch.scripts.bench_attention) over every shape and impl, with
-     every kernel's launch count set to 0 just before and read just after.
+The attention benchmark (the third slice, its kernels redesigned in the
+sixth):
+ 11. the resident and pipelined kernels (csrc/flash_variants.cu) against
+     the plain version at ragged and odd shapes, at every key block they
+     instantiate and every cluster size of the resident kernel; at the
+     benchmark's shapes (the VAE's included) every
+     flash_forward(variant=...) call against the plain version and counted
+     as one launch of its kernel, both kernels on inputs whose row max
+     rises at every key tile, and at every key block and cluster size;
+     each timed (a CUDA graph of 20 calls) beside the plain version and
+     SDPA, the resident kernel at clusters of 1, 2 and 4; then the bench
+     entry (pbe_tpu_torch.scripts.bench_attention) over every shape and
+     impl, with every kernel's launch count set to 0 just before and read
+     just after.
 
 A run takes them in the order 1, 2, 7, 11, 3-5, 8, 9, 6, 10: kernels first,
 the card-vs-CPU comparisons last.
@@ -134,8 +141,9 @@ BWD_CHECKS = ((1, 100, 2, 40), (2, 333, 3, 80), (2, 130, 4, 16), (1, 90, 2, 32),
               (1, 70, 2, 160), (3, 47, 2, 48))
 
 # K3 and K4 beyond the benchmark's shapes: ds8, N that no tile divides, head
-# dims 16 and 512, and (for K3) clusters of 4 and 8 whose last share is
-# part-filled ((1,1000,2,80) and (1,77,1,512): C=4, (1,4000,2,40): C=8)
+# dims 16 and 512; K3 runs each at clusters of 1, 2 and 4, so a cluster's
+# last q tiles lie wholly past N ((1,100,2,40): 2 q tiles of 64, (1,77,1,512):
+# 3 of 32, (2,333,3,80): 6 of 64)
 VARIANT_CHECKS = ((2, 64, 8, 160), (1, 100, 2, 40), (2, 333, 3, 80), (1, 70, 2, 160),
                   (2, 130, 4, 16), (1, 1000, 2, 80), (1, 4000, 2, 40), (1, 77, 1, 512))
 
@@ -201,14 +209,17 @@ def phase_build():
         cuda_build.build(name)
         return f"{name}.cu {time.perf_counter() - t:.1f} s"
 
+    from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
+
     t0 = time.perf_counter()
-    names = ("flash_fwd", "flash_bwd")
+    names = ("flash_fwd", "flash_variants", "flash_bwd")
     with ThreadPoolExecutor(len(names)) as pool:
         each = list(pool.map(timed_build, names))
     log(f"[build] {', '.join(n + '.cu' for n in names)} built side by side in "
         f"{time.perf_counter() - t0:.1f} s ({', '.join(each)})")
     for n in names:
-        log(f"[build] {n}.cu ptxas report:\n{cuda_build.build_log(n).strip()}")
+        log(f"[build] {n}.cu registers and spills (ptxas):\n"
+            f"{ptxas_report(cuda_build.build_log(n))}")
 
 
 def check_flash(fa, q, k, v, label: str) -> tuple[float, float]:
@@ -484,57 +495,46 @@ def phase_train_kernels() -> list[dict]:
     return rows
 
 
-def check_resident_layout(fa) -> None:
-    """resident_smem, Python's reckoning of the resident kernel's shared
-    memory (which picks its cluster size on either device), against the
-    kernel's own (pbe_flash_resident_smem) at every instantiated head dim
-    and key block; -1 where a key block is not instantiated."""
-    import ctypes
-
-    from pbe_tpu_torch.ops import cuda_build
-
-    fn = cuda_build.load("flash_fwd").pbe_flash_resident_smem
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    for dp, blocks in fa.RESIDENT_BLOCKS.items():
-        for bk in (32, 64, 128):
-            for rows in (bk, 8 * bk):
-                got = fn(dp, bk, rows)
-                want = fa.resident_smem(dp, bk, rows)[1] if bk in blocks else -1
-                if got != want:
-                    raise AssertionError(f"resident kernel at d={dp}, block_k {bk}, {rows} "
-                                         f"rows: {got} bytes of shared memory, Python "
-                                         f"reckons {want}")
-    log("[variants] the resident kernel's shared memory matches resident_smem at every "
-        "head dim and key block")
-
-
 def phase_variants() -> list[dict]:
-    """The third slice: K3 (resident) and K4 (pipelined) against the plain
-    version at VARIANT_CHECKS; at the attention benchmark's shapes, every
+    """K3 (resident) and K4 (pipelined) against the plain version at
+    VARIANT_CHECKS; at the attention benchmark's shapes, every
     flash_forward(variant=...) call against the plain version with one
-    launch of the matching kernel and of no other, the resident kernel's
-    refusal of the VAE shape, and K3 and K4 at each key block they
-    instantiate; kernel, plain and SDPA times and the function's bound;
-    then the bench entry over every shape and impl, with every kernel's
-    count set to 0 just before and read just after."""
+    launch of the matching kernel and of no other, K3 and K4 on rising
+    scores and at each key block (and K3 at each cluster size); kernel
+    (CUDA-graph timed), plain and SDPA times and the function's bound; then
+    the bench entry over every shape and impl, with every kernel's count set
+    to 0 just before and read just after."""
     import torch
     import torch.nn.functional as F
 
     from pbe_tpu_torch.ops import flash_attention as fa
     from pbe_tpu_torch.scripts import bench_attention as bench
 
-    check_resident_layout(fa)
     gen = torch.Generator(device="cuda").manual_seed(20)
     rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     kernels = {"resident": fa.flash_fwd_resident, "pipelined": fa.flash_fwd_pipelined}
     blocks = {"resident": fa.RESIDENT_BLOCKS, "pipelined": fa.PIPELINED_BLOCKS}
-    for shape in VARIANT_CHECKS:
-        q, k, v = rand(shape), rand(shape), rand(shape)
+
+    def every_launch(variant, dp):
+        """(label, kwargs) of every key block, and for K3 every cluster size"""
+        clusters = fa.CLUSTER_SIZES if variant == "resident" else (None,)
+        return [(f"block {blk}" + (f" cluster {c}" if c else ""), {"block": blk, "cluster": c}
+                 if c else {"block": blk}) for blk in blocks[variant][dp] for c in clusters]
+
+    def check_all(q, k, v, label):
+        """every launch of K3 and K4 on (q, k, v) -> {variant: (max err, max lse err)}"""
         want = fa.flash_attention_plain(q, k, v, return_lse=True)
+        dp = (q.shape[3] + 15) // 16 * 16
+        errs = {}
         for variant, kern in kernels.items():
-            c = fa.resident_cluster_size(shape[1], shape[3]) if variant == "resident" else ""
-            compare_flash(kern(q, k, v, return_lse=True), want,
-                          f"{variant} check {shape}" + (f" cluster {c}" if c else ""))
+            e = [compare_flash(kern(q, k, v, return_lse=True, **kw), want,
+                               f"{variant} {label} {tuple(q.shape)} {what}")
+                 for what, kw in every_launch(variant, dp)]
+            errs[variant] = (max(x for x, _ in e), max(y for _, y in e))
+        return errs
+
+    for shape in VARIANT_CHECKS:
+        check_all(rand(shape), rand(shape), rand(shape), "check")
 
     fwd_kernels = (fa.flash_fwd, fa.flash_fwd_resident, fa.flash_fwd_pipelined)
     kernel_of = {"resident": 1, "pipelined": 2}  # index in fwd_kernels; others 0
@@ -548,49 +548,48 @@ def phase_variants() -> list[dict]:
         # LSE, and one launch of its kernel
         for variant in fa.VARIANTS:
             before = [x.launches for x in fwd_kernels]
-            if variant == "resident" and fa.resident_cluster_size(n, d) is None:
-                try:
-                    fa.flash_forward(q, k, v, variant=variant)
-                except ValueError as e:
-                    log(f"[variants] {name} {shape}: resident refused: {e}")
-                else:
-                    raise AssertionError(f"the resident kernel took {shape}")
-                want_diff = [0, 0, 0]
-            else:
-                compare_flash(fa.flash_forward(q, k, v, variant=variant, return_lse=True),
-                              want, f"flash_forward(variant={variant!r}) {name} {shape}")
-                want_diff = [int(i == kernel_of.get(variant, 0)) for i in range(3)]
+            compare_flash(fa.flash_forward(q, k, v, variant=variant, return_lse=True),
+                          want, f"flash_forward(variant={variant!r}) {name} {shape}")
             diff = [x.launches - b0 for x, b0 in zip(fwd_kernels, before)]
-            if diff != want_diff:
+            if diff != [int(i == kernel_of.get(variant, 0)) for i in range(3)]:
                 raise AssertionError(f"flash_forward(variant={variant!r}) at {shape} launched "
                                      f"{diff} of (flash_fwd, resident, pipelined)")
         log(f"[variants] {name}: each flash_forward variant launched its own kernel once")
+        # K4's pass-1 max and K3's rescale where every key tile raises the
+        # row max; then every key block and cluster size on randn inputs
+        qr, kr = rising_scores(shape, gen)
+        check_all(qr, kr, v, "rising max")
+        del qr, kr
+        errs = check_all(q, k, v, name)
 
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 5, 1)
+        plain_ms = graph_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+        sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         by, ms_bound = bound(4.0, b, n, h, d, 4 * b * n * h * d * 2)
         for variant, kern in kernels.items():
-            cluster = fa.resident_cluster_size(n, d) if variant == "resident" else None
-            if variant == "resident" and cluster is None:
-                continue
-            errs = [compare_flash(kern(q, k, v, return_lse=True, block=blk), want,
-                                  f"{variant} {name} {shape} block {blk}")
-                    for blk in blocks[variant][dp]
-                    if variant != "resident" or fa.resident_cluster_size(n, d, blk)]
             row = {"name": f"flash_fwd_{variant}/{name}", "route": "cuda",
-                   "source": "pbe_tpu_torch/csrc/flash_fwd.cu",
+                   "source": "pbe_tpu_torch/csrc/flash_variants.cu",
                    "replaces": K3 if variant == "resident" else K4, "launches": None,
-                   "max_abs_err": max(e for e, _ in errs),
-                   "lse_max_abs_err": max(e for _, e in errs),
-                   "ms": cuda_ms(lambda: kern(q, k, v), 20), "plain_ms": plain_ms,
+                   "max_abs_err": errs[variant][0], "lse_max_abs_err": errs[variant][1],
+                   "ms": graph_ms(lambda: kern(q, k, v), 20), "plain_ms": plain_ms,
                    "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
-                   "library_ms": sdpa_ms}
-            if cluster:
-                row["cluster"] = cluster
-            log(f"[variants] {variant} {name} {shape} (block {fa.key_block(variant, d)}"
-                f"{f', cluster {cluster}' if cluster else ''}): {row['ms']:.4f} ms, plain "
-                f"{plain_ms:.4f}, SDPA {sdpa_ms:.4f}, bound {ms_bound:.4f} by {by}")
+                   "library_ms": sdpa_ms, "block": fa.key_block(variant, d)}
+            extra = ""
+            if variant == "resident":
+                row["cluster"] = fa.resident_cluster(
+                    shape, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+                row["cluster_ms"] = {c: graph_ms(lambda: kern(q, k, v, cluster=c), 20)
+                                     for c in fa.CLUSTER_SIZES}
+                extra = (f", cluster {row['cluster']}; at C = 1/2/4: "
+                         + " / ".join(f"{t:.4f}" for t in row["cluster_ms"].values()))
+            else:
+                # the second QK^T: 6*BH*N^2*DP tensor-core FLOP in all, a
+                # floor the run computes (the row holds measured times only)
+                floor_ms = 6.0 * b * h * n * n * dp / BF16_FLOP_PER_S * 1e3
+                extra = f", product floor {floor_ms:.4f}"
+            log(f"[variants] {variant} {name} {shape} (block {row['block']}{extra}): "
+                f"{row['ms']:.4f} ms (graph), plain {plain_ms:.4f}, SDPA {sdpa_ms:.4f}, "
+                f"bound {ms_bound:.4f} by {by}")
             rows.append(row)
         del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()
@@ -773,6 +772,24 @@ def phase_edit(pipe, card: str, rows: list[dict]) -> dict:
     p50 = float(np.median(times))
     log(f"[edit] warm edits {['%.4f' % t for t in times]} s: p50 {p50:.4f} s, "
         f"{1.0 / p50:.4f} edits/s ({card})")
+    # the block=False handle the reference's server polls: is_ready() turns
+    # True within a time limit, and the host copy is the blocking edit's
+    kw = dict(steps=10, scale=5.0, seed=9)
+    pending = pipe.edit_batch(image, mask, ref, block=False, **kw)
+    t0 = time.perf_counter()
+    polls = 1
+    while not pending.is_ready():
+        if time.perf_counter() - t0 > 120.0:
+            raise AssertionError("a block=False edit was not ready within 120 s")
+        time.sleep(0.001)
+        polls += 1
+    ready_s = time.perf_counter() - t0
+    got = np.asarray(pending)
+    want = pipe.edit_batch(image, mask, ref, **kw)
+    log(f"[edit] block=False 10-step edit: ready after {polls} polls, {ready_s:.4f} s after "
+        f"edit_batch returned; equal to block=True: {np.array_equal(got, want)}")
+    if not np.array_equal(got, want):
+        raise AssertionError("the block=False edit differs from the block=True edit")
     return {"first_edit_s": first_s, "warm_edit_s": times, "p50_s": p50,
             "edits_per_s": 1.0 / p50}
 

@@ -6,7 +6,7 @@ forward kernels ``_flash_kernel_rowblock`` (UNet self-attention) and
 ``_flash_kernel`` (streamed; VAE mid-block attention), served by two
 kernels of ``csrc/flash_fwd.cu`` behind one entry (the VAE's d=512 takes
 its own); ``_flash_kernel_resident`` and ``_flash_kernel_pipelined``,
-two more kernels of that file, which only a named variant of
+the kernels of ``csrc/flash_variants.cu``, which only a named variant of
 :func:`flash_forward` reaches; and the backward kernels
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` of the training step.
 All four Pallas forward variants compute the same function:
@@ -49,21 +49,21 @@ LOG2E = 1.4426950408889634  # log2(e): exp(x) == exp2(x * LOG2E)
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
 # ... and in csrc/flash_bwd.cu: the UNet's; the VAE (d=512) is frozen
 BWD_HEAD_DIMS = (16, 32, 48, 80, 160)
-# q tile of csrc/flash_fwd.cu's resident and pipelined kernels by padded
-# head dim (its by_head_dim; the models' kernels pick their own):
-# resident_smem lays out the resident kernel's shared memory with it, and
-# chip_smoke.py holds that layout to the kernel's own (pbe_flash_resident_smem)
-BLOCK_Q = {**{dp: 64 for dp in (16, 32, 48, 80, 160)}, 512: 32}
-# key blocks instantiated by padded head dim in csrc/flash_fwd.cu: the
-# resident kernel's block_k (past these, the working tiles leave no room for
-# a share of K and V of one key block) and the pipelined kernel's block_c (at
-# d=512, K and V chunks of 128 rows do not fit beside the rest)
+# q tile of csrc/flash_variants.cu's resident kernel by padded head dim
+# (ResidentTile, ResidentWideTile): the cluster is planned over these tiles
+RESIDENT_BLOCK_Q = {**{dp: 64 for dp in (16, 32, 48, 80, 160)}, 512: 32}
+# key blocks instantiated by padded head dim in csrc/flash_variants.cu: the
+# resident kernel's block_k (past these, S of a whole key tile leaves too few
+# registers) and the pipelined kernel's block_c (at d=512, K and V chunks of
+# 128 rows do not fit beside the rest)
 RESIDENT_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80)}, 160: (32, 64),
                    512: (32,)}
 PIPELINED_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80, 160)}, 512: (32, 64)}
 VARIANTS = ("auto", "rowblock", "streamed", "resident", "pipelined")
-SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block can use
-CLUSTER_SIZES = (1, 2, 4, 8)  # the portable thread-block cluster sizes
+CLUSTER_SIZES = (1, 2, 4)  # the resident kernel's blocks a cluster
+# streaming multiprocessors of an H100 SXM: the resident kernel's plan off
+# the card (a CUDA tensor's plan reads its device's count)
+SMS = 132
 
 
 def prescale(q: torch.Tensor) -> torch.Tensor:
@@ -165,47 +165,25 @@ def key_block(variant: str, d: int, block: int | None = None) -> int:
     return block
 
 
-def resident_rows(n: int, block_k: int, cluster: int) -> int:
-    """Rows of K and of V each block of a cluster holds: N / cluster
-    rounded up to the key block, so no key block straddles two shares."""
-    return _round_up(-(-n // cluster), block_k)
-
-
-def resident_smem(d: int, block_k: int, rows: int) -> tuple[int, int]:
-    """(working tiles, whole block) shared-memory bytes of one block of the
-    resident kernel (csrc/flash_fwd.cu Tile and resident_smem): Q, m and l,
-    S (fp32), P (bf16), the fp32 accumulator and one K-or-V staging tile,
-    each 128-byte aligned, then the block's shares of K and of V."""
-    dp = _round_up(d, 16)
-    bq, ldq = BLOCK_Q[dp], dp + 8
-    work = sum(_round_up(x, 128) for x in (
-        bq * ldq * 2, bq * 8, bq * (block_k + 4) * 4, bq * (block_k + 8) * 2,
-        bq * (dp + 4) * 4, block_k * ldq * 2))
-    return work, work + 2 * _round_up(rows * ldq * 2, 128)
-
-
-def resident_cluster_size(n: int, d: int, block_k: int | None = None) -> int | None:
-    """Blocks in the thread-block cluster that holds one head's K and V for
-    the resident kernel: the smallest of CLUSTER_SIZES whose blocks' shares
-    fit SMEM_PER_BLOCK beside their working tiles, or None where none does
-    (the VAE's N=4096, d=512: 8.5 MB of K and V)."""
-    block_k = key_block("resident", d, block_k)
-    return next((c for c in CLUSTER_SIZES if resident_smem(
-        d, block_k, resident_rows(n, block_k, c))[1] <= SMEM_PER_BLOCK), None)
-
-
-def resident_footprint(n: int, d: int, block_k: int | None = None) -> str:
-    """What the resident kernel's shared memory must hold at (N, d), and what
-    the largest cluster has room for: the reason behind a None of
-    :func:`resident_cluster_size`."""
-    block_k = key_block("resident", d, block_k)
-    work, _ = resident_smem(d, block_k, 0)
-    room = CLUSTER_SIZES[-1] * (SMEM_PER_BLOCK - work)
-    kv = 2 * n * (_round_up(d, 16) + 8) * 2
-    return (f"resident: K and V of one head take {kv} bytes of shared memory at N={n}, "
-            f"d={d} (rows padded to {_round_up(d, 16) + 8} bf16); a cluster of "
-            f"{CLUSTER_SIZES[-1]} blocks has {room} beside its working tiles ({work} bytes "
-            f"a block of {SMEM_PER_BLOCK}, block_k {block_k})")
+def resident_cluster(shape: tuple, cluster: int | None = None, sms: int = SMS) -> int:
+    """Blocks of a thread-block cluster of the resident kernel at (B, N, H,
+    D), which share each key tile of one head: ``cluster``, or by default
+    from the head's q-tile count: 4 where a head has 4 q tiles or more and
+    all B*H heads' tiles fill the card's ``sms`` SMs 4 times over, else 2
+    where a head has 2 or more, else 1. (Fewer blocks than that and a
+    cluster of 4 waits on its slowest block, or a cluster has no 4 free SMs
+    in one GPC: on an H100, 2 ran ds2 and the VAE shape faster and 4 ran
+    ds1 faster, scripts/sweep_flash_tiles.py --variants.) Raises ValueError
+    for a size it does not take."""
+    b, n, h, d = shape
+    if cluster is None:
+        q_tiles = -(-n // RESIDENT_BLOCK_Q[_round_up(d, 16)])
+        if q_tiles >= 4 and b * h * q_tiles >= 4 * sms:
+            return 4
+        return 2 if q_tiles >= 2 else 1
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"resident: a cluster of {cluster} blocks (one of {CLUSTER_SIZES})")
+    return cluster
 
 
 class _Kernel:
@@ -258,39 +236,42 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 
 
 class FlashForward(_Kernel):
-    """A forward kernel of csrc/flash_fwd.cu: (q, k, v) -> O [, LSE].
-    ``variant`` None is ``pbe_flash_fwd_bf16``, the models' kernels (K1/K2);
-    "resident" ``pbe_flash_resident_bf16`` (K3) and "pipelined"
-    ``pbe_flash_pipelined_bf16`` (K4) take a key block ``block`` (block_k
-    or block_c)."""
+    """A forward kernel: (q, k, v) -> O [, LSE]. ``variant`` None is
+    ``pbe_flash_fwd_bf16`` (csrc/flash_fwd.cu), the models' kernels
+    (K1/K2); "resident" ``pbe_flash_resident_bf16`` (K3) and "pipelined"
+    ``pbe_flash_pipelined_bf16`` (K4), csrc/flash_variants.cu, take a key
+    block ``block`` (block_k or block_c), and the resident kernel a
+    ``cluster`` size."""
 
     def __init__(self, variant: str | None = None):
         self.variant = variant
-        # [key block [, cluster size, rows a block]]
-        extra = {None: [], "resident": [_I32] * 3, "pipelined": [_I32]}[variant]
-        super().__init__("flash_fwd", f"pbe_flash_{variant or 'fwd'}_bf16",
+        # [key block [, cluster size]]
+        extra = {None: [], "resident": [_I32] * 2, "pipelined": [_I32]}[variant]
+        super().__init__("flash_variants" if variant else "flash_fwd",
+                         f"pbe_flash_{variant or 'fwd'}_bf16",
                          [_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32] + extra
                          + [_PTR])
 
-    def plan(self, n: int, d: int, block: int | None = None) -> list[int]:
-        """The launch's extra arguments at (N, d): none, [key block]
-        (pipelined) or [key block, cluster size, rows a block] (resident);
-        raises ValueError where the kernel cannot take them, with the
-        reason."""
+    def plan(self, shape: tuple, block: int | None = None, cluster: int | None = None,
+             sms: int = SMS) -> list[int]:
+        """The launch's extra arguments at (B, N, H, D) on a card of ``sms``
+        SMs: none, [key block] (pipelined) or [key block, cluster size]
+        (resident); raises ValueError where the kernel cannot take them, with
+        the reason."""
         if self.variant is None:
             return []
-        block = key_block(self.variant, d, block)
+        block = key_block(self.variant, shape[3], block)
         if self.variant != "resident":
             return [block]
-        cluster = resident_cluster_size(n, d, block)
-        if cluster is None:
-            raise ValueError(resident_footprint(n, d, block))
-        return [block, cluster, resident_rows(n, block, cluster)]
+        return [block, resident_cluster(tuple(shape), cluster, sms)]
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 return_lse: bool = False, block: int | None = None):
+                 return_lse: bool = False, block: int | None = None,
+                 cluster: int | None = None):
         b, n, h, d = q.shape
-        extra = self.plan(n, d, block)
+        sms = (torch.cuda.get_device_properties(q.device).multi_processor_count
+               if q.device.type == "cuda" else SMS)
+        extra = self.plan(q.shape, block, cluster, sms)
         _check_operands(f"{self.variant or 'flash'} kernel", SUPPORTED_HEAD_DIMS,
                         q=q, k=k, v=v)
         out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
@@ -363,7 +344,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel = {"resident": flash_fwd_resident, "pipelined": flash_fwd_pipelined}.get(variant)
     block = block_k if variant == "resident" else block_c
     if kernel is not None:
-        kernel.plan(q.shape[1], q.shape[3], block)  # raises here on either device
+        kernel.plan(q.shape, block)  # raises here on either device
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, return_lse)
     if q.device.type != "cuda":

@@ -18,11 +18,20 @@ from pbe_tpu_torch.schedules import SamplerSchedule
 
 
 class PendingOutput:
-    """An edit's device result; ``np.asarray`` waits for it and copies it to
-    the host (the ``block=False`` handle)."""
+    """An edit's device result (the ``block=False`` handle): ``is_ready()``
+    says without waiting whether the device has made it, as a JAX array's
+    does; ``np.asarray`` waits for it and copies it to the host."""
 
     def __init__(self, tensor: torch.Tensor):
         self.tensor = tensor
+        # recorded on the current stream right after the tensor is made
+        self._done = None
+        if tensor.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(tensor.device))
+
+    def is_ready(self) -> bool:
+        return self._done is None or self._done.query()
 
     def __array__(self, dtype=None, copy=None):
         a = self.tensor.cpu().numpy()
@@ -35,10 +44,10 @@ class EditPipeline:
     def __init__(self, model: PaintByExample, quantize: str | None = None, tiling=None):
         if quantize is not None:
             raise NotImplementedError("int8 serving is not ported yet (ROADMAP Queue 1, "
-                                      "item 10)")
+                                      "item 9)")
         if tiling is not None:
             raise NotImplementedError("the tiled pipeline is not ported yet (ROADMAP "
-                                      "Queue 1, item 11)")
+                                      "Queue 1, item 13)")
         self.model = model.eval()
 
     @property
@@ -49,7 +58,7 @@ class EditPipeline:
 
     def shard(self, mesh=None) -> "EditPipeline":
         raise NotImplementedError("multi-card serving is not ported yet (ROADMAP "
-                                  "Queue 1, items 8-9)")
+                                  "Queue 1, items 8 and 11)")
 
     @torch.inference_mode()
     def edit_batch(self, image: np.ndarray, mask: np.ndarray, ref: np.ndarray, *,
@@ -66,10 +75,10 @@ class EditPipeline:
         returns a :class:`PendingOutput` without waiting for the device."""
         if sampler != "plms":
             raise NotImplementedError(f"sampler {sampler!r} is not ported yet (ROADMAP "
-                                      "Queue 1, item 6: DDIM and DDPM)")
+                                      "Queue 1, item 3: DDIM and DDPM)")
         if paste_back is not None:
             raise NotImplementedError("paste_back is not ported yet (ROADMAP Queue 1, "
-                                      "item 11: vae_asym)")
+                                      "item 4: vae_asym)")
         if output not in ("float32", "uint8", "latent"):
             raise ValueError(f"output must be 'float32', 'uint8' or 'latent', got {output!r}")
         model = self.model

@@ -4,24 +4,29 @@
     python -m pbe_tpu_torch.scripts.bench_attention [--repeats 20]
         [--impls resident,pipelined] [--shapes unet_ds1,vae_mid]
     python -m pbe_tpu_torch.scripts.bench_attention --device cpu
+    PYTHONPATH=<checkout> python pbe_tpu_torch/scripts/bench_attention.py ...
 
 Times every forward variant of ``ops.flash_attention.flash_forward`` at the
 UNet self-attention and VAE mid-block shapes of the 512^2 edit at CFG batch
-2, beside the plain version, with CUDA events (warm-up launches, then
-``--repeats`` launches between two events). Impls: ``plain``
+2, beside the plain version: CUDA events around the one replay of a CUDA
+graph of ``--repeats`` calls (5 for the plain version), after two warm-up
+calls, so the host's launch rate is not in the time. The graph is replayed
+once only, so a kernel's launch count (one per wrapper call: 2 + repeats a
+line) is the number of times the card ran it. Impls: ``plain``
 (``flash_attention_plain``, the counterpart of the JAX script's ``xla``);
-``auto`` (the models' kernels, which serve both of the JAX script's
-``rowblock`` and ``streamed``, so they are timed once); ``resident`` and
-``pipelined``, over the key blocks they instantiate. All four kernels are
-in csrc/flash_fwd.cu.
+``auto`` (the models' kernels, csrc/flash_fwd.cu, which serve both of the
+JAX script's ``rowblock`` and ``streamed``, so they are timed once);
+``resident`` and ``pipelined`` (csrc/flash_variants.cu), over the key
+blocks they instantiate (the resident kernel at its default cluster). The
+script reaches the kernels only through ``flash_forward`` and the tables of
+key blocks, so, run by path with another checkout first on ``PYTHONPATH``,
+it times that checkout's kernels on the same card.
 
 Prints the card's name and power limit on its first line, then one JSON line
 per (shape, impl, blocks) with the JAX script's keys (``blocks``: [key
 block], or null where the source alone decides the tiles); ``ideal_*_us``
 are the products' 4*BH*N^2*d FLOP at ``--peak-tflops`` with d as given and
-padded to 16 as the kernels pad it. A configuration the resident kernel
-cannot hold is printed with ``"skipped"`` and the reason, decided before
-any launch.
+padded to 16 as the kernels pad it.
 ``--device cpu`` times the plain version alone at a tiny shape.
 """
 from __future__ import annotations
@@ -49,41 +54,47 @@ PEAK_BF16_TFLOPS = 989.0  # H100 SXM, dense bf16
 
 
 def configs(shapes: dict, impls) -> list[tuple]:
-    """(shape name, impl, blocks [key block] or None, cluster size, skip
-    reason) of every line, from the shapes alone: nothing is launched."""
+    """(shape name, impl, blocks [key block] or None) of every line, from
+    the shapes alone: nothing is launched."""
     out = []
-    for name, (_, n, _, d) in shapes.items():
+    for name, (_, _, _, d) in shapes.items():
         for impl in impls:
             if impl in ("plain", "auto"):
-                out.append((name, impl, None, None, None))
+                out.append((name, impl, None))
                 continue
             table = fa.RESIDENT_BLOCKS if impl == "resident" else fa.PIPELINED_BLOCKS
-            for block in table[fa._round_up(d, 16)]:
-                cluster = fa.resident_cluster_size(n, d, block) if impl == "resident" else None
-                skip = (fa.resident_footprint(n, d, block)
-                        if impl == "resident" and cluster is None else None)
-                out.append((name, impl, [block], cluster, skip))
+            out.extend((name, impl, [block]) for block in table[fa._round_up(d, 16)])
     return out
 
 
 def time_us(fn, repeats: int, device: torch.device) -> float:
-    """Mean time of one call: CUDA events around ``repeats`` launches after
-    two warm-up calls on the card; the host clock on the CPU."""
+    """Mean time of one call: on the card, CUDA events around the one
+    replay of a CUDA graph of ``repeats`` calls, after two warm-up calls
+    (no warm replay: the card runs fn 2 + repeats times, as many as the
+    wrappers count); the host clock on the CPU."""
     if device.type != "cuda":
         fn()
         t0 = time.perf_counter()
         for _ in range(repeats):
             fn()
         return (time.perf_counter() - t0) / repeats * 1e6
-    for _ in range(2):
-        fn()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(repeats):
+            fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize(device)
     start.record()
-    for _ in range(repeats):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize(device)
+    del graph
     return start.elapsed_time(end) / repeats * 1e3
 
 
@@ -119,7 +130,7 @@ def main(argv=None) -> list[dict]:
             if device.type == "cuda" else {"card": None, "device": "cpu"})
     print(json.dumps(head), flush=True)
     rows, inputs = [], {}
-    for name, impl, blocks, cluster, skip in configs(shapes, impls):
+    for name, impl, blocks in configs(shapes, impls):
         b, n, h, d = shapes[name]
         if name not in inputs:
             inputs.clear()  # one shape's q, k, v on the card at a time
@@ -133,19 +144,15 @@ def main(argv=None) -> list[dict]:
                "us": None, "ideal_unpadded_us": ideal_us,
                "ideal_padded_us": flop * fa._round_up(d, 16) / (opt.peak_tflops * 1e12) * 1e6,
                "mxu_util_vs_unpadded": None, "device": head["device"]}
-        if cluster is not None:
-            row["cluster"] = cluster
-        if skip is not None:
-            row["skipped"] = skip
+        if impl == "plain":
+            fn = lambda: fa.flash_attention_plain(q, k, v)
         else:
-            if impl == "plain":
-                fn = lambda: fa.flash_attention_plain(q, k, v)
-            else:
-                kw = ({"block_k": blocks[0]} if impl == "resident" else
-                      {"block_c": blocks[0]} if impl == "pipelined" else {})
-                fn = lambda: fa.flash_forward(q, k, v, variant=impl, **kw)
-            row["us"] = time_us(fn, opt.repeats, device)
-            row["mxu_util_vs_unpadded"] = ideal_us / row["us"]
+            kw = ({"block_k": blocks[0]} if impl == "resident" else
+                  {"block_c": blocks[0]} if impl == "pipelined" else {})
+            fn = lambda: fa.flash_forward(q, k, v, variant=impl, **kw)
+        row["us"] = time_us(fn, min(opt.repeats, 5) if impl == "plain" else opt.repeats,
+                            device)
+        row["mxu_util_vs_unpadded"] = ideal_us / row["us"]
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows

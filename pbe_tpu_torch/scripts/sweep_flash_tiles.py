@@ -1,9 +1,11 @@
-"""Tile sweep of the models' flash kernels on one card: the forward
-(csrc/flash_fwd.cu ``flash_fwd_kernel``) or, with ``--bwd``, the backward
-(csrc/flash_bwd.cu ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``).
+"""Tile sweep of the flash kernels on one card: the models' forward
+(csrc/flash_fwd.cu ``flash_fwd_kernel``), with ``--bwd`` the backward
+(csrc/flash_bwd.cu ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``),
+with ``--variants`` the resident and pipelined kernels
+(csrc/flash_variants.cu).
 
-    python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--bwd] [--repeats 50]
-        [--settings "first:48=4x64,80=4x64,160=2x32" ...]
+    python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--bwd | --variants]
+        [--repeats 50] [--settings "first:48=4x64,80=4x64,160=2x32" ...]
 
 ``pbe_flash_fwd_bf16`` picks (warps, key tile) by padded head dim in its
 ``launch_fwd<DP, WARPS, BK>`` lines. Each setting rewrites some of those
@@ -12,7 +14,15 @@ lines (``DP=WARPSxBK``, comma-separated; ``ftz`` also takes exp2 through
 the backward's lines instead: ``dqDP=WARPSxBKxHOLDxMINB`` for
 ``launch_dq<DP, WARPS, BK, HOLD, MINB>`` and
 ``dkvDP=WARPSxBQxHOLDxSPLITxMINB`` for ``launch_dkv<DP, WARPS, BQ, HOLD,
-SPLIT, MINB>`` (HOLD 1 or 0). The settings are
+SPLIT, MINB>`` (HOLD 1 or 0). With ``--variants`` a setting rewrites the
+constants of flash_variants.cu: ``stages=N`` and ``rwarps=N``
+(``kResidentStages``, ``kResidentWarps``: the resident kernel's ring stages
+and consumer warps at d <= 160) and ``warps16=DP``
+(``kPipelined16WarpsDP``: the largest padded head dim at which the
+pipelined kernel runs 16 warps a block), and each
+setting's kernels are timed by CUDA graph at the attention benchmark's
+shapes (the pipelined kernel at every key chunk, the resident one at its
+default key block and every cluster size). The settings are
 built side by side with nvcc into ``csrc/build/sweep/`` (the shipped
 library is not touched). Each is checked against its plain version (rel
 L2 <= 1e-2 for every output) and timed at the UNet shapes of the edit and
@@ -66,14 +76,26 @@ BWD_SHAPES = {
     "unet_ds1_train": (4, 4096, 8, 40), "unet_ds2_train": (4, 1024, 8, 80),
     "unet_ds4_train": (4, 256, 8, 160), "unet_ds8_train": (4, 64, 8, 160),
 }
+# the resident and pipelined kernels' settings, the shipped constants first
+VARIANT_SETTINGS = (
+    "shipped:",
+    "first:stages=2,warps16=0",
+    "st4:stages=4",
+    "rw8:rwarps=8",
+    "rw8st4:rwarps=8,stages=4",
+)
+VARIANT_CONSTANTS = {"stages": "kResidentStages", "rwarps": "kResidentWarps",
+                     "warps16": "kPipelined16WarpsDP"}
 # template arguments after the head dim of each backward launch line
 BWD_ARGS = {"dq": ("warps", "bk", "hold", "minb"),
             "dkv": ("warps", "bq", "hold", "split", "minb")}
+# put before csrc/mma_sm90.cuh is included: its softmax step takes this exp2
 FTZ_EXP2 = """__device__ __forceinline__ float ex2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+#define PBE_SOFTMAX_EXP2 ex2_ftz
 
 """
 
@@ -82,10 +104,15 @@ def variant_source(spec: str, source: str = "flash_fwd") -> str:
     """csrc/<source>.cu with the tiles (and exp2) of one setting."""
     src = (cuda_build.CSRC / f"{source}.cu").read_text()
     for item in filter(None, spec.split(",")):
+        if source == "flash_variants":
+            key, val = item.split("=")
+            src, n = re.subn(rf"constexpr int {VARIANT_CONSTANTS[key]} = \d+;",
+                             f"constexpr int {VARIANT_CONSTANTS[key]} = {int(val)};", src)
+            if n != 1:
+                raise ValueError(f"no constant {VARIANT_CONSTANTS[key]} in {source}.cu")
+            continue
         if item == "ftz":
-            a = src.index("template <int NT, int NO>\n__device__ __forceinline__ void softmax_step")
-            b = src.index("\n}\n", a)
-            src = src[:a] + FTZ_EXP2 + src[a:b].replace("exp2f(", "ex2_ftz(") + src[b:]
+            src = src.replace('#include "mma_sm90.cuh"', FTZ_EXP2 + '#include "mma_sm90.cuh"')
             continue
         key, tiles = item.split("=")
         m = re.fullmatch(r"(dq|dkv)?(\d+)", key)
@@ -104,14 +131,15 @@ def variant_source(spec: str, source: str = "flash_fwd") -> str:
 
 
 def ptxas_report(log: str) -> str:
-    """One line per instantiation of the models' kernels (forward and
-    backward) in a -Xptxas -v log: its template arguments, registers and
-    spill bytes."""
+    """One line per instantiation of the flash kernels (forward, its
+    resident and pipelined variants, backward) in a -Xptxas -v log: its
+    template arguments, registers and spill bytes."""
     lines = log.splitlines()
     report = []
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '_Z\w*?"
-                      r"(flash_(?:fwd|fwd_wide|bwd_dq|bwd_dkv)_kernel)(I\w+?EE)?", line)
+                      r"(flash_(?:fwd|fwd_wide|resident|resident_wide|pipelined|pipelined_wide"
+                      r"|bwd_dq|bwd_dkv)_kernel)(I\w+?EE)?", line)
         if m and i + 3 < len(lines):
             args = ", ".join(re.findall(r"L[ib](\d+)E", m[2] or "")) or "-"
             report.append(f"  {m[1]}<{args}>: {lines[i + 2].strip()}; "
@@ -217,10 +245,46 @@ def sweep_backward(built: dict, settings: dict, repeats: int) -> None:
                     "event_ms": event_ms(lambda: kern(*args), repeats)}), flush=True)
 
 
+def sweep_variants(built: dict, settings: dict, repeats: int) -> None:
+    """Each setting's resident and pipelined kernels at the attention
+    benchmark's shapes, checked against the plain version and timed by
+    CUDA graph."""
+    from pbe_tpu_torch.scripts.bench_attention import SHAPES, time_us
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    data = {name: [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3)] for name, shape in SHAPES.items()}
+    kerns = {v: fa.FlashForward(v) for v in ("resident", "pipelined")}
+    for name, (lib, report) in built.items():
+        print(f"[{name}] {settings[name] or 'as shipped'}\n{report}", flush=True)
+        for kern in kerns.values():
+            fn = getattr(ctypes.CDLL(lib), kern.symbol)
+            fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+            kern._fn = fn
+        for sname, (q, k, v) in data.items():
+            want = fa.flash_attention_plain(q, k, v).float()
+            dp = fa._round_up(q.shape[3], 16)
+            launches = ([("pipelined", {"block": b}) for b in fa.PIPELINED_BLOCKS[dp]]
+                        + [("resident", {"cluster": c}) for c in fa.CLUSTER_SIZES])
+            for variant, kw in launches:
+                got = kerns[variant](q, k, v, **kw).float()
+                rel_l2 = ((got - want).norm() / want.norm()).item()
+                if rel_l2 > 1e-2:
+                    raise AssertionError(f"setting {name} {variant} {kw} disagrees with the "
+                                         f"plain version at {sname}: rel L2 {rel_l2:.3e}")
+                print(json.dumps({
+                    "setting": name, "shape": sname, "kernel": variant, **kw, "rel_l2": rel_l2,
+                    "graph_ms": time_us(lambda: kerns[variant](q, k, v, **kw), repeats,
+                                        q.device) / 1e3}), flush=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--bwd", action="store_true",
-                   help="sweep the backward kernels (csrc/flash_bwd.cu)")
+    which = p.add_mutually_exclusive_group()
+    which.add_argument("--bwd", action="store_true",
+                       help="sweep the backward kernels (csrc/flash_bwd.cu)")
+    which.add_argument("--variants", action="store_true",
+                       help="sweep the resident and pipelined kernels (csrc/flash_variants.cu)")
     p.add_argument("--repeats", type=int, default=50)
     p.add_argument("--settings", nargs="+", default=None,
                    help="name:DP=WARPSxBK,... or name:ftz (forward); "
@@ -229,16 +293,18 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sweep_flash_tiles: no CUDA device; the sweep runs on the card")
     print(card_line(), flush=True)
-    source = "flash_bwd" if args.bwd else "flash_fwd"
-    settings = dict(s.split(":", 1) for s in
-                    args.settings or (BWD_SETTINGS if args.bwd else SETTINGS))
+    source = "flash_bwd" if args.bwd else "flash_variants" if args.variants else "flash_fwd"
+    settings = dict(s.split(":", 1) for s in args.settings or {
+        "flash_fwd": SETTINGS, "flash_bwd": BWD_SETTINGS,
+        "flash_variants": VARIANT_SETTINGS}[source])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(settings)) as pool:
         built = dict(zip(settings, pool.map(build, settings, settings.values(),
                                             [source] * len(settings))))
     print(f"built {len(built)} settings of {source}.cu side by side in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    (sweep_backward if args.bwd else sweep_forward)(built, settings, args.repeats)
+    {"flash_fwd": sweep_forward, "flash_bwd": sweep_backward,
+     "flash_variants": sweep_variants}[source](built, settings, args.repeats)
 
 
 if __name__ == "__main__":

@@ -86,6 +86,20 @@ def test_uint8_output_matches_jax(pipelines, jax_scale5):
     assert (diff > 0).mean() < 1e-3
 
 
+def test_pending_edit_is_ready_and_reads_back_the_blocking_edit(pipelines):
+    """edit_batch(block=False): the handle's is_ready() (what the
+    reference's server polls) and its host copy, equal to block=True."""
+    _, tp = pipelines
+    image, mask, ref, x_T = _inputs()
+    kw = dict(steps=2, scale=5.0, x_T=x_T, det_first_stage=True)
+    pending = tp.edit_batch(image, mask, ref, block=False, **kw)
+    assert pending.is_ready()  # a CPU tensor is ready once it exists
+    got = np.asarray(pending)
+    want = tp.edit_batch(image, mask, ref, **kw)
+    assert got.shape == want.shape == (2, 32, 32, 3)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_unported_options_raise(pipelines):
     _, tp = pipelines
     image, mask, ref, x_T = _inputs()

@@ -1,5 +1,5 @@
 """The port's variant-selecting forward (``flash_forward``), the resident
-kernel's footprint rule, the attention benchmark entry and the forward
+kernel's cluster plan, the attention benchmark entry and the forward
 kernel's tile sweep, on the CPU. The resident and pipelined CUDA kernels
 themselves are held against the plain version on the card by
 chip_smoke.py; here every variant runs the plain version and launches
@@ -42,6 +42,39 @@ def test_pipelined_multichunk_matches_pallas_kernel():
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4)
 
 
+@pytest.mark.parametrize("block_c", [32, 64])
+def test_pipelined_wide_matches_pallas_kernel(block_c):
+    """The VAE's head dim 512 at N=128, in chunks of block_c (the port's
+    d=512 kernel splits the head dim over warps)."""
+    q, k, v = _qkv((1, 128, 512), seed=4)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = jfa._flash_fwd_bhnd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128, block_k=128,
+            return_stats=True, variant="pipelined", block_c=block_c)
+    as_bnhd = lambda a: torch.from_numpy(a)[:, :, None, :]
+    got, got_lse = tfa.flash_forward(as_bnhd(q), as_bnhd(k), as_bnhd(v),
+                                     variant="pipelined", block_c=block_c, return_lse=True)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(want), atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4)
+
+
+# several key blocks of the online softmax at (2, 256, 40), and the VAE's
+# head dim at N=128, against the Pallas resident kernel with a q block of 128
+@pytest.mark.parametrize("shape, block_k", [
+    ((2, 256, 40), 32), ((2, 256, 40), 64), ((2, 256, 40), 128), ((1, 128, 512), 32)])
+def test_resident_multiblock_matches_pallas_kernel(shape, block_k):
+    q, k, v = _qkv(shape, seed=3)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = jfa._flash_fwd_bhnd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128, block_k=block_k,
+            return_stats=True, variant="resident")
+    as_bnhd = lambda a: torch.from_numpy(a)[:, :, None, :]
+    got, got_lse = tfa.flash_forward(as_bnhd(q), as_bnhd(k), as_bnhd(v),
+                                     variant="resident", block_k=block_k, return_lse=True)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(want), atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0], atol=1e-4)
+
+
 def test_cpu_tensors_launch_no_kernel_under_any_variant():
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 64, 2, 40), seed=2))
     want, want_lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
@@ -69,25 +102,41 @@ def test_unknown_variant_and_foreign_blocks_raise():
         tfa.flash_forward(*[torch.zeros(1, 64, 1, 64)] * 3, variant="resident")
 
 
-# the benchmark's shapes and ds8: K and V of one head (rows padded to d+8
-# bf16) against 227 KB a block beside the working tiles
+# the benchmark's shapes and ds8: q tiles of 64 rows (32 at d=512) a head,
+# and the B*H heads' tiles against 4 x 132 SMs
 @pytest.mark.parametrize("shape, cluster", [
-    ((2, 4096, 8, 40), 8),   # 896 KB
-    ((2, 1024, 8, 80), 4),   # 352 KB
-    ((2, 256, 8, 160), 2),   # 168 KB, fails one block beside its tiles
-    ((2, 64, 8, 160), 1),
-    ((2, 4096, 1, 512), None),  # 8.5 MB: no cluster of 8 holds it
+    ((2, 4096, 8, 40), 4),   # 64 q tiles a head, 1024 in all
+    ((2, 1024, 8, 80), 2),   # 16, 256 in all
+    ((2, 256, 8, 160), 2),   # 4, 64 in all
+    ((2, 64, 8, 160), 1),    # 1
+    ((2, 4096, 1, 512), 2),  # 128, 256 in all: the VAE shape shares key tiles too
 ])
 def test_resident_cluster_size(shape, cluster):
-    _, n, _, d = shape
-    assert tfa.resident_cluster_size(n, d) == cluster
+    assert tfa.resident_cluster(shape) == cluster
+    assert tfa.flash_fwd_resident.plan(shape) == [tfa.key_block("resident", shape[3]),
+                                                  cluster]
+
+
+@pytest.mark.parametrize("shape, sms, cluster", [
+    ((2, 1024, 8, 80), 64, 4),    # 256 q tiles fill 64 SMs 4 times over
+    ((2, 4096, 8, 40), 264, 2),   # 1024 q tiles fill 264 SMs under 4 times
+])
+def test_resident_cluster_follows_the_card_sm_count(shape, sms, cluster):
+    assert tfa.resident_cluster(shape, sms=sms) == cluster
+    assert tfa.flash_fwd_resident.plan(shape, sms=sms)[1] == cluster
 
 
 def test_resident_refuses_the_vae_shape_and_cpu_tensors():
+    """The VAE shape is planned (no shape is refused for its K and V); a
+    tensor off the card still reaches no kernel."""
     vae = torch.empty(2, 4096, 1, 512, device="meta")
-    with pytest.raises(ValueError, match="8519680 bytes of shared memory"):
-        tfa.flash_forward(vae, vae, vae, variant="resident")  # on any device
-    with pytest.raises(ValueError, match="8519680 bytes of shared memory"):
+    assert tfa.flash_fwd_resident.plan(vae.shape) == [32, 2]
+    assert tfa.flash_fwd_resident.plan(vae.shape, cluster=4) == [32, 4]
+    with pytest.raises(ValueError, match="cluster of 8 blocks"):
+        tfa.flash_fwd_resident.plan(vae.shape, cluster=8)
+    with pytest.raises(ValueError, match="no path for device meta"):
+        tfa.flash_forward(vae, vae, vae, variant="resident")
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd_resident(vae, vae, vae)
     x = torch.zeros(2, 64, 8, 160, dtype=torch.bfloat16)
     for kernel in (tfa.flash_fwd_resident, tfa.flash_fwd_pipelined):
@@ -109,19 +158,16 @@ def test_bench_entry_on_the_cpu(capsys):
 
 def test_bench_plan_over_the_card_shapes():
     """Every (shape, impl, blocks) line the card run prints, decided from
-    the shapes alone: the resident kernel's VAE line is skipped with the
-    footprint, every resident and pipelined line names its key block (and
-    cluster), and the models' kernel is timed once a shape."""
+    the shapes alone: every line is timed (the resident kernel takes the
+    VAE shape), every resident and pipelined line names its key block, and
+    the models' kernel is timed once a shape."""
     plan = bench.configs(bench.SHAPES, bench.IMPLS)
-    by = {(name, impl, None if blocks is None else blocks[0]): (cluster, skip)
-          for name, impl, blocks, cluster, skip in plan}
+    by = {(name, impl, None if blocks is None else blocks[0]) for name, impl, blocks in plan}
     assert len(by) == len(plan) == 28
-    assert [impl for _, impl, _, _, _ in plan].count("auto") == len(bench.SHAPES)
-    assert by[("vae_mid", "resident", 32)][1].startswith("resident: K and V of one head")
-    assert [skip for _, _, _, _, skip in plan].count(None) == 27
-    assert by[("unet_ds1", "resident", 128)] == (8, None)
-    assert by[("unet_ds4", "pipelined", 128)] == (None, None)
-    assert {impl for _, impl, _, _, _ in plan} == set(bench.IMPLS)
+    assert [impl for _, impl, _ in plan].count("auto") == len(bench.SHAPES)
+    assert ("vae_mid", "resident", 32) in by and ("unet_ds1", "resident", 128) in by
+    assert ("unet_ds4", "pipelined", 128) in by and ("unet_ds4", "resident", 128) not in by
+    assert {impl for _, impl, _ in plan} == set(bench.IMPLS)
 
 
 @pytest.mark.parametrize("setting", sweep.SETTINGS)
@@ -142,8 +188,9 @@ def test_tile_sweep_rewrites_only_its_tiles(setting):
             want[dp] = t.replace("x", ", ")
     assert tiles(src) == want and len(want) == 5
     if spec == "ftz":
-        assert src.count("ex2_ftz(") > 0
-        assert src.replace(sweep.FTZ_EXP2, "").replace("ex2_ftz(", "exp2f(") == shipped
+        # the softmax step (csrc/mma_sm90.cuh) takes PBE_SOFTMAX_EXP2
+        assert src.count("#define PBE_SOFTMAX_EXP2 ex2_ftz") == 1
+        assert src.replace(sweep.FTZ_EXP2, "") == shipped
     else:
         assert "ex2_ftz" not in src
     with pytest.raises(ValueError, match="head dim 64"):
@@ -177,6 +224,26 @@ def test_bwd_tile_sweep_rewrites_only_its_tiles(setting):
         sweep.variant_source("dq48=4x64", "flash_bwd")
 
 
+@pytest.mark.parametrize("setting", sweep.VARIANT_SETTINGS)
+def test_variant_sweep_rewrites_only_its_constants(setting):
+    """Each setting of the resident/pipelined sweep changes exactly the
+    constants it names in csrc/flash_variants.cu and nothing else."""
+    import re
+
+    shipped = sweep.variant_source("", "flash_variants")
+    spec = setting.split(":", 1)[1]
+    src = sweep.variant_source(spec, "flash_variants")
+    names = "|".join(sweep.VARIANT_CONSTANTS.values())
+    consts = lambda x: dict(re.findall(rf"constexpr int ({names}) = (\d+);", x))
+    want = consts(shipped)
+    for item in filter(None, spec.split(",")):
+        key, val = item.split("=")
+        want[sweep.VARIANT_CONSTANTS[key]] = val
+    assert consts(src) == want and len(want) == 3
+    strip = lambda x: re.sub(rf"({names}) = \d+", "", x)
+    assert strip(src) == strip(shipped)
+
+
 def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
     """The sources include csrc/*.cuh, so an edited header must give a new
     library path (a rebuild), not the library built from the old one."""
@@ -189,9 +256,10 @@ def test_library_key_covers_the_shared_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC", csrc)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", csrc / "build")
     headers = sorted(csrc.glob("*.cuh"))
+    names = ("flash_fwd", "flash_variants", "flash_bwd")
     assert headers and all(f'#include "{h.name}"' in (csrc / f"{n}.cu").read_text()
-                           for h in headers for n in ("flash_fwd", "flash_bwd"))
-    before = {n: cuda_build.library_path(n) for n in ("flash_fwd", "flash_bwd")}
+                           for h in headers for n in names)
+    before = {n: cuda_build.library_path(n) for n in names}
     assert before == {n: cuda_build.library_path(n) for n in before}  # stable
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")
     after = {n: cuda_build.library_path(n) for n in before}
