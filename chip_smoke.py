@@ -58,8 +58,26 @@ sixth):
      impl, with every kernel's launch count set to 0 just before and read
      just after.
 
-A run takes them in the order 1, 2, 7, 11, 3-5, 8, 9, 6, 10: kernels first,
-the card-vs-CPU comparisons last.
+The edit CLIs (the seventh slice):
+ 12. on phase 4's v1 pipeline, a checkpoint of the tensors that
+     randomize_zero_params changed (so the CLIs load the same weights) and
+     512^2 input PNGs; pbe_tpu_torch.scripts.inference.main in-process:
+     (a) DDIM 50 at scale 5, three iterations, the result PNG against
+     edit_batch's and 802 flash launches an edit; (b) PLMS with
+     --paste_back 8, the watermark read back from the stamped result and
+     every mask==1 pixel of an unstamped twin equal to the source PNG's,
+     818 launches each; (c) the default scale 1 (batch 1, 802 launches);
+     then inference_test_bench.main over 6 synthetic COCOEE pairs at
+     --n_samples 4 (2 x 818 launches, 6 results, 6 grids, its steady-state
+     edits/s). Each run's launches are counted from 0. Then the forward
+     kernel against its plain version and timed at the shapes those runs
+     gave it (batch 1, 4 and 8; the VAE at batch 2 and 4). Last of all, a
+     tiny DDIM (eta 0.5) and full-chain DDPM edit on the card in bf16
+     against the same edit on the CPU in fp32, noise injected.
+
+A run takes them in the order 1, 2, 7, 11, 3, 4, 12, 5, 8, 9, 6, 10, then
+12's tiny edits: kernels first, the timed edits before the profiler, the
+card-vs-CPU comparisons last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -68,6 +86,7 @@ result, when any phase fails or there is no CUDA device.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -96,6 +115,30 @@ FLASH_SHAPES = (
     ("vae_mid", (1, 4096, 1, 512), K2, 2),
 )
 LAUNCHES_PER_EDIT = sum(s[3] for s in FLASH_SHAPES)  # 818
+# a 50-step DDIM edit: 50 UNet calls of 16 self-attentions, 2 VAE ones
+DDIM_LAUNCHES = 50 * 16 + 2  # 802
+# phase 12, the CLIs: (name, (B, N, H, D), TPU kernel, CLI run, launches in
+# that run). The inference CLI at its default --scale 1 runs the UNet once
+# a step at batch 1 (DDIM, 50 calls); the test bench at --n_samples 4,
+# scale 5, PLMS over 6 pairs runs a batch of 4 (8 at CFG) and the ragged
+# last batch of 2 (4 at CFG), each 51 UNet calls, one VAE encode and one
+# decode
+CLI_SHAPES = (
+    ("cli_b1_ds1", (1, 4096, 8, 40), K1, "scale 1", 5 * 50),
+    ("cli_b1_ds2", (1, 1024, 8, 80), K1, "scale 1", 5 * 50),
+    ("cli_b1_ds4", (1, 256, 8, 160), K1, "scale 1", 5 * 50),
+    ("cli_b1_ds8", (1, 64, 8, 160), K1, "scale 1", 1 * 50),
+    ("bench_b8_ds1", (8, 4096, 8, 40), K1, "test bench", 5 * 51),
+    ("bench_b8_ds2", (8, 1024, 8, 80), K1, "test bench", 5 * 51),
+    ("bench_b8_ds4", (8, 256, 8, 160), K1, "test bench", 5 * 51),
+    ("bench_b8_ds8", (8, 64, 8, 160), K1, "test bench", 1 * 51),
+    ("bench_b4_ds1", (4, 4096, 8, 40), K1, "test bench", 5 * 51),
+    ("bench_b4_ds2", (4, 1024, 8, 80), K1, "test bench", 5 * 51),
+    ("bench_b4_ds4", (4, 256, 8, 160), K1, "test bench", 5 * 51),
+    ("bench_b4_ds8", (4, 64, 8, 160), K1, "test bench", 1 * 51),
+    ("bench_vae_b4", (4, 4096, 1, 512), K2, "test bench", 2),
+    ("bench_vae_b2", (2, 4096, 1, 512), K2, "test bench", 2),
+)
 # bf16 tolerance of kernel vs plain, relative to the output's scale (|O| is
 # ~0.02 at N=4096 with randn inputs, not ~1): both round q*scale, P and O to
 # bf16 the same way, but the kernel's online softmax rounds P against a
@@ -293,7 +336,6 @@ def check_stress(fa, rand, gen) -> None:
 
 def phase_kernels() -> list[dict]:
     import torch
-    import torch.nn.functional as F
 
     from pbe_tpu_torch.ops import flash_attention as fa
 
@@ -306,37 +348,44 @@ def phase_kernels() -> list[dict]:
         check_flash(fa, rand(shape), rand(shape), rand(shape), f"check {shape}")
     check_stress(fa, rand, gen)
 
-    rows = []
-    for name, shape, replaces, _ in FLASH_SHAPES:
-        b, n, h, d = shape
-        q, k, v = rand(shape), rand(shape), rand(shape)
-        err, lerr = check_flash(fa, q, k, v, f"{name} {shape}")
-        # the least time for this work: products at the bf16 tensor-core
-        # rate, exponentials at the special-function rate (both operations),
-        # or q, k, v read once and o written once at the HBM rate
-        t_mma = 4.0 * b * h * n * n * d / BF16_FLOP_PER_S * 1e3
-        t_exp2 = 1.0 * b * h * n * n / EXP2_PER_S * 1e3
-        t_bytes = 4.0 * b * n * h * d * 2 / HBM_BYTES_PER_S * 1e3
-        binding = max(("mma", t_mma), ("exp2", t_exp2), ("bytes", t_bytes),
-                      key=lambda x: x[1])
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        row = {"name": f"flash_fwd/{name}", "route": "cuda",
-               "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": replaces,
-               "launches": None, "max_abs_err": err, "lse_max_abs_err": lerr,
-               "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
-               "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
-               "bound_ms": binding[1],
-               "bound_by": "bytes" if binding[0] == "bytes" else "operations",
-               "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20),
-               "eager_ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 20)}
-        log(f"[kernel] {name}: kernel {row['ms']:.4f} ms ({row['eager_ms']:.4f} launched "
-            f"eagerly), plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms by {binding[0]} (mma {t_mma:.4f}, exp2 "
-            f"{t_exp2:.4f}, bytes {t_bytes:.4f})")
-        rows.append(row)
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
-    return rows
+    return [kernel_row(fa, name, shape, replaces, rand)
+            for name, shape, replaces, _ in FLASH_SHAPES]
+
+
+def kernel_row(fa, name: str, shape, replaces: str, rand) -> dict:
+    """flash_fwd against its plain version on randn inputs at one shape,
+    then timed beside the plain version and SDPA: one row of the kernels
+    line (launches filled in by the main path's run)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, h, d = shape
+    q, k, v = rand(shape), rand(shape), rand(shape)
+    err, lerr = check_flash(fa, q, k, v, f"{name} {shape}")
+    # the least time for this work: products at the bf16 tensor-core rate,
+    # exponentials at the special-function rate (both operations), or q,
+    # k, v read once and o written once at the HBM rate
+    t_mma = 4.0 * b * h * n * n * d / BF16_FLOP_PER_S * 1e3
+    t_exp2 = 1.0 * b * h * n * n / EXP2_PER_S * 1e3
+    t_bytes = 4.0 * b * n * h * d * 2 / HBM_BYTES_PER_S * 1e3
+    binding = max(("mma", t_mma), ("exp2", t_exp2), ("bytes", t_bytes), key=lambda x: x[1])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row = {"name": f"flash_fwd/{name}", "route": "cuda",
+           "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": replaces,
+           "launches": None, "max_abs_err": err, "lse_max_abs_err": lerr,
+           "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
+           "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
+           "bound_ms": binding[1],
+           "bound_by": "bytes" if binding[0] == "bytes" else "operations",
+           "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20),
+           "eager_ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 20)}
+    log(f"[kernel] {name}: kernel {row['ms']:.4f} ms ({row['eager_ms']:.4f} launched "
+        f"eagerly), plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms by {binding[0]} (mma {t_mma:.4f}, exp2 "
+        f"{t_exp2:.4f}, bytes {t_bytes:.4f})")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_bwd(fa, q, k, v, do, label: str) -> dict:
@@ -709,10 +758,18 @@ def phase_profile(model) -> None:
                 model.apply_model(x9, t, ctx)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        # and once more without it: whether the host stays slower after a
+        # profile, which would bear on every phase timed after this one
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            model.apply_model(x9, t, ctx)
+        torch.cuda.synchronize()
+        after_ms = (time.perf_counter() - t0) * 1e3
     kernels, busy, groups = device_time(prof)
     log(f"[profile] v1 CFG UNet call x{calls}: wall {plain_wall_ms / calls:.3f} ms/call "
-        f"({wall_ms / calls:.3f} under the profiler), device busy {busy / calls:.3f} "
-        f"ms/call, idle share {1 - busy / plain_wall_ms:.3f}")
+        f"({wall_ms / calls:.3f} under the profiler, {after_ms / calls:.3f} after it), "
+        f"device busy {busy / calls:.3f} ms/call, idle share "
+        f"{1 - busy / plain_wall_ms:.3f}")
     log(f"[profile] by group (ms/call): "
         f"{json.dumps({k: round(v / calls, 4) for k, v in sorted(groups.items())})}")
     for e in kernels[:15]:
@@ -819,6 +876,236 @@ def phase_reference() -> None:
         f"{diff.max():.4f} (tol 0.15), mean {diff.mean():.5f} (tol 0.02)")
     if not (np.isfinite(got).all() and diff.max() <= 0.15 and diff.mean() <= 0.02):
         raise AssertionError("card edit disagrees with the CPU fp32 reference")
+
+
+def counted(fa, fn):
+    """fn() with every forward kernel's launch count set to 0 just before
+    and read just after -> (fn's result, flash_fwd launches, flash_fwd
+    launches by shape); raises if the resident or pipelined kernel ran."""
+    variants = (fa.flash_fwd_resident, fa.flash_fwd_pipelined)
+    for kern in (fa.flash_fwd, *variants):
+        kern.launches = 0
+        kern.launches_by_shape.clear()
+    out = fn()
+    if any(kern.launches for kern in variants):
+        raise AssertionError("a CLI launched the resident or pipelined kernel")
+    return out, fa.flash_fwd.launches, dict(fa.flash_fwd.launches_by_shape)
+
+
+def write_test_bench(root: str, n: int, size: int, seed: int) -> list[str]:
+    """A COCOEE-layout dir (pbe_tpu_torch/data/test_bench.py) of n seeded
+    pairs: smooth GT images, exemplars cut from them, white-box masks."""
+    from PIL import Image
+
+    g = np.random.default_rng(seed)
+    for sub in ("GT_3500", "Ref_3500", "Mask_bbox_3500"):
+        os.makedirs(os.path.join(root, sub))
+    ids = list(range(1, n + 1))
+    np.save(os.path.join(root, "id_list.npy"), np.asarray(ids))
+    for i in ids:
+        gt = smooth_image(g, size)
+        y, x = g.integers(0, size // 2, 2)
+        m = np.zeros((size, size), np.uint8)
+        m[y:y + size // 3, x:x + size // 3] = 255
+        Image.fromarray(gt).save(os.path.join(root, "GT_3500", f"{i:012d}_GT.png"))
+        Image.fromarray(gt[y:y + size // 3, x:x + size // 3]).save(
+            os.path.join(root, "Ref_3500", f"{i:012d}_ref.png"))
+        Image.fromarray(m).save(os.path.join(root, "Mask_bbox_3500", f"{i:012d}_mask.png"))
+    return [f"{i:012d}" for i in ids]
+
+
+def smooth_image(g, size: int) -> np.ndarray:
+    """Seeded (size, size, 3) uint8 of 8x8 flat blocks in [40, 215): the
+    watermark's chroma steps stay clear of 0 and 255."""
+    blocks = g.integers(40, 215, (size // 8, size // 8, 3), np.uint8)
+    return np.kron(blocks, np.ones((8, 8, 1), np.uint8))
+
+
+def phase_cli(pipe, zero_names: list[str], card: str, rows: list[dict]) -> dict:
+    """The edit CLIs in-process at full width (v1, 512^2, bf16), on a
+    checkpoint of the tensors randomize_zero_params changed (the rest is
+    load_pipeline's seeded init, so the CLIs' weights are pipe's bit for
+    bit): (a) DDIM 50 at scale 5, three iterations, against edit_batch;
+    (b) PLMS with --paste_back 8, watermarked and not; (c) the default
+    scale 1; then the test bench over 6 pairs at --n_samples 4. Every run's
+    flash launches are counted from 0; the kernel at the new shapes is
+    checked and timed after."""
+    import gc
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from pbe_tpu_torch.data import transforms as T
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import inference, inference_test_bench
+    from pbe_tpu_torch.utils.watermark import extract_watermark
+
+    def run(fn, *argv):
+        out = counted(fa, lambda: fn(list(argv)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        params = dict(pipe.model.named_parameters())
+        ckpt = os.path.join(tmp, "seeded.ckpt")
+        torch.save({"state_dict": {n: params[n].detach().cpu() for n in zero_names}}, ckpt)
+        g = np.random.default_rng(21)
+        src, mask_png, ref_png = (os.path.join(tmp, f) for f in ("src.png", "mask.png",
+                                                                 "ref.png"))
+        Image.fromarray(smooth_image(g, 512)).save(src)
+        m = np.zeros((512, 512), np.uint8)
+        # white = the region to edit, 8% of the image. The watermark votes
+        # each payload bit over blocks spread through the image; an edit
+        # region half the image tall, saturated by random weights, can
+        # outvote the rest for the bits whose blocks it covers
+        m[192:320, 176:336] = 255
+        Image.fromarray(m).save(mask_png)
+        Image.fromarray(smooth_image(g, 224)).save(ref_png)
+        log(f"[cli] checkpoint of {len(zero_names)} tensors and inputs written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        common = ["--config", "configs/v1.yaml", "--ckpt", ckpt, "--image_path", src,
+                  "--mask_path", mask_png, "--reference_path", ref_png, "--seed", "321"]
+
+        # (a) DDIM, 50 steps, scale 5: three edits, the seed advancing
+        out_a = os.path.join(tmp, "a")
+        times, n, _ = run(inference.main, *common, "--outdir", out_a, "--scale", "5",
+                          "--n_iter", "3", "--no_watermark")
+        image = T.load_image(src, (512, 512))
+        keep = T.load_mask(mask_png, (512, 512))
+        ref = T.load_reference(ref_png, pipe.ref_size)
+        want = T.to_uint8(pipe.edit_batch(image[None], keep[None], ref[None], steps=50,
+                                          scale=5.0, sampler="ddim", seed=321)[0])
+        got = np.asarray(Image.open(os.path.join(out_a, "results", "src_321.png")))
+        steady = float(np.mean(times[1:]))
+        log(f"[cli] (a) DDIM 50 scale 5 x3: flash launches {n} ({n / 3:.0f} an edit, "
+            f"expected {DDIM_LAUNCHES}); edits {['%.4f' % t for t in times]} s, steady "
+            f"{steady:.4f} s ({card}); result PNG equal to edit_batch's: "
+            f"{np.array_equal(got, want)}")
+        if n != 3 * DDIM_LAUNCHES:
+            raise AssertionError(f"the DDIM CLI edit launched {n / 3} flash kernels an edit")
+        if not np.array_equal(got, want):
+            diff = np.abs(got.astype(int) - want)
+            raise AssertionError(f"the CLI's DDIM result differs from edit_batch's: max "
+                                 f"{diff.max()}, {(diff > 0).mean():.4f} of the values")
+        summary["ddim_edit_s"], summary["ddim_steady_s"] = times, steady
+
+        # (b) PLMS with --paste_back 8: stamped, and a twin without the
+        # watermark (which moves pixels everywhere) for the bit-exact check
+        counts = {}
+        for name, extra in (("stamped", []), ("twin", ["--no_watermark"])):
+            times, counts[name], _ = run(inference.main, *common, "--outdir",
+                                         os.path.join(tmp, name), "--scale", "5", "--plms",
+                                         "--paste_back", "8", "--n_iter", "1", *extra)
+        stamped, twin = (np.asarray(Image.open(os.path.join(tmp, name, "results",
+                                                            "src_321.png")))
+                         for name in ("stamped", "twin"))
+        source = np.asarray(Image.open(src))
+        kept = keep[..., 0] == 1.0
+        mark = extract_watermark(stamped)
+        log(f"[cli] (b) PLMS --paste_back 8: launches {counts} (expected "
+            f"{LAUNCHES_PER_EDIT} each); mask==1 pixels equal to the source: "
+            f"{np.array_equal(twin[kept], source[kept])} ({kept.sum()} pixels); edit region "
+            f"max|result - source| {np.abs(twin[~kept].astype(int) - source[~kept]).max()}; "
+            f"watermark reads {mark!r}; stamped vs twin max|diff| "
+            f"{np.abs(stamped.astype(int) - twin).max()}")
+        if any(c != LAUNCHES_PER_EDIT for c in counts.values()):
+            raise AssertionError(f"the PLMS CLI edits launched {counts} flash kernels")
+        if not np.array_equal(twin[kept], source[kept]):
+            raise AssertionError("paste_back changed a pixel the mask keeps")
+        if mark != b"Paint-by-Example" or np.array_equal(stamped, twin):
+            raise AssertionError("the CLI's watermark does not read back")
+
+        # (c) the CLI's default --scale 1: one UNet call a step at batch 1
+        times, n, by_shape = run(inference.main, *common, "--outdir",
+                                 os.path.join(tmp, "c"), "--n_iter", "1")
+        log(f"[cli] (c) default scale 1, DDIM 50: flash launches {n} (expected "
+            f"{DDIM_LAUNCHES}), by shape {by_shape}; edit {times[0]:.4f} s ({card})")
+        if n != DDIM_LAUNCHES:
+            raise AssertionError(f"the scale-1 CLI edit launched {n} flash kernels")
+        runs = {"scale 1": by_shape}
+        summary["scale1_edit_s"] = times[0]
+
+        # the test bench: 6 pairs in batches of 4, the last one ragged
+        bench = os.path.join(tmp, "bench")
+        ids = write_test_bench(bench, 6, 512, seed=22)
+        out_b = os.path.join(tmp, "bench_out")
+        res, n, by_shape = run(inference_test_bench.main, "--config", "configs/v1.yaml",
+                               "--ckpt", ckpt, "--test_bench_dir", bench, "--outdir", out_b,
+                               "--plms", "--n_samples", "4", "--scale", "5", "--seed", "321")
+        results = sorted(os.listdir(os.path.join(out_b, "results")))
+        grids = sorted(f for f in os.listdir(os.path.join(out_b, "grid"))
+                       if f.startswith("grid_"))
+        log(f"[cli] test bench, 6 pairs, --n_samples 4 scale 5 PLMS 50: batches "
+            f"{[(b, round(t, 4)) for b, t in res['batches']]} (pairs, s); flash launches "
+            f"{n} (expected {2 * LAUNCHES_PER_EDIT}), by shape {by_shape}; {len(results)} "
+            f"results, {len(grids)} grids; steady-state {res['steady_edits_per_s']:.4f} "
+            f"edits/s wall incl. host IO; first batch {4 / res['batches'][0][1]:.4f} "
+            f"edits/s ({card})")
+        if n != 2 * LAUNCHES_PER_EDIT:
+            raise AssertionError(f"the test bench launched {n} flash kernels")
+        if results != [f"{i}.png" for i in ids] or grids != [f"grid_{i}.png" for i in ids]:
+            raise AssertionError(f"the test bench wrote {results} and {grids}")
+        runs["test bench"] = by_shape
+        summary["bench"] = res
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for name, shape, replaces, run_name, want_n in CLI_SHAPES:
+        row = kernel_row(fa, name, shape, replaces, rand)
+        row["launches"] = runs[run_name].get(shape, 0)
+        if row["launches"] != want_n:
+            raise AssertionError(f"{name}: {row['launches']} launches in the {run_name} "
+                                 f"run, expected {want_n}")
+        rows.append(row)
+    return summary
+
+
+def phase_reference_samplers() -> None:
+    """configs/tiny.yaml 16^2 edits with DDIM (eta 0.5, 10 steps) and the
+    full 1000-step DDPM chain: bf16 with the flash kernel on the card
+    against fp32 with plain attention on the CPU, the same seeded weights
+    (zero-init heads at 0.02) and the same injected x_T and per-step
+    noise."""
+    import torch
+
+    from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
+
+    gpu, _ = load_pipeline("configs/tiny.yaml", device="cuda", verbose=False)
+    randomize_zero_params(gpu.model, seed=0, scale=0.02)
+    cpu, _ = load_pipeline("configs/tiny.yaml", device="cpu", dtype=torch.float32,
+                           attn_impl="plain", verbose=False)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    image, mask, ref = edit_inputs(16, gpu.ref_size, seed=15)
+    n = 16 // gpu.model.latent_downsample
+    g = np.random.default_rng(16)
+    x_T = g.standard_normal((1, n, n, 4)).astype(np.float32)
+    # tolerances on the [0,1] image, set from these edits in bf16 and fp32
+    # on the CPU (plain attention): DDIM max 0.0128, mean 0.0020 (phase 6's
+    # tolerance holds them); DDPM max 0.1165, mean 0.0220, as it rounds a
+    # latent of |x| up to ~70 to bf16 at each of its 1000 steps. A noise
+    # row off by one step moves the DDIM mean by 0.048 but the DDPM mean by
+    # only 0.014, under bf16's drift: the CPU tests hold the DDPM chain to
+    # JAX at 1e-5
+    for sampler, steps, eta, tol in (("ddim", 10, 0.5, (0.15, 0.02)),
+                                     ("ddpm", None, 0.0, (0.35, 0.05))):
+        rows = steps if sampler == "ddim" else gpu.model.schedule.num_timesteps
+        noise = g.standard_normal((rows, 1, n, n, 4)).astype(np.float32)
+        kw = dict(steps=steps, scale=5.0, sampler=sampler, eta=eta, x_T=x_T,
+                  det_first_stage=True, noise=noise)
+        t0 = time.perf_counter()
+        got = gpu.edit_batch(image, mask, ref, **kw)
+        t_gpu = time.perf_counter() - t0
+        want = cpu.edit_batch(image, mask, ref, **kw)
+        diff = np.abs(got - want)
+        log(f"[reference] tiny 16^2 {sampler} ({rows} steps{', eta 0.5' if eta else ''}), "
+            f"card bf16 ({t_gpu:.1f} s) vs CPU fp32: max|diff| {diff.max():.4f} (tol "
+            f"{tol[0]}), mean {diff.mean():.5f} (tol {tol[1]})")
+        if not (np.isfinite(got).all() and diff.max() <= tol[0] and diff.mean() <= tol[1]):
+            raise AssertionError(f"card {sampler} edit disagrees with the CPU fp32 reference")
 
 
 def build_v1_for_training():
@@ -1094,6 +1381,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     pipe, _ = load_pipeline("configs/v1.yaml", device="cuda")
+    zero_names = [n for n, p in pipe.model.named_parameters() if not torch.any(p)]
     randomize_zero_params(pipe.model, seed=0)
     torch.cuda.synchronize()
     log(f"[load] v1 built and initialized on the card in {time.perf_counter() - t0:.1f} s")
@@ -1103,6 +1391,8 @@ def main() -> int:
         raise AssertionError("eps is ~0: the zero-init heads were not randomized")
     phase_unet(pipe.model)
     edit = phase_edit(pipe, card, rows)
+    cli_rows = []
+    cli = phase_cli(pipe, zero_names, card, cli_rows)
     phase_profile(pipe.model)  # after the timed edits: the profiler slows the host
     del pipe
     torch.cuda.empty_cache()
@@ -1113,9 +1403,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_reference()
     phase_train_reference()
+    phase_reference_samplers()
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
-    print(json.dumps({"kernels": rows + train_rows + variant_rows}), flush=True)
+    log(f"[cli] summary {json.dumps(cli)}")
+    print(json.dumps({"kernels": rows + train_rows + variant_rows + cli_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,12 @@ Layout (module names mirror ``pbe_tpu`` so each counterpart is easy to find):
                              and the flash-attention autograd function
     pbe_tpu_torch.csrc       hand-written CUDA sources (built at first use)
     pbe_tpu_torch.models     UNet, VAE, CLIP ViT, exemplar encoder, PaintByExample
-    pbe_tpu_torch.samplers   PLMS with folded classifier-free guidance
-    pbe_tpu_torch.pipelines  EditPipeline.edit_batch and load_pipeline
+    pbe_tpu_torch.samplers   PLMS, DDIM and DDPM with folded classifier-free guidance
+    pbe_tpu_torch.pipelines  EditPipeline (edit_batch, edit, paste_back), load_pipeline
+                             and the batch API
+    pbe_tpu_torch.data       PNG/mask/exemplar IO, the COCOEE test bench, a loader
+    pbe_tpu_torch.utils      the invisible watermark, a background writer
+    pbe_tpu_torch.scripts    the edit CLIs, the attention bench, the tile sweep
     pbe_tpu_torch.training   the v1 training step, LR schedules, EMA, the
                              trainable partition and a single-device Trainer
 

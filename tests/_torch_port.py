@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from PIL import Image
 
 from pbe_tpu.models.clip_vit import CLIPVisionConfig as JClip
 from pbe_tpu.models.exemplar import ExemplarEncoderConfig as JExemplar
@@ -114,3 +115,23 @@ def sub_params(variables, *path):
     for p in path:
         tree = tree[p]
     return {"params": tree}
+
+
+def write_test_bench(root, n, size, seed=0):
+    """A COCOEE-layout dir (pbe_tpu/data/test_bench.py) of n random pairs;
+    returns the ids."""
+    g = np.random.default_rng(seed)
+    ids = [int(i) for i in g.choice(10**6, n, replace=False)]
+    for sub in ("GT_3500", "Ref_3500", "Mask_bbox_3500"):
+        (root / sub).mkdir(parents=True)
+    np.save(root / "id_list.npy", np.asarray(ids))
+    for i in ids:
+        Image.fromarray(g.integers(0, 256, (size, size, 3), np.uint8)).save(
+            root / "GT_3500" / f"{i:012d}_GT.png")
+        Image.fromarray(g.integers(0, 256, (size // 2 + 3, size // 2, 3), np.uint8)).save(
+            root / "Ref_3500" / f"{i:012d}_ref.png")
+        m = np.zeros((size, size), np.uint8)
+        y, x = g.integers(0, size // 2, 2)
+        m[y:y + size // 3, x:x + size // 3] = 255
+        Image.fromarray(m).save(root / "Mask_bbox_3500" / f"{i:012d}_mask.png")
+    return ids

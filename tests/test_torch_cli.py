@@ -1,0 +1,208 @@
+"""The port's three edit CLIs (pbe_tpu_torch.scripts.inference,
+run_inference_batch, inference_test_bench) as subprocesses on the CPU at
+configs/tiny.yaml, 64^2, 2 steps, with a checkpoint of seeded weights and
+input PNGs the tests write: the JAX CLIs' file layout, and results equal to
+the same edit run in-process. Then the flags the port refuses, and the
+refusal to run without a card unless --device cpu is given."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from pbe_tpu_torch.data import transforms as T
+from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
+from pbe_tpu_torch.scripts import inference, inference_test_bench, run_inference_batch
+
+from _torch_port import write_test_bench
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = os.path.join(ROOT, "configs", "tiny.yaml")
+
+
+@pytest.fixture(scope="module")
+def seeded(tmp_path_factory):
+    """(in-process pipeline, checkpoint path): load_pipeline's seeded init
+    with the zero-init tensors randomized; the checkpoint holds just those
+    tensors, so a CLI loading it (over the same seeded init) gets the same
+    weights bit for bit."""
+    pipe, _ = load_pipeline(TINY, device="cpu", dtype=torch.float32, verbose=False)
+    zero = [n for n, p in pipe.model.named_parameters() if not torch.any(p)]
+    randomize_zero_params(pipe.model, seed=0)
+    params = dict(pipe.model.named_parameters())
+    path = tmp_path_factory.mktemp("ckpt") / "tiny.ckpt"
+    torch.save({"state_dict": {n: params[n].detach().clone() for n in zero}}, path)
+    return pipe, str(path)
+
+
+def _inputs(root, size=64, seed=0):
+    g = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(g.integers(0, 256, (size, size, 3), np.uint8)).save(root / "photo.png")
+    m = np.zeros((size, size), np.uint8)
+    m[size // 4:3 * size // 4, size // 8:size // 2] = 255  # white = edit region
+    Image.fromarray(m).save(root / "mask.png")
+    Image.fromarray(g.integers(0, 256, (50, 40, 3), np.uint8)).save(root / "ref.jpg")
+    return root / "photo.png", root / "mask.png", root / "ref.jpg"
+
+
+def _run(module, args, timeout=300):
+    # a few threads: the suite runs beside other test workers on the CPU
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="4")
+    proc = subprocess.run([sys.executable, "-m", f"pbe_tpu_torch.scripts.{module}", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+def _png(path):
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _assert_same_edit(got_u8, want01):
+    """The CLI's PNG against the in-process edit: the same weights, inputs
+    and seed run the same fp32 ops; only the threads' reduction order may
+    differ, moving a value across a rounding boundary by one code."""
+    diff = np.abs(got_u8.astype(np.int16) - T.to_uint8(want01).astype(np.int16))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+def test_inference_cli_layout_and_result(seeded, tmp_path):
+    pipe, ckpt = seeded
+    img, mask, ref = _inputs(tmp_path / "in")
+    common = ["--config", TINY, "--ckpt", ckpt, "--image_path", str(img), "--mask_path",
+              str(mask), "--reference_path", str(ref), "--H", "64", "--W", "64",
+              "--ddim_steps", "2", "--seed", "7", "--device", "cpu", "--precision", "full",
+              "--no_watermark"]
+    # the default sampler is DDIM; --n_iter 2 advances the seed;
+    # --paste_back 8 keeps every pixel of the source that the mask keeps
+    out = tmp_path / "ddim"
+    stdout = _run("inference", common + ["--outdir", str(out), "--scale", "5",
+                                         "--paste_back", "8"])
+    assert "steady-state edit" in stdout and "on cpu" in stdout
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*.png"))
+    assert files == sorted(["results/photo_7.png", "results/photo_7_1.png",
+                            "grid/grid-photo_7.png", "grid/grid-photo_7_1.png",
+                            "source/photo_7_mask.png", "source/photo_7_GT.png",
+                            "source/photo_7_inpaint.png", "source/photo_7_ref.png"])
+    image = T.load_image(str(img), (64, 64))
+    keep = T.load_mask(str(mask), (64, 64))
+    exemplar = T.load_reference(str(ref))
+    kept = keep[..., 0] == 1.0
+    for k, seed in (("", 7), ("_1", 8)):
+        got = _png(out / "results" / f"photo_7{k}.png")
+        want = pipe.edit(image, keep, exemplar, steps=2, scale=5.0, sampler="ddim", seed=seed,
+                         paste_back=8)
+        _assert_same_edit(got, want)
+        np.testing.assert_array_equal(got[kept], _png(img)[kept])
+        assert np.abs(got[~kept].astype(int) - _png(img)[~kept]).max() > 8
+    # the source panel is the input photo; the grid's four panels
+    # [source | inpaint | ref | result] take the 224^2 exemplar's height
+    np.testing.assert_array_equal(_png(out / "source" / "photo_7_GT.png"), _png(img))
+    assert _png(out / "grid" / "grid-photo_7.png").shape == (224, 4 * 224 + 3 * 2, 3)
+
+
+def test_run_inference_batch_cli(seeded, tmp_path):
+    pipe, ckpt = seeded
+    g = np.random.default_rng(1)
+    for sub in ("img", "mask", "ref"):
+        (tmp_path / sub).mkdir()
+    for stem in ("a", "b", "c"):
+        Image.fromarray(g.integers(0, 256, (48, 48, 3), np.uint8)).save(
+            tmp_path / "img" / f"{stem}.png")
+        Image.fromarray(g.integers(0, 256, (30, 30, 3), np.uint8)).save(
+            tmp_path / "ref" / f"{stem}.png")
+    (tmp_path / "mask" / "a.txt").write_text("4 4 30 40")
+    (tmp_path / "mask" / "b.txt").write_text("10 0 64 20")
+    Image.fromarray(np.where(g.uniform(size=(48, 48)) > 0.7, 255, 0).astype(np.uint8)).save(
+        tmp_path / "mask" / "c.png")
+    out = tmp_path / "out"
+    stdout = _run("run_inference_batch", [
+        "--fpath_config", TINY, "--fpath_checkpoint", ckpt, "--image_dir",
+        str(tmp_path / "img"), "--mask_dir", str(tmp_path / "mask"), "--reference_dir",
+        str(tmp_path / "ref"), "--outdir", str(out), "--ddim_steps", "2", "--batch_size",
+        "2", "--H", "64", "--W", "64", "--device", "cpu", "--precision", "full",
+        "--det_first_stage", "--seed", "3"])
+    assert f"wrote 3 edits to {out}" in stdout
+    assert sorted(p.name for p in out.iterdir()) == sorted(
+        f"{k}_{s}.png" for s in "abc" for k in ("grid", "pred"))
+    # the last batch holds c alone: its edit in-process, same seed
+    from pbe_tpu_torch.pipelines.batch import load_mask_from_image_or_txt
+
+    want = pipe.edit(T.load_image(str(tmp_path / "img" / "c.png"), (64, 64)),
+                     load_mask_from_image_or_txt(str(tmp_path / "mask" / "c.png"), (64, 64)),
+                     T.load_reference(str(tmp_path / "ref" / "c.png")), steps=2, scale=5.0,
+                     sampler="ddim", seed=3, det_first_stage=True)
+    _assert_same_edit(_png(out / "pred_c.png"), want)
+
+
+def test_inference_test_bench_cli(seeded, tmp_path):
+    pipe, ckpt = seeded
+    ids = write_test_bench(tmp_path / "bench", 3, 64)
+    out = tmp_path / "out"
+    stdout = _run("inference_test_bench", [
+        "--config", TINY, "--ckpt", ckpt, "--test_bench_dir", str(tmp_path / "bench"),
+        "--outdir", str(out), "--ddim_steps", "2", "--n_samples", "2", "--plms",
+        "--precision", "full", "--seed", "7", "--device", "cpu", "--uint8_out",
+        "--paste_back", "4"])
+    assert "done: 3 edits" in stdout and "steady-state" in stdout
+    names = [f"{i:012d}" for i in ids]
+    assert sorted(p.name for p in (out / "results").iterdir()) == sorted(
+        f"{n}.png" for n in names)
+    assert sorted(p.name for p in (out / "grid").iterdir()) == sorted(
+        f"{k}_{n}.png" for n in names for k in ("grid", "pred"))
+    # the ragged last batch (one pair) against the same edit in-process
+    from pbe_tpu_torch.data.test_bench import COCOEEDataset
+
+    ex = COCOEEDataset(str(tmp_path / "bench"))[2]
+    want = pipe.edit(ex["image"], ex["mask"], ex["ref"], steps=2, scale=5.0, sampler="plms",
+                     seed=7, paste_back=4)
+    got = _png(out / "results" / f"{names[2]}.png")
+    _assert_same_edit(got, want)
+    kept = ex["mask"][..., 0] == 1.0
+    np.testing.assert_array_equal(got[kept], T.to_uint8(T.unnormalize(ex["image"]))[kept])
+
+
+REFUSED = {
+    "inference-safety_ckpt": (inference, ["--safety_ckpt", "s.bin"], "safety checker"),
+    "inference-quantize": (inference, ["--quantize", "int8"], "int8"),
+    "inference-tile_ks": (inference, ["--tile_ks", "16"], "tiled inference"),
+    "inference-tile_stride": (inference, ["--tile_stride", "8"], "tiled inference"),
+    "run_inference_batch-data_parallel": (
+        run_inference_batch, ["--image_dir", "i", "--mask_dir", "m", "--reference_dir", "r",
+                              "--data_parallel"], "multi-card"),
+    "inference_test_bench-quantize": (inference_test_bench, ["--quantize", "int8-static"],
+                                      "int8"),
+    "inference_test_bench-data_parallel": (inference_test_bench, ["--data_parallel"],
+                                           "multi-card"),
+}
+
+
+@pytest.mark.parametrize("cli,argv,what", list(REFUSED.values()), ids=list(REFUSED))
+def test_unported_flags_exit_nonzero(cli, argv, what):
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv + ["--device", "cpu"])
+    # a message (exit status 1) that names what is missing and where it waits
+    assert isinstance(e.value.code, str)
+    assert what in e.value.code and "ROADMAP Queue 1" in e.value.code
+
+
+BATCH_DIRS = ["--image_dir", "i", "--mask_dir", "m", "--reference_dir", "r"]
+
+
+@pytest.mark.parametrize("cli,argv", [(inference, []), (run_inference_batch, BATCH_DIRS),
+                                      (inference_test_bench, [])],
+                         ids=["inference", "run_inference_batch", "inference_test_bench"])
+def test_cli_without_a_card_exits_unless_asked_for_the_cpu(cli, argv, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert "no CUDA device" in str(e.value.code)
+    # fp32 on the card is refused too: its attention kernels take bf16
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv + ["--precision", "full"])
+    assert "bf16" in str(e.value.code)

@@ -101,11 +101,18 @@ def test_pending_edit_is_ready_and_reads_back_the_blocking_edit(pipelines):
 
 
 def test_unported_options_raise(pipelines):
+    """DDIM, DDPM and paste_back are ported (tests/test_torch_samplers.py);
+    int8, tiling and multi-card serving still raise, and so do options no
+    sampler takes."""
     _, tp = pipelines
     image, mask, ref, x_T = _inputs()
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        tp.edit_batch(image, mask, ref, steps=2, sampler="ddim", x_T=x_T)
+        TEditPipeline(tp.model, quantize="int8")
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        tp.edit_batch(image, mask, ref, steps=2, paste_back=0, x_T=x_T)
+        TEditPipeline(tp.model, tiling=object())
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        tp.shard()
+    with pytest.raises(ValueError, match="unknown sampler"):
+        tp.edit_batch(image, mask, ref, steps=2, sampler="euler", x_T=x_T)
     with pytest.raises(ValueError, match="PLMS requires eta"):
         tp.edit_batch(image, mask, ref, steps=2, eta=0.5, x_T=x_T)
