@@ -75,9 +75,27 @@ The edit CLIs (the seventh slice):
      tiny DDIM (eta 0.5) and full-chain DDPM edit on the card in bf16
      against the same edit on the CPU in fp32, noise injected.
 
-A run takes them in the order 1, 2, 7, 11, 3, 4, 12, 5, 8, 9, 6, 10, then
-12's tiny edits: kernels first, the timed edits before the profiler, the
-card-vs-CPU comparisons last.
+Serving and int8 (the eighth slice), on phase 4's v1 pipeline:
+ 13. EditServer (PLMS 50, scale 5, buckets 1/2/4/8, uint8 out): warmup()
+     with 818 flash launches a bucket; a request's result within bucket 4
+     bitwise equal whatever its batch-mates, its difference across buckets
+     1 and 4 printed; 8 threads submitting 16 requests (every future
+     resolved, each request counted once, 818 launches a batch, latency p50,
+     edits/s, occupancy); a burst of 4 at bucket 1 against the same 4 one at
+     a time (what the double-buffered dispatch hides); two servers, one
+     seed, the same bits; the HTTP front (pbe_tpu_torch.scripts.serve) on
+     a loopback port, its PNGs equal to EditServer.edit's; the forward
+     kernel against its plain version and timed at bucket 8's shapes.
+ 14. w8a8 int8: at three v1 ops in bf16 the card's int8 operands and int32
+     accumulators equal the CPU's, each op within rel L2 0.02 of the fp op;
+     a 512^2 dynamic and a calibrated static int8 edit, each within mean
+     abs 0.05 of the fp edit and not equal to it, every eligible op of the
+     51 UNet calls through the int8 product; fp/dynamic/static edit p50; a
+     single-bucket int8 server reproducible bit for bit.
+
+A run takes them in the order 1, 2, 7, 11, 3, 4, 12, 13, 14, 5, 8, 9, 6,
+10, then 12's tiny edits: kernels first, the timed edits before the
+profiler, the card-vs-CPU comparisons last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -138,6 +156,15 @@ CLI_SHAPES = (
     ("bench_b4_ds8", (4, 64, 8, 160), K1, "test bench", 1 * 51),
     ("bench_vae_b4", (4, 4096, 1, 512), K2, "test bench", 2),
     ("bench_vae_b2", (2, 4096, 1, 512), K2, "test bench", 2),
+)
+# phase 13, the server's largest default bucket: 8 requests at CFG batch 16
+# (launches in the warmup of bucket 8: 51 UNet calls, one encode, one decode)
+SERVE_SHAPES = (
+    ("serve_b8_ds1", (16, 4096, 8, 40), K1, 5 * 51),
+    ("serve_b8_ds2", (16, 1024, 8, 80), K1, 5 * 51),
+    ("serve_b8_ds4", (16, 256, 8, 160), K1, 5 * 51),
+    ("serve_b8_ds8", (16, 64, 8, 160), K1, 1 * 51),
+    ("serve_b8_vae", (8, 4096, 1, 512), K2, 2),
 )
 # bf16 tolerance of kernel vs plain, relative to the output's scale (|O| is
 # ~0.02 at N=4096 with randn inputs, not ~1): both round q*scale, P and O to
@@ -1064,6 +1091,342 @@ def phase_cli(pipe, zero_names: list[str], card: str, rows: list[dict]) -> dict:
     return summary
 
 
+def phase_serving(pipe, card: str, rows: list[dict]) -> dict:
+    """The micro-batching EditServer on phase 4's v1 pipeline (512^2, PLMS
+    50, scale 5, uint8 out): warmup() with 818 flash launches a bucket;
+    (a) one request alone at bucket 1, in a burst of 3 (bucket 4, 1 pad
+    row) and alone at a buckets=(4,) server: bitwise equal within bucket 4,
+    the difference across buckets printed; (b) 8 threads submitting 16
+    requests: every future resolves, each request counted once, 818 flash
+    launches a batch; a burst of 4 at bucket 1 against the same 4 one at a
+    time (what the double-buffered dispatch hides); (c) two fresh servers,
+    one seed, the same bits; (d) the HTTP front (serve.make_handler) on a
+    loopback port; (e) the forward kernel at bucket 8's shapes."""
+    import base64
+    import http.client
+    import io
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+    from PIL import Image
+
+    from pbe_tpu_torch.data import transforms as T
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import serve
+    from pbe_tpu_torch.serving import EditServer
+
+    if torch.backends.cudnn.benchmark:
+        raise AssertionError("cudnn.benchmark is on: the convs' algorithms would vary by run")
+    kw = dict(steps=50, sampler="plms", scale=5.0, output_uint8=True)
+    g = np.random.default_rng(31)
+    reqs = [tuple(a[0] for a in edit_inputs(512, pipe.ref_size, seed=40 + i)) for i in range(4)]
+    summary = {}
+
+    srv = EditServer(pipe, buckets=(1, 2, 4, 8), **kw)
+    t0 = time.perf_counter()
+    _, n, by_shape = counted(fa, lambda: srv.warmup(512, 512))
+    log(f"[serve] warmup of buckets {srv.buckets} in {time.perf_counter() - t0:.1f} s: flash "
+        f"launches {n} (expected {4 * LAUNCHES_PER_EDIT}), by shape {by_shape}")
+    if n != 4 * LAUNCHES_PER_EDIT:
+        raise AssertionError(f"warmup launched {n} flash kernels")
+
+    # (a) batch invariance: R alone at bucket 1, R last in a burst of 3
+    # (bucket 4, one pad row), R alone at a buckets=(4,) server
+    image, mask, ref = reqs[0]
+    solo1 = srv.edit(image, mask, ref, seed=11)
+    before = srv.stats()
+    futs = [srv.submit(*reqs[k], seed=100 + k) for k in (1, 2)]
+    futs.append(srv.submit(image, mask, ref, seed=11))
+    burst = [f.result(600) for f in futs]
+    after = srv.stats()
+    srv.close()
+    delta = {k: after[k] - before[k] for k in ("requests", "batches", "padded_rows")}
+    with EditServer(pipe, buckets=(4,), **kw) as srv4:
+        solo4 = srv4.edit(image, mask, ref, seed=11)
+    across = np.abs(solo1.astype(np.int16) - burst[2]) / 255.0
+    log(f"[serve] (a) burst of 3: {delta} (expected 3 requests, 1 batch, 1 pad row); "
+        f"within bucket 4 (R last of 3 vs R alone, padded with itself) bitwise equal: "
+        f"{np.array_equal(burst[2], solo4)}; across buckets 1 and 4: max|diff| "
+        f"{across.max():.4f}, mean {across.mean():.6f} of [0,1], "
+        f"{(across > 0).mean():.4f} of the values differ")
+    if delta != {"requests": 3, "batches": 1, "padded_rows": 1}:
+        raise AssertionError(f"the burst of 3 was not one batch at bucket 4: {delta}")
+    if not np.array_equal(burst[2], solo4):
+        diff = np.abs(burst[2].astype(np.int16) - solo4)
+        raise AssertionError(f"within bucket 4 a request's result depends on its "
+                             f"batch-mates: max {diff.max()}, {(diff > 0).mean():.4f} differ")
+    summary["across_buckets_max"] = float(across.max())
+    summary["across_buckets_mean"] = float(across.mean())
+
+    # (b) concurrent load: 8 threads x 2 requests
+    lat, errors, lock = [], [], threading.Lock()
+    with EditServer(pipe, buckets=(1, 2, 4, 8), **kw) as srv:
+        def client(k):
+            for j in range(2):
+                t = time.perf_counter()
+                try:
+                    out = srv.edit(*reqs[(k + j) % 4], seed=1000 + 2 * k + j, timeout=900)
+                    assert out.shape == (512, 512, 3) and out.dtype == np.uint8
+                except Exception as e:  # every failure is reported below
+                    with lock:
+                        errors.append(repr(e))
+                    continue
+                with lock:
+                    lat.append(time.perf_counter() - t)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+
+        def run():
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(1200)
+        t0 = time.perf_counter()
+        _, n, _ = counted(fa, run)
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+    log(f"[serve] (b) 8 threads x 2 requests: {len(lat)} resolved, errors {errors}; stats "
+        f"{json.dumps(st)}; flash launches {n} (expected {LAUNCHES_PER_EDIT} x "
+        f"{st['batches']} batches); latency p50 {np.median(lat):.4f} s, max {max(lat):.4f} s; "
+        f"{16 / wall:.4f} edits/s over the burst ({wall:.3f} s); mean occupancy "
+        f"{st['mean_batch_occupancy']:.4f} ({card})")
+    if errors or len(lat) != 16 or any(th.is_alive() for th in threads):
+        raise AssertionError(f"the concurrent burst lost requests: {errors}")
+    if st["requests"] != 16 or st["errors"] or n != LAUNCHES_PER_EDIT * st["batches"]:
+        raise AssertionError(f"the burst's accounting is off: {st}, {n} launches")
+    summary.update(burst_p50_s=float(np.median(lat)), burst_edits_per_s=16 / wall,
+                   burst_occupancy=st["mean_batch_occupancy"], burst_batches=st["batches"])
+
+    # what the double-buffered dispatch hides: 4 requests at bucket 1 one at
+    # a time (each waits for its result) and submitted together, in turns
+    walls = {"one at a time": [], "together": []}
+    lats = {"one at a time": [], "together": []}
+    first = None
+    with EditServer(pipe, buckets=(1,), **kw) as srv:
+        for mode in ("one at a time", "together", "together", "one at a time"):
+            t0 = time.perf_counter()
+            if mode == "one at a time":
+                outs = []
+                for k in range(4):
+                    outs.append(srv.edit(*reqs[k], seed=200 + k))
+                    lats[mode].append(time.perf_counter() - t0)
+            else:
+                futs = [srv.submit(*reqs[k], seed=200 + k) for k in range(4)]
+                done_at = [0.0] * 4
+                for k, f in enumerate(futs):
+                    f.add_done_callback(
+                        lambda _, k=k: done_at.__setitem__(k, time.perf_counter()))
+                outs = [f.result(900) for f in futs]
+                lats[mode] += [t - t0 for t in done_at]
+            walls[mode].append(time.perf_counter() - t0)
+            first = first or outs
+            if not all(np.array_equal(a, b) for a, b in zip(first, outs)):
+                raise AssertionError("the double-buffered burst changed a result")
+    seq, piped = (float(np.mean(walls[m])) for m in ("one at a time", "together"))
+    log(f"[serve] (b) 4 requests at bucket 1, in turns: one at a time "
+        f"{['%.4f' % w for w in walls['one at a time']]} s, submitted together "
+        f"(double-buffered) {['%.4f' % w for w in walls['together']]} s: hidden "
+        f"{seq - piped:.4f} s of {seq:.4f} ({(seq - piped) / seq:.4f}); mean time to a "
+        f"result {np.mean(lats['one at a time']):.4f} s one at a time (counted from the "
+        f"first submit), {np.mean(lats['together']):.4f} s together; results equal ({card})")
+    summary.update(sequential_4_s=walls["one at a time"], pipelined_4_s=walls["together"])
+
+    # (c) two fresh servers, one seed
+    outs = []
+    for _ in range(2):
+        with EditServer(pipe, buckets=(1,), **kw) as srv:
+            outs.append(srv.edit(*reqs[3], seed=77))
+    log(f"[serve] (c) two fresh servers, seed 77: bitwise equal {np.array_equal(*outs)}")
+    if not np.array_equal(*outs):
+        raise AssertionError("two servers gave one seed different results")
+
+    # (d) the HTTP front on a loopback port
+    def b64(arr, mode):
+        buf = io.BytesIO()
+        Image.fromarray(arr, mode).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    m = np.zeros((512, 512), np.uint8)
+    m[160:352, 128:384] = 255
+    payloads = [{"image": b64(smooth_image(g, 512), "RGB"), "mask": b64(m, "L"),
+                 "reference": b64(smooth_image(g, 224), "RGB"), "seed": s} for s in (5, 6)]
+    with EditServer(pipe, buckets=(1, 2, 4, 8), **kw) as srv:
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(srv, (512, 512)))
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            def request(method, path, payload=None):
+                conn = http.client.HTTPConnection(*httpd.server_address, timeout=600)
+                body = None if payload is None else json.dumps(payload).encode()
+                conn.request(method, path, body=body)
+                resp = conn.getresponse()
+                out = json.loads(resp.read())
+                conn.close()
+                return resp.status, out
+
+            health = request("GET", "/healthz")
+            results = [request("POST", "/edit", p) for p in payloads]
+            stats = request("GET", "/stats")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(30)
+        equal = []
+        for p, (status, out) in zip(payloads, results):
+            if status != 200:
+                raise AssertionError(f"POST /edit answered {status}: {out}")
+            got = np.asarray(Image.open(io.BytesIO(base64.b64decode(out["result"]))))
+            dec = lambda k: io.BytesIO(base64.b64decode(p[k]))
+            want = srv.edit(T.load_image(dec("image"), (512, 512)),
+                            T.load_mask(dec("mask"), (512, 512)),
+                            T.load_reference(dec("reference"), pipe.ref_size), seed=p["seed"])
+            equal.append(np.array_equal(got, want))
+    log(f"[serve] (d) HTTP: /healthz {health}; /stats {stats[0]} requests "
+        f"{stats[1]['requests']}; POST /edit x2 latency_ms "
+        f"{[r[1]['latency_ms'] for r in results]}; PNGs equal to EditServer.edit: {equal}")
+    if health != (200, {"ok": True}) or stats[0] != 200 or stats[1]["requests"] != 2:
+        raise AssertionError(f"the HTTP front answered {health}, {stats}")
+    if not all(equal):
+        raise AssertionError("an HTTP result differs from EditServer.edit's")
+
+    # (e) the forward kernel at bucket 8's shapes, launches from the warmup
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for name, shape, replaces, want_n in SERVE_SHAPES:
+        row = kernel_row(fa, name, shape, replaces, rand)
+        row["launches"] = by_shape.get(shape, 0)
+        if row["launches"] != want_n:
+            raise AssertionError(f"{name}: {row['launches']} launches in the warmup of "
+                                 f"bucket 8, expected {want_n}")
+        rows.append(row)
+    return summary
+
+
+def phase_int8(pipe, card: str) -> dict:
+    """w8a8 int8 on the card: (a) at three v1 ops (a ds1 3x3 conv, a ds2
+    1x1 proj_in, a ds1 to_q) in bf16, the card's int8 operands and int32
+    accumulators equal the CPU's bit for bit, per-row and static, and each
+    op is within rel L2 0.02 of the fp op; (b) a 512^2 dynamic int8 edit,
+    (c) calibrate_int8 at 512^2 and the static edit, each within mean abs
+    0.05 of the fp edit and not equal to it, every eligible op of the 51
+    UNet calls through the int8 product; (d) fp, dynamic and static edit
+    p50 of 3 warm edits; (e) a single-bucket int8 server twice, one seed."""
+    import torch
+    import torch.nn.functional as F
+
+    from pbe_tpu_torch.ops import quant
+    from pbe_tpu_torch.pipelines.inference import EditPipeline
+    from pbe_tpu_torch.serving import EditServer
+
+    unet = pipe.model.model.diffusion_model
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    ops = (("ds1 conv3x3 in_layers", unet.input_blocks[1][0].in_layers[2], (2, 320, 64, 64)),
+           ("ds2 proj_in 1x1", unet.input_blocks[4][1].proj_in, (2, 640, 32, 32)),
+           ("ds1 to_q", unet.input_blocks[1][1].transformer_blocks[0].attn1.to_q,
+            (2, 4096, 320)))
+    for name, layer, shape in ops:
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        w = layer.weight
+        dense = w.dim() == 2
+        wq_in = w.to(x.dtype)
+        conv_args = () if dense else (tuple(layer.stride), tuple(layer.padding))
+        acc_fn = quant.int8_linear_acc if dense else (
+            lambda a, b: quant.int8_conv_acc(a, b, *conv_args))
+        dims = (x.dim() - 1,) if dense else (1, 2, 3)
+        with quant.calibration() as col:
+            fp = (F.linear(x, wq_in) if dense else F.conv2d(x, wq_in, None, *conv_args))
+            (quant.linear_int8(x, w) if dense else quant.conv2d_int8(x, w, None, *conv_args))
+        scales = quant.scales_from_records([col.records])
+        for mode in ("per_row", "static"):
+            operands = []
+            for dev_x, dev_w in ((x, wq_in), (x.cpu(), wq_in.cpu())):
+                if mode == "per_row":
+                    qx, qw = quant.quantize_rows(dev_x, dims)[0], quant.quantize_per_channel(dev_w)[0]
+                else:
+                    s_act, s_w = scales[0]
+                    qx = quant.quantize_static(dev_x, s_act)
+                    qw = quant.quantize_static_weight(dev_w, torch.tensor(s_w, device=dev_w.device))
+                operands.append((qx, qw, acc_fn(qx, qw)))
+            (cqx, cqw, cacc), (hqx, hqw, hacc) = operands
+            # differing operand values (activations, weights), 0 and 0 when equal
+            ndiff = ((cqx.cpu() != hqx).sum().item(), (cqw.cpu() != hqw).sum().item())
+            same_ops = ndiff == (0, 0)
+            same_acc = torch.equal(cacc.cpu(), hacc)
+            knobs = {"static": scales} if mode == "static" else {}
+            with quant.quantized("int8", **knobs):
+                out = (quant.linear_int8(x, w) if dense
+                       else quant.conv2d_int8(x, w, None, *conv_args))
+            rel = ((out.float() - fp.float()).norm() / fp.float().norm()).item()
+            log(f"[int8] (a) {name} {tuple(shape)} -> {tuple(cacc.shape)} {mode}: int8 "
+                f"operands card == CPU {same_ops} {ndiff}, int32 accumulators card == CPU "
+                f"{same_acc} "
+                f"(max|acc| {cacc.abs().max().item()}); rel L2 to the fp op {rel:.4e} (tol 0.02)")
+            if not (same_ops and same_acc and rel <= 0.02):
+                raise AssertionError(f"int8 {name} {mode} disagrees")
+        del x, fp, out, operands
+        torch.cuda.empty_cache()
+
+    # count the int8 products: each edit must run every eligible op of its
+    # 51 UNet calls through them (no op the gates admit may stay fp)
+    calls = {"n": 0}
+    real_mm = quant._int_mm
+
+    def counting_mm(a, b):
+        calls["n"] += 1
+        return real_mm(a, b)
+
+    image, mask, ref = edit_inputs(512, pipe.ref_size, seed=2)
+    dyn = EditPipeline(pipe.model, quantize="int8")
+    t0 = time.perf_counter()
+    scales = dyn.calibrate_int8(image, mask, ref)
+    calib_s = time.perf_counter() - t0
+    static = EditPipeline(pipe.model, quantize="int8", quant_scales=scales)
+    log(f"[int8] (c) calibrate_int8 at 512^2 (8 CFG UNet calls): {len(scales)} static op "
+        f"scales in {calib_s:.3f} s")
+    ekw = dict(steps=50, scale=5.0, seed=3)
+    fp_img = pipe.edit_batch(image, mask, ref, **ekw)
+    summary = {"n_scales": len(scales)}
+    for name, p in (("dynamic", dyn), ("static", static)):
+        quant._int_mm = counting_mm
+        calls["n"] = 0
+        try:
+            got = p.edit_batch(image, mask, ref, **ekw)
+        finally:
+            quant._int_mm = real_mm
+        diff = np.abs(got - fp_img)
+        log(f"[int8] ({'b' if name == 'dynamic' else 'c'}) {name} int8 512^2 PLMS 50 edit: "
+            f"int8 products {calls['n']} (expected 51 x {len(scales)}); mean|int8 - fp| "
+            f"{diff.mean():.5f} (tol 0.05, > 0), max {diff.max():.4f}")
+        if calls["n"] != 51 * len(scales) or not 0 < diff.mean() < 0.05:
+            raise AssertionError(f"the {name} int8 edit is off")
+        summary[f"{name}_mean_abs_vs_fp"] = float(diff.mean())
+
+    # (d) p50 of 3 warm edits each, in turns
+    times = {"fp": [], "dynamic": [], "static": []}
+    for i in range(3):
+        for name, p in (("fp", pipe), ("dynamic", dyn), ("static", static)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.edit_batch(image, mask, ref, steps=50, scale=5.0, seed=10 + i)
+            times[name].append(time.perf_counter() - t0)
+    p50 = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[int8] (d) 512^2 PLMS 50 edit p50 of 3 warm edits: fp {p50['fp']:.4f} s, dynamic "
+        f"int8 {p50['dynamic']:.4f} s, static int8 {p50['static']:.4f} s "
+        f"({json.dumps({k: [round(t, 4) for t in v] for k, v in times.items()})}) ({card})")
+    summary["edit_p50_s"] = p50
+
+    # (e) a single-bucket int8 server, one seed twice
+    with EditServer(static, buckets=(1,), steps=50, output_uint8=True) as srv:
+        a = srv.edit(image[0], mask[0], ref[0], seed=9)
+        b = srv.edit(image[0], mask[0], ref[0], seed=9)
+    log(f"[int8] (e) single-bucket static int8 server, seed 9 twice: bitwise equal "
+        f"{np.array_equal(a, b)}")
+    if not np.array_equal(a, b):
+        raise AssertionError("the int8 server is not reproducible")
+    return summary
+
+
 def phase_reference_samplers() -> None:
     """configs/tiny.yaml 16^2 edits with DDIM (eta 0.5, 10 steps) and the
     full 1000-step DDPM chain: bf16 with the flash kernel on the card
@@ -1393,6 +1756,9 @@ def main() -> int:
     edit = phase_edit(pipe, card, rows)
     cli_rows = []
     cli = phase_cli(pipe, zero_names, card, cli_rows)
+    serve_rows = []
+    serving = phase_serving(pipe, card, serve_rows)
+    int8 = phase_int8(pipe, card)
     phase_profile(pipe.model)  # after the timed edits: the profiler slows the host
     del pipe
     torch.cuda.empty_cache()
@@ -1407,7 +1773,10 @@ def main() -> int:
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
     log(f"[cli] summary {json.dumps(cli)}")
-    print(json.dumps({"kernels": rows + train_rows + variant_rows + cli_rows}), flush=True)
+    log(f"[serve] summary {json.dumps(serving)}")
+    log(f"[int8] summary {json.dumps(int8)}")
+    print(json.dumps({"kernels": rows + train_rows + variant_rows + cli_rows + serve_rows}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

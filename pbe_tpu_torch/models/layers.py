@@ -1,11 +1,18 @@
 """Linear and conv layers with fp32 parameters that compute in the input's
 dtype: the weights are cast to the activation dtype at each call, as flax's
-``dtype=bf16, param_dtype=f32`` layers do."""
+``dtype=bf16, param_dtype=f32`` layers do. ``QuantLinear``/``QuantConv2d``
+are the UNet's: under an active ``ops.quant`` context they run in w8a8
+where the op is eligible, as the JAX UNet's ``_dense``/``_conv`` do; every
+other model's layers stay fp under it. ``QuantConv2d``'s fp conv is
+``ops/conv.conv2d``, which computes every example of a batch alike."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pbe_tpu_torch.ops import quant
+from pbe_tpu_torch.ops.conv import conv2d
 
 
 class Linear(nn.Linear):
@@ -18,6 +25,23 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class QuantLinear(Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.is_active():
+            return quant.linear_int8(x, self.weight, self.bias)
+        return super().forward(x)
+
+
+class QuantConv2d(Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.is_active():
+            return quant.conv2d_int8(x, self.weight, self.bias, self.stride, self.padding,
+                                     self.dilation, self.groups)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                      self.dilation, self.groups)
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

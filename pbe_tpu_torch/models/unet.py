@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pbe_tpu_torch.models.layers import Conv2d, Linear, to_nchw, to_nhwc
+from pbe_tpu_torch.models.layers import QuantConv2d, QuantLinear, to_nchw, to_nhwc
 from pbe_tpu_torch.ops.attention import multi_head_attention, single_token_attention
 from pbe_tpu_torch.ops.image import nearest_upsample_2x
 from pbe_tpu_torch.ops.norms import GroupNorm32, LayerNormF32
@@ -45,9 +45,9 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
     return emb
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1) -> Conv2d:
+def conv3x3(cin: int, cout: int, stride: int = 1) -> QuantConv2d:
     # symmetric padding even at stride 2 (torch Conv2d(padding=1) semantics)
-    return Conv2d(cin, cout, 3, stride=stride, padding=1)
+    return QuantConv2d(cin, cout, 3, stride=stride, padding=1)
 
 
 class ResBlock(nn.Module):
@@ -56,10 +56,10 @@ class ResBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
         super().__init__()
         self.in_layers = nn.Sequential(GroupNorm32(in_ch), nn.SiLU(), conv3x3(in_ch, out_ch))
-        self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_dim, out_ch))
+        self.emb_layers = nn.Sequential(nn.SiLU(), QuantLinear(emb_dim, out_ch))
         self.out_layers = nn.Sequential(GroupNorm32(out_ch), nn.SiLU(), nn.Identity(),
                                         conv3x3(out_ch, out_ch))
-        self.skip_connection = (Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+        self.skip_connection = (QuantConv2d(in_ch, out_ch, 1) if in_ch != out_ch
                                 else nn.Identity())
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -76,7 +76,7 @@ class MyResBlock(nn.Module):
     def __init__(self, ch: int, emb_dim: int):
         super().__init__()
         self.in_layers = nn.Sequential(GroupNorm32(ch), nn.SiLU(), conv3x3(ch, ch))
-        self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_dim, ch))
+        self.emb_layers = nn.Sequential(nn.SiLU(), QuantLinear(emb_dim, ch))
         self.out_layers = nn.Sequential(GroupNorm32(ch), nn.SiLU(), nn.Identity(),
                                         conv3x3(ch, 4))
 
@@ -94,10 +94,10 @@ class SelfAttention(nn.Module):
         inner = heads * dim_head
         self.heads = heads
         self.attn_impl = attn_impl
-        self.to_q = Linear(dim, inner, bias=False)
-        self.to_k = Linear(dim, inner, bias=False)
-        self.to_v = Linear(dim, inner, bias=False)
-        self.to_out = nn.ModuleList([Linear(inner, dim)])
+        self.to_q = QuantLinear(dim, inner, bias=False)
+        self.to_k = QuantLinear(dim, inner, bias=False)
+        self.to_v = QuantLinear(dim, inner, bias=False)
+        self.to_out = nn.ModuleList([QuantLinear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = multi_head_attention(self.to_q(x), self.to_k(x), self.to_v(x),
@@ -112,8 +112,8 @@ class SingleTokenCrossAttention(nn.Module):
     def __init__(self, dim: int, context_dim: int, heads: int, dim_head: int):
         super().__init__()
         inner = heads * dim_head
-        self.to_v = Linear(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([Linear(inner, dim)])
+        self.to_v = QuantLinear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([QuantLinear(inner, dim)])
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         if context.shape[1] != 1:
@@ -126,7 +126,7 @@ class SingleTokenCrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = Linear(dim, inner * 2)
+        self.proj = QuantLinear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -136,7 +136,8 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), Linear(dim * 4, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(),
+                                  QuantLinear(dim * 4, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[0](x))
@@ -169,12 +170,12 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(ch, eps=1e-6)
-        self.proj_in = Conv2d(ch, inner, 1)
+        self.proj_in = QuantConv2d(ch, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, context_dim, attn_impl)
             for _ in range(depth)
         ])
-        self.proj_out = Conv2d(inner, ch, 1)
+        self.proj_out = QuantConv2d(inner, ch, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
@@ -244,8 +245,8 @@ class UNetModel(nn.Module):
         self.dtype = dtype
         self.remat = remat
         self.num_classes = num_classes
-        self.time_embed = nn.Sequential(Linear(mc, emb_dim), nn.SiLU(),
-                                        Linear(emb_dim, emb_dim))
+        self.time_embed = nn.Sequential(QuantLinear(mc, emb_dim), nn.SiLU(),
+                                        QuantLinear(emb_dim, emb_dim))
         if num_classes is not None:
             self.label_emb = nn.Embedding(num_classes, emb_dim)
         self.add_conv_in_front_of_unet = add_conv_in_front_of_unet

@@ -14,6 +14,7 @@ import torch
 
 from pbe_tpu_torch.models.pbe import PaintByExample
 from pbe_tpu_torch.models.vae_asym import paste_back as paste_back_fn
+from pbe_tpu_torch.ops import quant
 from pbe_tpu_torch.ops.image import resize_mask
 from pbe_tpu_torch.samplers.cfg import make_cfg_eps_fn
 from pbe_tpu_torch.samplers.ddim import ddim_sample
@@ -23,37 +24,52 @@ from pbe_tpu_torch.schedules import SamplerSchedule
 
 
 class PendingOutput:
-    """An edit's device result (the ``block=False`` handle): ``is_ready()``
-    says without waiting whether the device has made it, as a JAX array's
-    does; ``np.asarray`` waits for it and copies it to the host."""
+    """An edit's result (the ``block=False`` handle). On the card its copy
+    to pinned host memory is issued at once, behind the edit's last launch,
+    and an event recorded after it: ``is_ready()`` polls that event without
+    waiting, as a JAX array's does, and ``np.asarray`` waits for it alone,
+    not for work issued on the stream later (the next batch). Indexing
+    (``out[:n]``) gives a handle on that part with the same event."""
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, done: "torch.cuda.Event | None" = None):
+        if done is None and tensor.device.type == "cuda":
+            host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            host.copy_(tensor, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(tensor.device))
+            tensor = host
         self.tensor = tensor
-        # recorded on the current stream right after the tensor is made
-        self._done = None
-        if tensor.device.type == "cuda":
-            self._done = torch.cuda.Event()
-            self._done.record(torch.cuda.current_stream(tensor.device))
+        self._done = done
+
+    def __getitem__(self, idx) -> "PendingOutput":
+        return PendingOutput(self.tensor[idx], self._done)
 
     def is_ready(self) -> bool:
         return self._done is None or self._done.query()
 
     def __array__(self, dtype=None, copy=None):
-        a = self.tensor.cpu().numpy()
+        if self._done is not None:
+            self._done.synchronize()
+        a = self.tensor.numpy()
         return a if dtype is None else a.astype(dtype)
 
 
 class EditPipeline:
     """Holds a PaintByExample model (already on its device, in eval mode)."""
 
-    def __init__(self, model: PaintByExample, quantize: str | None = None, tiling=None):
-        if quantize is not None:
-            raise NotImplementedError("int8 serving is not ported yet (ROADMAP Queue 1, "
-                                      "item 9)")
+    def __init__(self, model: PaintByExample, quantize: str | None = None, tiling=None,
+                 quant_scales: tuple | None = None):
         if tiling is not None:
             raise NotImplementedError("the tiled pipeline is not ported yet (ROADMAP "
                                       "Queue 1, item 13)")
+        # "int8": every edit runs the UNet's eligible matmuls and convs in
+        # w8a8 (ops/quant.py); quant_scales: calibrated static scales from
+        # calibrate_int8() (no runtime amax)
+        if quant_scales is not None and quantize != "int8":
+            raise ValueError("quant_scales requires quantize='int8'")
         self.model = model.eval()
+        self.quantize = quantize
+        self.quant_scales = quant_scales
 
     @property
     def ref_size(self) -> int:
@@ -63,7 +79,7 @@ class EditPipeline:
 
     def shard(self, mesh=None) -> "EditPipeline":
         raise NotImplementedError("multi-card serving is not ported yet (ROADMAP "
-                                  "Queue 1, items 8 and 11)")
+                                  "Queue 1, item 11)")
 
     @torch.inference_mode()
     def edit_batch(self, image: np.ndarray, mask: np.ndarray, ref: np.ndarray, *,
@@ -88,7 +104,18 @@ class EditPipeline:
         encoder's posterior sample (unless ``det_first_stage``), then the
         sampler's per-step noise (DDIM with eta > 0, DDPM) unless ``noise``
         injects those standard normals, one row a step. ``block=False``
-        returns a :class:`PendingOutput` without waiting for the device."""
+        returns a :class:`PendingOutput` without waiting for the device.
+        A pipeline built with ``quantize="int8"`` runs the edit inside
+        ``quant.quantized`` (with its ``quant_scales``, if any)."""
+        qkw = {"static": self.quant_scales} if self.quant_scales else {}
+        with quant.quantized(self.quantize, **qkw):
+            return self._edit_batch(image, mask, ref, steps=steps, scale=scale,
+                                    sampler=sampler, eta=eta, seed=seed, x_T=x_T,
+                                    paste_back=paste_back, det_first_stage=det_first_stage,
+                                    output=output, block=block, noise=noise)
+
+    def _edit_batch(self, image, mask, ref, *, steps, scale, sampler, eta, seed, x_T,
+                    paste_back, det_first_stage, output, block, noise):
         if sampler not in ("plms", "ddim", "ddpm"):
             raise ValueError(f"unknown sampler {sampler!r}")
         if output not in ("float32", "uint8", "latent"):
@@ -147,3 +174,49 @@ class EditPipeline:
         """Single-example convenience; HWC in, HWC out."""
         out = self.edit_batch(image[None], mask[None], ref[None], **kw)
         return out[0]
+
+    @torch.inference_mode()
+    def calibrate_int8(self, image: np.ndarray, mask: np.ndarray, ref: np.ndarray,
+                       n_t: int = 8, seed: int = 0, *, draws=None) -> tuple:
+        """Calibrate static w8a8 scales on representative edit inputs (NHWC,
+        shaped like a serving batch) -> the tuple for
+        ``EditPipeline(quantize="int8", quant_scales=...)``.
+
+        Records each eligible op's activation and weight amax in one
+        CFG-doubled UNet call at each of ``n_t`` timesteps spread over the
+        schedule, on x_t drawn from q(x_t | z0) around the encoded source:
+        the statistics the sampler's calls see. The random draws of call i,
+        standard normals of the latent's shape (the source's posterior
+        sample, the masked source's, then the forward noise), come from a
+        generator seeded with ``seed + i``, or from ``draws[i]``, a
+        (eps_z, eps_z_inpaint, noise) triple of NHWC arrays."""
+        model = self.model
+        dev, dt = model.device, model.dtype
+        sched = model.schedule
+        as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
+        image_t, mask_t, ref_t = as_t(image), as_t(mask), as_t(ref)
+        # the encoder's posteriors and the conditioning do not depend on t
+        posteriors = [model.first_stage_model.encode(x) for x in (image_t, image_t * mask_t)]
+        c = model.get_conditioning(ref_t)
+        ctx2 = torch.cat([model.uncond_vector(image_t.shape[0]).to(c.dtype), c], dim=0)
+        n_steps = len(sched.alphas_cumprod)
+        recs = []
+        for i, t in enumerate(np.linspace(0, n_steps - 1, n_t).round().astype(np.int32)):
+            shape = posteriors[0][0].shape
+            if draws is None:
+                gen = torch.Generator(device=dev).manual_seed(int(seed) + i)
+                eps = [torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(3)]
+            else:
+                eps = [as_t(a) for a in draws[i]]
+            z, z_inpaint = (model.scale_factor * (mean + torch.exp(0.5 * logvar) * e)
+                            for (mean, logvar), e in zip(posteriors, eps))
+            m = resize_mask(mask_t, z.shape[1:3]).to(z.dtype)
+            coef = lambda table: torch.tensor(np.float32(table[t]), device=dev).to(dt)
+            x_t = coef(sched.sqrt_alphas_cumprod) * z + coef(
+                sched.sqrt_one_minus_alphas_cumprod) * eps[2]
+            x9 = torch.cat([x_t, z_inpaint, m], dim=-1)
+            t2 = torch.full((2 * x9.shape[0],), float(t), device=dev)
+            with quant.calibration() as col:
+                model.apply_model(torch.cat([x9, x9], dim=0), t2, ctx2)
+            recs.append(col.records)
+        return quant.scales_from_records(recs)

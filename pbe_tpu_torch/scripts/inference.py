@@ -11,9 +11,11 @@ The flags are the JAX CLI's, plus --device (default cuda; cpu runs the
 kernels' plain versions in fp32 with --precision full). Without a card and
 without --device cpu it exits non-zero. DDIM unless --plms; --n_iter loops
 the sampler with the seed advancing; every result carries the invisible
-"Paint-by-Example" watermark unless --no_watermark. Not ported, and refused
-with a non-zero exit: --safety_ckpt (the safety checker), --quantize (int8)
-and --tile_ks/--tile_stride (tiling).
+"Paint-by-Example" watermark unless --no_watermark. --quantize int8 runs the
+UNet's eligible matmuls and convs in w8a8; int8-static first calibrates
+constant scales on this edit's inputs. Not ported, and refused with a
+non-zero exit: --safety_ckpt (the safety checker) and --tile_ks/--tile_stride
+(tiling).
 """
 from __future__ import annotations
 
@@ -76,7 +78,8 @@ def get_parser() -> argparse.ArgumentParser:
                    default=os.environ.get("PBE_SAFETY_CKPT", ""),
                    help="not ported: the safety checker (refused)")
     p.add_argument("--quantize", choices=["int8", "int8-static"], default=None,
-                   help="not ported: int8 execution (refused)")
+                   help="w8a8 int8 UNet execution (ops/quant.py), opt-in; int8-static "
+                        "calibrates constant scales on this edit's inputs first")
     p.add_argument("--tile_ks", type=int, default=0,
                    help="not ported: tiled inference (refused unless 0)")
     p.add_argument("--tile_stride", type=int, default=0,
@@ -113,8 +116,6 @@ def main(argv=None) -> list[float]:
     opt = get_parser().parse_args(argv)
     if opt.safety_ckpt:
         refuse("--safety_ckpt", "the safety checker", "13")
-    if opt.quantize:
-        refuse("--quantize", "int8 execution", "9")
     if opt.tile_ks or opt.tile_stride:
         refuse("--tile_ks/--tile_stride", "tiled inference", "13")
     device, dtype = device_and_dtype(opt.device, opt.precision)
@@ -124,7 +125,8 @@ def main(argv=None) -> list[float]:
     from pbe_tpu_torch.utils.watermark import embed_watermark
 
     config = opt.config or os.path.join(REPO, "configs", "v1.yaml")
-    pipeline, _ = load_pipeline(config, opt.ckpt or None, device=device, dtype=dtype)
+    pipeline, _ = load_pipeline(config, opt.ckpt or None, device=device, dtype=dtype,
+                                quantize="int8" if opt.quantize else None)
 
     sample_path = os.path.join(opt.outdir, "source")
     result_path = os.path.join(opt.outdir, "results")
@@ -147,6 +149,13 @@ def main(argv=None) -> list[float]:
     if opt.fixed_code:
         gen = torch.Generator().manual_seed(opt.seed)
         x_T = torch.randn((b, opt.H // opt.f, opt.W // opt.f, opt.C), generator=gen).numpy()
+
+    if opt.quantize == "int8-static":
+        # constant PTQ scales from this edit's own inputs
+        pipeline.quant_scales = pipeline.calibrate_int8(images[:1], masks[:1], refs[:1],
+                                                        seed=opt.seed)
+        print(f"calibrated {len(pipeline.quant_scales)} static int8 op scales on the "
+              "edit inputs")
 
     inpaint = T.unnormalize(images * masks)
     src01 = T.unnormalize(images)

@@ -8,8 +8,10 @@ evaluation tools.
         --test_bench_dir test_bench --n_samples 4 --scale 5 --seed 321
 
 The flags are the JAX CLI's, plus --device (default cuda; without a card and
-without --device cpu it exits non-zero). Refused with a non-zero exit, as
-not ported: --quantize (int8) and --data_parallel (multi-card serving).
+without --device cpu it exits non-zero). --quantize int8 runs the UNet's
+eligible matmuls and convs in w8a8; int8-static first calibrates constant
+scales on the first test-bench pair. Refused with a non-zero exit, as not
+ported: --data_parallel (multi-card serving).
 """
 from __future__ import annotations
 
@@ -52,13 +54,14 @@ def main(argv=None) -> dict:
     p.add_argument("--det_first_stage", action="store_true",
                    help="posterior-MODE masked-source latents")
     p.add_argument("--quantize", choices=["int8", "int8-static"], default=None,
-                   help="not ported: int8 execution (refused)")
+                   help="w8a8 int8 UNet execution, opt-in; the ragged last batch runs "
+                        "at its own shape, whose int8 rounding may differ from the full "
+                        "batch's. int8-static calibrates constant scales on the first "
+                        "test-bench pair")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     opt = p.parse_args(argv)
-    if opt.quantize:
-        refuse("--quantize", "int8 execution", "9")
     if opt.data_parallel:
-        refuse("--data_parallel", "multi-card serving (EditPipeline.shard)", "8")
+        refuse("--data_parallel", "multi-card serving (EditPipeline.shard)", "11")
     device, dtype = device_and_dtype(opt.device, opt.precision)
 
     from PIL import Image
@@ -70,8 +73,15 @@ def main(argv=None) -> dict:
     from pbe_tpu_torch.pipelines.loading import load_pipeline
     from pbe_tpu_torch.utils.async_writer import AsyncWriter
 
-    pipeline, _ = load_pipeline(opt.config, opt.ckpt or None, device=device, dtype=dtype)
+    pipeline, _ = load_pipeline(opt.config, opt.ckpt or None, device=device, dtype=dtype,
+                                quantize="int8" if opt.quantize else None)
     ds = COCOEEDataset(opt.test_bench_dir)
+    if opt.quantize == "int8-static":
+        ex = ds[0]  # real test-bench statistics for the PTQ scales
+        pipeline.quant_scales = pipeline.calibrate_int8(
+            ex["image"][None], ex["mask"][None], ex["ref"][None], seed=opt.seed)
+        print(f"calibrated {len(pipeline.quant_scales)} static int8 op scales on the "
+              "first test-bench pair", flush=True)
     if opt.limit:
         ds.ids = ds.ids[: opt.limit]
     dl = DataLoader(ds, opt.n_samples, shuffle=False, drop_last=False)

@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     opt = p.parse_args(argv)
     if opt.data_parallel:
-        refuse("--data_parallel", "multi-card serving (EditPipeline.shard)", "8")
+        refuse("--data_parallel", "multi-card serving (EditPipeline.shard)", "11")
     device, dtype = device_and_dtype(opt.device, opt.precision)
 
     from pbe_tpu_torch.pipelines.batch import infer_all

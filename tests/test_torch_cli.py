@@ -166,16 +166,63 @@ def test_inference_test_bench_cli(seeded, tmp_path):
     np.testing.assert_array_equal(got[kept], T.to_uint8(T.unnormalize(ex["image"]))[kept])
 
 
+def test_quantize_flags_run(seeded, tmp_path, capsys, request):
+    """--quantize int8-static on the inference CLI calibrates on the edit's
+    own inputs and gives the in-process static int8 edit; --quantize int8
+    on the test bench gives the in-process dynamic int8 edit. Both differ
+    from the fp edit (the tiny UNet's 64-channel 16x16 convs clear the
+    int8 gates at 64^2)."""
+    from pbe_tpu_torch.pipelines.inference import EditPipeline
+
+    pipe, ckpt = seeded
+    img, mask, ref = _inputs(tmp_path / "in")
+    out = tmp_path / "static"
+    # in-process, with as few threads as the subprocess runs above take:
+    # the suite's workers share the CPU
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
+    inference.main(["--config", TINY, "--ckpt", ckpt, "--image_path", str(img),
+                    "--mask_path", str(mask), "--reference_path", str(ref), "--H", "64",
+                    "--W", "64", "--ddim_steps", "2", "--seed", "7", "--device", "cpu",
+                    "--precision", "full", "--no_watermark", "--n_iter", "1", "--plms",
+                    "--scale", "5", "--quantize", "int8-static", "--outdir", str(out)])
+    n = int(capsys.readouterr().out.split("calibrated ")[1].split()[0])
+    image = T.load_image(str(img), (64, 64))[None]
+    keep = T.load_mask(str(mask), (64, 64))[None]
+    exemplar = T.load_reference(str(ref))[None]
+    scales = pipe.calibrate_int8(image, keep, exemplar, seed=7)
+    assert n == len(scales) > 0
+    kw = dict(steps=2, scale=5.0, sampler="plms", seed=7)
+    want = EditPipeline(pipe.model, quantize="int8", quant_scales=scales).edit_batch(
+        image, keep, exemplar, **kw)[0]
+    got = _png(out / "results" / "photo_7.png")
+    _assert_same_edit(got, want)
+    fp = T.to_uint8(pipe.edit_batch(image, keep, exemplar, **kw)[0])
+    assert np.abs(got.astype(int) - fp).max() > 1
+
+    ids = write_test_bench(tmp_path / "bench", 1, 64)
+    out = tmp_path / "dynamic"
+    inference_test_bench.main([
+        "--config", TINY, "--ckpt", ckpt, "--test_bench_dir", str(tmp_path / "bench"),
+        "--outdir", str(out), "--ddim_steps", "2", "--n_samples", "1", "--plms",
+        "--precision", "full", "--seed", "7", "--device", "cpu", "--skip_grid",
+        "--quantize", "int8"])
+    from pbe_tpu_torch.data.test_bench import COCOEEDataset
+
+    ex = COCOEEDataset(str(tmp_path / "bench"))[0]
+    want = EditPipeline(pipe.model, quantize="int8").edit(ex["image"], ex["mask"], ex["ref"],
+                                                          **kw)
+    _assert_same_edit(_png(out / "results" / f"{ids[0]:012d}.png"), want)
+
+
 REFUSED = {
     "inference-safety_ckpt": (inference, ["--safety_ckpt", "s.bin"], "safety checker"),
-    "inference-quantize": (inference, ["--quantize", "int8"], "int8"),
     "inference-tile_ks": (inference, ["--tile_ks", "16"], "tiled inference"),
     "inference-tile_stride": (inference, ["--tile_stride", "8"], "tiled inference"),
     "run_inference_batch-data_parallel": (
         run_inference_batch, ["--image_dir", "i", "--mask_dir", "m", "--reference_dir", "r",
                               "--data_parallel"], "multi-card"),
-    "inference_test_bench-quantize": (inference_test_bench, ["--quantize", "int8-static"],
-                                      "int8"),
     "inference_test_bench-data_parallel": (inference_test_bench, ["--data_parallel"],
                                            "multi-card"),
 }

@@ -101,17 +101,19 @@ def test_pending_edit_is_ready_and_reads_back_the_blocking_edit(pipelines):
 
 
 def test_unported_options_raise(pipelines):
-    """DDIM, DDPM and paste_back are ported (tests/test_torch_samplers.py);
-    int8, tiling and multi-card serving still raise, and so do options no
-    sampler takes."""
+    """DDIM, DDPM and paste_back are ported (tests/test_torch_samplers.py),
+    and int8 (tests/test_torch_quant.py); tiling and multi-card serving
+    still raise, and so do options no sampler or int8 mode takes."""
     _, tp = pipelines
     image, mask, ref, x_T = _inputs()
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TEditPipeline(tp.model, quantize="int8")
+    with pytest.raises(ValueError, match="unknown quantization mode"):
+        TEditPipeline(tp.model, quantize="fp4").edit_batch(image, mask, ref, steps=2, x_T=x_T)
+    with pytest.raises(ValueError, match="quant_scales requires"):
+        TEditPipeline(tp.model, quant_scales=((1.0, (1.0,)),))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+        tp.shard()
     with pytest.raises(NotImplementedError, match="Queue 1"):
         TEditPipeline(tp.model, tiling=object())
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tp.shard()
     with pytest.raises(ValueError, match="unknown sampler"):
         tp.edit_batch(image, mask, ref, steps=2, sampler="euler", x_T=x_T)
     with pytest.raises(ValueError, match="PLMS requires eta"):
