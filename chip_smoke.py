@@ -93,8 +93,23 @@ Serving and int8 (the eighth slice), on phase 4's v1 pipeline:
      51 UNet calls through the int8 product; fp/dynamic/static edit p50; a
      single-bucket int8 server reproducible bit for bit.
 
-A run takes them in the order 1, 2, 7, 11, 3, 4, 12, 13, 14, 5, 8, 9, 6,
-10, then 12's tiny edits: kernels first, the timed edits before the
+The training CLI (the ninth slice), after phase 9 has freed its model:
+ 15. a synthetic OpenImages tree (16 + 4 images at 512², seed 0, the port's
+     writer) and a data YAML at batch 4; pbe_tpu_torch.scripts.train.main
+     in-process on configs/v1.yaml with --scale_lr --bf16_moments, 8 steps,
+     validation at step 8 with 10-step DDIM grids at CFG batch 8 and the FID
+     trio (random Inception weights), then --resume to step 9. Checked:
+     finite losses, step 1's within 1 +- 0.1 (the zero-init eps head),
+     trainable weights moved and frozen ones bitwise unchanged, bf16 first
+     and fp32 second moments, every step's launches equal to phase 9's, the
+     validation's K1/K2 launches, 4 grids and finite FIDs in the JSONL, the
+     native mask helpers used, the checkpoint restored bit for bit. Printed
+     beside the card line: the CLI's step p50 and images/s against phase
+     9's, the host's wait on the DataLoader, peak memory against phase 9's,
+     and the validation's time by part.
+
+A run takes them in the order 1, 2, 7, 11, 3, 4, 12, 13, 14, 5, 8, 9, 15,
+6, 10, then 12's tiny edits: kernels first, the timed edits before the
 profiler, the card-vs-CPU comparisons last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
@@ -1664,8 +1679,277 @@ def phase_train(model, card: str, rows: list[dict]) -> dict:
         trainer.logger.close()
     return {"step_ms": step_ms, "p50_ms": p50, "images_per_s": 4e3 / p50,
             "peak_gib": peak / 2**30, "loss": last["train/loss"],
+            "launches_per_step": {sym: n // steps for sym, (n, _) in counts.items()},
             "grad_norm": last["train/grad_norm"], "device_busy_ms": busy,
             "idle_share": 1 - busy / p50, "groups_ms": groups}
+
+
+# phase 15, the training CLI: launches of the validation at step 8 with
+# batch 4 — validate() runs the UNet forward once (no LSE) and the two VAE
+# encodes; the grids' 10-step DDIM runs the UNet at CFG batch 8 ten times,
+# one VAE encode and one decode at batch 4
+CLI_TRAIN_STEPS, CLI_SAMPLE_STEPS = 8, 10
+VAL_LAUNCHES = {"validate": {"K1": BWD_PER_STEP, "K2": 2},
+                "sampling": {"K1": CLI_SAMPLE_STEPS * BWD_PER_STEP, "K2": 2}}
+
+
+def fwd_by_kernel(before: dict, after: dict) -> dict:
+    """flash_fwd launches between two launches_by_shape snapshots, split
+    into K1 (d <= 160) and K2 (the d=512 wide kernel)."""
+    out = {"K1": 0, "K2": 0}
+    for shape, n in after.items():
+        out["K2" if shape[3] == 512 else "K1"] += n - before.get(shape, 0)
+    return out
+
+
+CLI_TRAIN_ARGS = ("--base", "configs/v1.yaml", "{tmp}/data.yaml", "--scale_lr", "--bf16_moments",
+                  "--val_every", "8", "--log_every", "1", "--sample_images", "--fid_every", "8",
+                  "--fid_batches", "1", "--sample_steps", str(CLI_SAMPLE_STEPS),
+                  "--logdir", "{tmp}/run")
+
+
+def phase_train_cli(card: str, phase9: dict, cli_args=CLI_TRAIN_ARGS,
+                    workers: int = 8) -> dict:
+    """The ninth slice: pbe_tpu_torch.scripts.train.main in-process on v1 at
+    full width (batch 4, 512², bf16, remat, bf16 Adam moments, --scale_lr)
+    over a synthetic OpenImages tree written by the port's writer, with
+    validation-time grids and the FID trio at step 8; then --resume to step
+    9. The Trainer's methods are wrapped here (and restored after) to count
+    launches per step, time the steps (CUDA events at each step's start, no
+    host sync added inside the training steps), the loader's host wait and
+    the validation's parts, and to check the weights and the optimizer.
+    ``cli_args`` ("{tmp}" is the run's directory) and ``workers`` (the
+    data module's loader threads) are the CLI's; other values than the
+    defaults are for measurements (pbe_tpu_torch.scripts.diag_train_cli),
+    whose checks may then fail."""
+    import tempfile
+
+    import torch
+
+    from pbe_tpu_torch.data import native
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import train as train_cli
+    from pbe_tpu_torch.scripts.make_synthetic_openimages import make_tree
+    from pbe_tpu_torch.training import trainer as trainer_mod
+
+    Trainer = trainer_mod.Trainer
+    saved = {n: getattr(Trainer, n) for n in ("__init__", "fit", "train_step", "validate",
+                                              "log_images", "sample_and_score", "restore")}
+    saved_bezier = native.bezier_eval
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_fwd_resident,
+               fa.flash_fwd_pipelined)
+    rec = {"trainers": [], "starts": [], "per_step": [], "wait_s": [], "val": {},
+           "bezier": [], "peaks": []}
+
+    def snap():
+        return ({k.symbol: k.launches for k in kernels}, dict(fa.flash_fwd.launches_by_shape))
+
+    def init(self, *a, **kw):
+        saved["__init__"](self, *a, **kw)
+        rec["trainers"].append(self)
+        if len(rec["trainers"]) == 1:  # the first run: its starting weights on the host
+            host = lambda p: p.detach().to("cpu", copy=True)
+            rec["frozen0"] = [host(p) for p in self.model.parameters() if not p.requires_grad]
+            rec["train0"] = {k: host(p) for k, p in self.params.items()}
+
+    def fit(self, train_loader, *a, **kw):
+        class Timed:  # the host's wait for each train batch
+            def __iter__(_):
+                it = iter(train_loader)
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        b = next(it)
+                    except StopIteration:
+                        return
+                    rec["wait_s"].append(time.perf_counter() - t)
+                    yield b
+        return saved["fit"](self, Timed(), *a, **kw)
+
+    def train_step(self, batch):
+        if not rec["starts"]:
+            torch.cuda.reset_peak_memory_stats()
+        rec["starts"].append(torch.cuda.Event(enable_timing=True))
+        rec["starts"][-1].record()
+        (c0, s0) = snap()
+        out = saved["train_step"](self, batch)
+        (c1, s1) = snap()
+        rec["per_step"].append(({k: c1[k] - c0[k] for k in c1}, fwd_by_kernel(s0, s1)))
+        rec["peaks"].append(torch.cuda.max_memory_allocated())
+        return out
+
+    def timed_part(name):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            (c0, s0), t = snap(), time.perf_counter()
+            out = saved[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            ms, (c1, s1) = (time.perf_counter() - t) * 1e3, snap()
+            got = rec["val"].setdefault(name, {"ms": 0.0, "K1": 0, "K2": 0, "calls": 0})
+            got["ms"] += ms
+            got["calls"] += 1
+            for k, n in fwd_by_kernel(s0, s1).items():
+                got[k] += n
+            return out
+        return run
+
+    def restore(self, *a, **kw):
+        ok = saved["restore"](self, *a, **kw)
+        first = rec["trainers"][0]
+        # the restored state is the first run's final state, bit for bit
+        same = ok and self.step == first.step and all(
+            torch.equal(p, first.params[k]) for k, p in self.params.items())
+        st0, st1 = first.optimizer.state, self.optimizer.state
+        same = same and all(
+            torch.equal(st1[p]["exp_avg"], st0[first.params[k]]["exp_avg"])
+            and torch.equal(st1[p]["exp_avg_sq"], st0[first.params[k]]["exp_avg_sq"])
+            and st1[p]["exp_avg"].dtype == torch.bfloat16 for k, p in self.params.items())
+        rec["restored_equal"] = bool(same)
+        return ok
+
+    def bezier(*a, **kw):
+        rec["bezier"].append(1)  # list.append: atomic across the loader threads
+        return saved_bezier(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_tree(f"{tmp}/oi", n_train=16, n_val=4, size=512, seed=0)
+        split = lambda state: {"target": "ldm.data.open-images.OpenImageDataset",
+                               "params": {"state": state, "dataset_dir": f"{tmp}/oi",
+                                          "arbitrary_mask_percent": 0.5, "image_size": 512}}
+        with open(f"{tmp}/data.yaml", "w") as f:
+            json.dump({"data": {"target": "main.DataModuleFromConfig",
+                                "params": {"batch_size": 4, "num_workers": workers,
+                                           "train": split("train"),
+                                           "validation": split("validation")}}}, f)
+        log(f"[train-cli] synthetic OpenImages tree (16 + 4 at 512^2, seed 0) written in "
+            f"{time.perf_counter() - t0:.2f} s; native mask helpers "
+            f"{'built' if native.available() else 'NOT built'}")
+        args = [a.format(tmp=tmp) for a in cli_args]
+        Trainer.__init__, Trainer.fit, Trainer.train_step, Trainer.restore = (
+            init, fit, train_step, restore)
+        for name in ("validate", "log_images", "sample_and_score"):
+            setattr(Trainer, name, timed_part(name))
+        native.bezier_eval = bezier
+        try:
+            for k in kernels:
+                k.launches = 0
+                k.launches_by_shape.clear()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(args + ["--max_steps", str(CLI_TRAIN_STEPS)])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = {k.symbol: k.launches for k in kernels}
+            frozen1 = [p for p in trainer.model.parameters() if not p.requires_grad]
+            frozen_same = len(frozen1) == len(rec["frozen0"]) and all(
+                torch.equal(p.cpu(), q) for p, q in zip(frozen1, rec["frozen0"]))
+            moved = [k for k, p in trainer.params.items()
+                     if not torch.equal(p.detach().cpu(), rec["train0"][k])]
+            n_trainable = len(trainer.params)
+            state = trainer.optimizer.state
+            dtypes = {(str(state[p]["exp_avg"].dtype), str(state[p]["exp_avg_sq"].dtype))
+                      for p in trainer.params.values()}
+            del rec["frozen0"], rec["train0"], frozen1, state
+            t0 = time.perf_counter()
+            resumed = train_cli.main(args + ["--max_steps", str(CLI_TRAIN_STEPS + 1),
+                                             "--resume"])
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        finally:
+            for n, fn in saved.items():
+                setattr(Trainer, n, fn)
+            native.bezier_eval = saved_bezier
+        with open(f"{tmp}/run/metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        grids = sorted(os.listdir(f"{tmp}/run/samples/step_{CLI_TRAIN_STEPS:08d}"))
+        grids = [g for g in grids if g.startswith("grid_")]
+        ckpts = sorted(os.listdir(f"{tmp}/run/checkpoints"))
+        resumed_step = resumed.step
+        del trainer, resumed
+        rec["trainers"].clear()
+        torch.cuda.empty_cache()
+
+    train_rows = [r for r in rows if "train/loss" in r]
+    losses = [r["train/loss"] for r in train_rows]
+    fid = [r for r in rows if "val/fid_global" in r]
+    # step i's time: from its start to step i+1's start (the log line of
+    # every step syncs the host; the loader's wait and the batch's copy
+    # fall between); the last step's interval would hold the validation
+    ev = rec["starts"][:CLI_TRAIN_STEPS]
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+    p50 = float(np.median(step_ms))
+    wait_ms = [w * 1e3 for w in rec["wait_s"][:CLI_TRAIN_STEPS]]  # the first run's
+    val = rec["val"]
+    trio_ms = val["sample_and_score"]["ms"] - val["log_images"]["ms"]
+    # since the first step's start (reset there), read after step 8: the
+    # resumed run holds a second model beside the first
+    peak_gib, p9_gib = rec["peaks"][CLI_TRAIN_STEPS - 1] / 2**30, phase9["peak_gib"]
+    log(f"[train-cli] v1 batch 4 512^2 bf16 remat, bf16 Adam moments, --scale_lr: "
+        f"train.main to step {CLI_TRAIN_STEPS} in {run_s:.2f} s, --resume to step "
+        f"{resumed_step} in {resume_s:.2f} s ({card})")
+    log(f"[train-cli] step ms {['%.2f' % t for t in step_ms]}: p50 {p50:.3f} ms, "
+        f"{4e3 / p50:.4f} images/s; phase 9's Trainer.fit p50 {phase9['p50_ms']:.3f} ms "
+        f"(ratio {p50 / phase9['p50_ms']:.4f}) ({card})")
+    log(f"[train-cli] host wait on the DataLoader per train batch (ms) "
+        f"{['%.2f' % w for w in wait_ms]}: mean {np.mean(wait_ms):.3f}, max "
+        f"{max(wait_ms):.3f} ({card})")
+    log(f"[train-cli] peak memory over the {CLI_TRAIN_STEPS} steps {peak_gib:.3f} GiB "
+        f"(bf16 first moments) against phase 9's {p9_gib:.3f} GiB (fp32 moments): "
+        f"{p9_gib - peak_gib:+.3f} GiB saved ({card})")
+    log(f"[train-cli] validation at step {CLI_TRAIN_STEPS}: validate() "
+        f"{val['validate']['ms']:.1f} ms, {CLI_SAMPLE_STEPS}-step DDIM grids at CFG batch 8 "
+        f"{val['log_images']['ms']:.1f} ms, FID trio {trio_ms:.1f} ms; launches "
+        f"validate() K1 {val['validate']['K1']} K2 {val['validate']['K2']}, sampling K1 "
+        f"{val['log_images']['K1']} K2 {val['log_images']['K2']} ({card})")
+    log(f"[train-cli] losses {['%.5f' % x for x in losses]}; val {json.dumps(fid[-1] if fid else {})}")
+    log(f"[train-cli] launches per step {rec['per_step'][0]} (phase 9: "
+        f"{phase9['launches_per_step']}); in the first run {counts}")
+    log(f"[train-cli] trainable tensors moved: {len(moved)} of {n_trainable}; frozen bitwise "
+        f"unchanged: {frozen_same}; optimizer (exp_avg, exp_avg_sq) dtypes {sorted(dtypes)}; "
+        f"native Bezier calls {len(rec['bezier'])}; grids {len(grids)}; checkpoints {ckpts}; "
+        f"restored bit for bit: {rec.get('restored_equal')}")
+
+    fails = []
+    if not (len(losses) == CLI_TRAIN_STEPS + 1 and all(np.isfinite(losses))):
+        fails.append(f"losses {losses} (want {CLI_TRAIN_STEPS + 1} finite)")
+    if not (train_rows and train_rows[0]["step"] == 1 and abs(losses[0] - 1.0) <= 0.1):
+        fails.append(f"step 1 loss {losses[:1]} not within 1 +- 0.1")
+    if [r["step"] for r in train_rows] != list(range(1, CLI_TRAIN_STEPS + 2)):
+        fails.append(f"train rows at steps {[r['step'] for r in train_rows]}")
+    if not (moved and "model.diffusion_model.out.2.weight" in moved):
+        fails.append(f"trainable parameters did not move ({len(moved)} moved)")
+    if not frozen_same:
+        fails.append("a frozen parameter changed")
+    if dtypes != {("torch.bfloat16", "torch.float32")}:
+        fails.append(f"optimizer moment dtypes {dtypes}")
+    want_step = dict(phase9["launches_per_step"])
+    for i, (c, kk) in enumerate(rec["per_step"]):
+        if c != want_step or kk != {"K1": FWD_PER_STEP - 2, "K2": 2}:
+            fails.append(f"step {i + 1} launches {c} {kk}, phase 9 {want_step}")
+            break
+    for part, key in (("validate", "validate"), ("log_images", "sampling")):
+        got = {k: val[part][k] for k in ("K1", "K2")}
+        if got != VAL_LAUNCHES[key]:
+            fails.append(f"{key} launches {got}, expected {VAL_LAUNCHES[key]}")
+    if not (fid and all(np.isfinite(fid[-1][k])
+                        for k in ("val/fid_global", "val/fid_local", "val/fid_ref"))):
+        fails.append(f"FID row {fid}")
+    if len(grids) != 4:
+        fails.append(f"{len(grids)} grids, expected 4")
+    if not (native.available() and rec["bezier"]):
+        fails.append(f"native mask path not used ({len(rec['bezier'])} calls)")
+    if not (rec.get("restored_equal") and resumed_step == CLI_TRAIN_STEPS + 1):
+        fails.append(f"--resume: restored equal {rec.get('restored_equal')}, step {resumed_step}")
+    if fails:
+        raise AssertionError("phase 15 (train CLI): " + "; ".join(fails))
+    return {"step_ms": step_ms, "p50_ms": p50, "images_per_s": 4e3 / p50,
+            "phase9_p50_ms": phase9["p50_ms"], "loader_wait_ms": wait_ms,
+            "peak_gib": peak_gib, "phase9_peak_gib": p9_gib,
+            "validate_ms": val["validate"]["ms"], "sampling_ms": val["log_images"]["ms"],
+            "fid_trio_ms": trio_ms, "val_launches": {"validate": VAL_LAUNCHES["validate"],
+                                                     "sampling": VAL_LAUNCHES["sampling"]},
+            "losses": losses, "fid": {k: fid[-1][k] for k in fid[-1] if k.startswith("val/")},
+            "trainable_moved": len(moved), "run_s": run_s, "resume_s": resume_s}
 
 
 def phase_train_reference() -> None:
@@ -1767,11 +2051,13 @@ def main() -> int:
     train = phase_train(model, card, train_rows)
     del model
     torch.cuda.empty_cache()
+    train_cli = phase_train_cli(card, train)
     phase_reference()
     phase_train_reference()
     phase_reference_samplers()
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
+    log(f"[train-cli] summary {json.dumps(train_cli)}")
     log(f"[cli] summary {json.dumps(cli)}")
     log(f"[serve] summary {json.dumps(serving)}")
     log(f"[int8] summary {json.dumps(int8)}")

@@ -1,5 +1,6 @@
-"""Host-side batching/prefetching data loader (the port's own copy of
-``DataLoader`` from ``pbe_tpu/data/loader.py``).
+"""Host-side batching/prefetching data loader and the YAML data module (the
+port's own copies of ``DataLoader`` and ``DataModuleConfig`` from
+``pbe_tpu/data/loader.py``).
 
 Decode/augment is PIL/numpy (GIL-releasing), so a thread pool + a bounded
 prefetch queue keeps the device fed without process-spawn overhead;
@@ -7,12 +8,15 @@ per-epoch order is a seeded permutation so runs are reproducible.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterator
 
 import numpy as np
+
+from pbe_tpu_torch import config as config_lib
 
 
 def _stack(samples: list[dict]) -> dict:
@@ -94,3 +98,34 @@ class DataLoader:
                 yield batch
         finally:
             stop.set()
+
+
+@dataclasses.dataclass
+class DataModuleConfig:
+    """v1.yaml ``data.params``-compatible constructor (the reference's
+    main.DataModuleFromConfig surface, main.py:98-183): each split's dataset
+    is built from its ``target``/``params`` and batched by a DataLoader
+    (the train split shuffled)."""
+
+    batch_size: int = 4
+    train: dict | None = None
+    validation: dict | None = None
+    test: dict | None = None
+    wrap: bool = False
+    num_workers: int = 8
+    num_val_workers: int | None = None
+
+    def _loader(self, cfg: dict | None, shuffle: bool) -> DataLoader | None:
+        if cfg is None:
+            return None
+        ds = config_lib.instantiate_from_config(cfg)
+        return DataLoader(ds, self.batch_size, shuffle=shuffle, num_workers=self.num_workers)
+
+    def train_dataloader(self):
+        return self._loader(self.train, shuffle=True)
+
+    def val_dataloader(self):
+        return self._loader(self.validation, shuffle=False)
+
+    def test_dataloader(self):
+        return self._loader(self.test, shuffle=False)

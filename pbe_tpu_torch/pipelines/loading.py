@@ -103,15 +103,20 @@ def eps_rms_probe(model: PaintByExample, height: int = 512, width: int = 512,
 
 
 @torch.no_grad()
-def load_checkpoint(model: PaintByExample, ckpt_path: str,
-                    verbose: bool = True) -> tuple[list[str], list[str]]:
+def load_checkpoint(model: PaintByExample, ckpt_path: str, verbose: bool = True,
+                    drop_prefixes: tuple[str, ...] = ()) -> tuple[list[str], list[str]]:
     """Overlay a reference-format ``.ckpt`` (``{"state_dict": ...}``) on the
     model: known-dead keys are dropped, a 4-channel first conv gets the
     9-channel surgery (extra inputs zero), and missing keys keep their
-    init. Returns (missing, unexpected)."""
+    init. Keys starting with any of ``drop_prefixes`` are dropped before
+    the load: ``("model.",)`` is the reference's --train_from_scratch
+    (main.py:244-248: the UNet keeps its random init, only the frozen VAE
+    and CLIP load). Returns (missing, unexpected)."""
     blob = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     sd = blob.get("state_dict", blob)
-    sd = {k: v for k, v in sd.items() if not _DROP_RE.search(k)}
+    pre = tuple(drop_prefixes)
+    sd = {k: v for k, v in sd.items()
+          if not _DROP_RE.search(k) and not (pre and k.startswith(pre))}
     key = "model.diffusion_model.input_blocks.0.0.weight"
     want = model.state_dict().get(key)
     if key in sd and want is not None and sd[key].shape[1] < want.shape[1]:

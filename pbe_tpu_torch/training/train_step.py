@@ -13,7 +13,8 @@ The reference's training semantics (latent_diffusion.py:612-634, 763-809):
     9 channels [x_t, z_inpaint, mask]; the loss is the eps MSE in fp32, with
     optional per-row weights, and the VLB term is kept as a metric;
   * AdamW over the trainable partition with the LR multiplier stepped per
-    optimizer step; optional EMA.
+    optimizer step (torch's AdamW, or :class:`AdamW` with its first moments
+    stored in bf16 as optax's ``mu_dtype``); optional EMA.
 
 The step's random draws (t, eps, u) are made by :func:`draw_step_noise`,
 apart from the loss, so that a test can hand the loss the JAX package's
@@ -31,14 +32,95 @@ from pbe_tpu_torch.training.ema import EMA
 from pbe_tpu_torch.training.lr_schedule import default_scheduler
 
 
+class AdamW(torch.optim.Optimizer):
+    """optax's ``adamw(mu_dtype=...)``: the first moment is stored in
+    ``mu_dtype`` (bf16 halves its memory), the second in the parameter's
+    dtype. Each step follows optax's arithmetic: mu = (1-b1)*g + b1*mu with
+    ``b1*mu`` computed in the stored dtype (b1 too: bf16(0.9) = 0.8984375,
+    as JAX casts a Python scalar to the array's dtype) and the sum in fp32,
+    stored cast to ``mu_dtype``; nu = b2*nu + (1-b2)*g²; the fp32
+    bias-corrected update mu_hat / (sqrt(nu_hat) + eps) plus wd * p, times
+    -lr, added to p. Tensors are updated a chunk of ``CHUNK`` elements at a
+    time, so the temporaries (10 bytes an element) cover one chunk, where
+    torch's foreach AdamW makes an fp32 sqrt(nu) of every parameter."""
+
+    CHUNK = 1 << 27
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01, mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay, count=0))
+        self.mu_dtype = mu_dtype
+
+    def _chunks(self, params):
+        chunk, n = [], 0
+        for p in params:
+            chunk.append(p)
+            n += p.numel()
+            if n >= self.CHUNK:
+                yield chunk
+                chunk, n = [], 0
+        if chunk:
+            yield chunk
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamW.step takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            # optax's b1 * mu is a product of weakly typed scalar and a
+            # mu_dtype array: the scalar is cast to mu_dtype, the product
+            # rounded to it
+            b1_mu = torch.tensor(b1, dtype=self.mu_dtype).item()
+            group["count"] += 1
+            c = group["count"]
+            params = [p for p in group["params"] if p.grad is not None]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    self.state[p]["exp_avg_sq"] = torch.zeros_like(p)
+            for ps in self._chunks(params):
+                grads = [p.grad for p in ps]
+                mus = [self.state[p]["exp_avg"] for p in ps]
+                nus = [self.state[p]["exp_avg_sq"] for p in ps]
+                mu = torch._foreach_mul(grads, 1 - b1)
+                torch._foreach_add_(mu, torch._foreach_mul(mus, b1_mu))
+                torch._foreach_copy_(mus, mu)  # stored in mu_dtype
+                torch._foreach_mul_(nus, b2)
+                torch._foreach_addcmul_(nus, grads, grads, value=1 - b2)
+                denom = torch._foreach_div(nus, 1 - b2 ** c)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, group["eps"])
+                torch._foreach_div_(mu, 1 - b1 ** c)  # mu is now the update
+                torch._foreach_div_(mu, denom)
+                del denom
+                torch._foreach_add_(mu, ps, alpha=group["weight_decay"])
+                torch._foreach_add_(ps, mu, alpha=-group["lr"])
+        return None
+
+    def load_state_dict(self, state_dict) -> None:
+        # torch casts a loaded floating state tensor to its parameter's
+        # dtype; the first moments go back to mu_dtype (exact: they were
+        # saved in it)
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+
+
 def make_optimizer(params: dict[str, torch.Tensor], base_lr: float = 1e-5,
                    scheduler: Callable[[int], float] | None = None,
-                   weight_decay: float = 0.01):
+                   weight_decay: float = 0.01, mu_dtype: torch.dtype | None = None):
     """AdamW (torch's default betas and eps, as the reference's
     configure_optimizers) over ``params`` -> (optimizer, LambdaLR with the
-    multiplier schedule, v1's warm-up by default)."""
-    opt = torch.optim.AdamW(list(params.values()), lr=base_lr, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+    multiplier schedule, v1's warm-up by default). ``mu_dtype`` (e.g.
+    torch.bfloat16) stores the first moments in that dtype (:class:`AdamW`);
+    None is torch's AdamW."""
+    kw = dict(lr=base_lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    if mu_dtype is None:
+        opt = torch.optim.AdamW(list(params.values()), **kw)
+    else:
+        opt = AdamW(list(params.values()), mu_dtype=mu_dtype, **kw)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, scheduler or default_scheduler())
 
 

@@ -11,12 +11,16 @@ The loop, validation, checkpoints and a JSONL metric log around
   * ``fit`` logs, validates and checkpoints at its cadences, and on
     SIGTERM/SIGINT finishes the current step, saves and stops;
   * checkpoints (``torch.save`` of the step, the trainable parameters, the
-    optimizer, the LR schedule, the EMA and the generator) are kept as the
-    JAX trainer's Orbax manager keeps them: the ``max_to_keep`` best by
+    optimizer — bf16 first moments with ``mu_dtype`` included —, the LR
+    schedule, the EMA and the generator) are kept as the JAX trainer's
+    Orbax manager keeps them: the ``max_to_keep`` best by
     ``val/loss_simple`` (``..._ema`` with EMA), newer first among equals;
-    ``restore`` takes the latest.
+    ``restore`` takes the latest;
+  * with ``sample_images`` every validation also samples 6-panel image
+    grids (:meth:`log_images`), and with a feature function it streams the
+    FID trio ``val/fid_{global,local,ref}`` (:meth:`sample_and_score`).
 
-Image grids, FID and the data-parallel mesh are not ported yet (ROADMAP).
+The data-parallel mesh is not ported yet (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -60,16 +64,19 @@ class MetricLogger:
 class Trainer:
     """Trains ``model`` on its own device; the frozen partition is frozen
     in place (``requires_grad=False``). ``det_first_stage`` takes the VAE
-    posterior mode instead of a sample (random-weight runs and tests)."""
+    posterior mode instead of a sample (random-weight runs and tests);
+    ``mu_dtype=torch.bfloat16`` stores Adam's first moments in bf16."""
 
     def __init__(self, model: PaintByExample, base_lr: float = 1e-5,
                  logdir: str = "logs/run", use_ema: bool = False, max_to_keep: int = 5,
-                 seed: int = 0, scheduler=None, det_first_stage: bool = False):
+                 seed: int = 0, scheduler=None, det_first_stage: bool = False,
+                 mu_dtype: torch.dtype | None = None):
         self.model = model
         self.device = model.device
         self.logdir = logdir
         self.params, _ = split_parameters(model)
-        self.optimizer, self.lr_schedule = make_optimizer(self.params, base_lr, scheduler)
+        self.optimizer, self.lr_schedule = make_optimizer(self.params, base_lr, scheduler,
+                                                          mu_dtype=mu_dtype)
         self.ema = EMA(self.params) if use_ema else None
         self.det_first_stage = det_first_stage
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -78,6 +85,7 @@ class Trainer:
         self.ckpt_dir = Path(logdir).absolute() / "checkpoints"
         self.max_to_keep = max_to_keep
         self.monitor = "val/loss_simple_ema" if use_ema else "val/loss_simple"
+        self._sample_pipeline = None
 
     # -- checkpoints ------------------------------------------------------------
     def _ckpt(self, step: int) -> Path:
@@ -201,9 +209,18 @@ class Trainer:
 
     def fit(self, train_loader: Iterable, val_loader: Iterable | None = None,
             max_steps: int = 1000, max_epochs: int | None = None, log_every: int = 50,
-            val_every: int = 1000, ckpt_every: int = 1000) -> None:
+            val_every: int = 1000, ckpt_every: int = 1000, sample_images: bool = False,
+            fid_feature_fn=None, fid_batches: int = 2, fid_every: int | None = None,
+            sample_steps: int = 50, sample_sampler: str = "ddim") -> None:
         """Train until ``max_steps`` (or ``max_epochs`` passes over the
-        loader). On SIGTERM/SIGINT: finish the step, save, stop."""
+        loader). On SIGTERM/SIGINT: finish the step, save, stop.
+
+        With ``sample_images`` every validation also samples 6-panel grids
+        (:meth:`log_images`, ``sample_steps`` of ``sample_sampler`` at CFG
+        scale 5); ``fid_feature_fn`` (e.g. evaltools.fid's
+        make_inception_feature_fn) adds ``val/fid_{global,local,ref}`` over
+        ``fid_batches`` validation batches, every ``fid_every`` steps (None:
+        at every validation)."""
         preempted = {"flag": False}
 
         def _handler(signum, frame):
@@ -232,6 +249,13 @@ class Trainer:
                               flush=True)
                     if val_loader is not None and step % val_every == 0:
                         val_m = self.validate(val_loader)
+                        want_fid = fid_feature_fn is not None and (
+                            fid_every is None or step % fid_every == 0)
+                        if sample_images or want_fid:
+                            val_m.update(self.sample_and_score(
+                                val_loader, fid_feature_fn=fid_feature_fn if want_fid else None,
+                                fid_batches=fid_batches, steps=sample_steps,
+                                sampler=sample_sampler))
                         self.logger.log(step, val_m, prefix="val")
                         self.save({f"val/{k}": v for k, v in val_m.items()})
                         t0 = time.time()  # keep steps_per_sec train-only
@@ -248,6 +272,54 @@ class Trainer:
         finally:
             for s, h in old_handlers.items():
                 signal.signal(s, h)
+
+    def log_images(self, batch: dict, outdir: str | None = None, steps: int = 50,
+                   scale: float = 5.0, sampler: str = "ddim", seed: int = 0) -> np.ndarray:
+        """Sample edits of ``batch`` with the current weights and save
+        6-panel grids under ``outdir`` (default logdir/samples/step_N) -> the
+        (B,H,W,3) [0,1] predictions. The reference's validation-time
+        log_images (latent_diffusion.py:1020-1123, CFG scale 5): an
+        EditPipeline over the training module itself (no copy of the
+        weights), in eval mode and without autograd; the module's mode is
+        restored after."""
+        from pbe_tpu_torch.data.transforms import unpack_uint8_batch
+        from pbe_tpu_torch.pipelines.batch import infer_batch, visualize_batch
+        from pbe_tpu_torch.pipelines.inference import EditPipeline
+
+        was_training = self.model.training
+        try:
+            if self._sample_pipeline is None:
+                self._sample_pipeline = EditPipeline(self.model)
+            self.model.eval()
+            batch = unpack_uint8_batch(batch)
+            arrays = {k: np.asarray(v) for k, v in batch.items()
+                      if isinstance(v, (np.ndarray, torch.Tensor))}
+            preds = infer_batch(self._sample_pipeline, arrays, steps=steps, scale=scale,
+                                sampler=sampler, seed=seed)
+        finally:
+            self.model.train(was_training)
+        out = outdir or os.path.join(self.logdir, "samples", f"step_{self.step:08d}")
+        visualize_batch(arrays, preds, out, ids=batch.get("id"))
+        return preds
+
+    def sample_and_score(self, val_loader: Iterable, fid_feature_fn=None, fid_batches: int = 2,
+                         steps: int = 50, scale: float = 5.0, sampler: str = "ddim") -> dict:
+        """Sample edits on up to ``fid_batches`` validation batches (grids
+        under logdir/samples/step_N) and, given a feature function, the
+        in-training FID trio -> {} or {'fid_global', 'fid_local',
+        'fid_ref'}."""
+        from pbe_tpu_torch.data.transforms import unpack_uint8_batch
+        from pbe_tpu_torch.evaltools.fid_callback import FIDTrioTracker
+
+        tracker = (None if fid_feature_fn is None
+                   else FIDTrioTracker(fid_feature_fn, device=self.device))
+        for i, batch in enumerate(val_loader):
+            if i >= fid_batches:
+                break
+            preds = self.log_images(batch, steps=steps, scale=scale, sampler=sampler, seed=i)
+            if tracker is not None:
+                tracker.update(unpack_uint8_batch(batch), preds)
+        return tracker.compute() if tracker is not None else {}
 
     def validate(self, val_loader: Iterable, max_batches: int = 50) -> dict:
         """Mean eval metrics over up to ``max_batches`` batches, with draws

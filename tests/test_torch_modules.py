@@ -292,16 +292,22 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_pbe_tpu():
     """A static scan: the interpreter here imports jax at start-up, so
     sys.modules cannot show it. 'pbe_tpu_torch' starts with 'pbe_tpu', so
-    the JAX package is matched as 'pbe_tpu' or 'pbe_tpu.*' exactly."""
+    the JAX package is matched as 'pbe_tpu' or 'pbe_tpu.*' exactly; the JAX
+    package's CLIs ('scripts.*') are banned too."""
     files = sorted((REPO / "pbe_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"pbe_tpu_torch/ops/quant.py", "pbe_tpu_torch/serving/server.py",
-            "pbe_tpu_torch/serving/__init__.py", "pbe_tpu_torch/scripts/serve.py"} <= names
+            "pbe_tpu_torch/serving/__init__.py", "pbe_tpu_torch/scripts/serve.py",
+            "pbe_tpu_torch/data/native.py", "pbe_tpu_torch/data/openimages.py",
+            "pbe_tpu_torch/data/quadruple.py", "pbe_tpu_torch/evaltools/inception.py",
+            "pbe_tpu_torch/evaltools/fid.py", "pbe_tpu_torch/evaltools/fid_callback.py",
+            "pbe_tpu_torch/scripts/train.py",
+            "pbe_tpu_torch/scripts/make_synthetic_openimages.py"} <= names
     banned = []
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "optax", "orbax") or top == "pbe_tpu":
+            if top in ("jax", "jaxlib", "flax", "optax", "orbax", "scripts") or top == "pbe_tpu":
                 banned.append((f.relative_to(REPO).as_posix(), mod))
     assert banned == []
