@@ -6,9 +6,10 @@
 Phases:
   1. card name and power limit, torch/CUDA versions; build the kernels
      from csrc/flash_fwd.cu (the models' forward kernels), flash_variants.cu
-     (the resident and pipelined kernels) and flash_bwd.cu (one nvcc each,
-     started together) and print each kernel's registers and spills from
-     their -Xptxas -v reports.
+     (the resident and pipelined kernels) and flash_bwd.cu (the backward
+     kernels, the d = 512 pair among them; one nvcc each, started together)
+     and print each kernel's registers and spills from their -Xptxas -v
+     reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
      edit gives it (bf16), at ragged N for every padded head dim, and with
      peaked scores, a row max rising at every key tile and packed q/k/v
@@ -108,9 +109,34 @@ The training CLI (the ninth slice), after phase 9 has freed its model:
      9's, the host's wait on the DataLoader, peak memory against phase 9's,
      and the validation's time by part.
 
-A run takes them in the order 1, 2, 7, 11, 3, 4, 12, 13, 14, 5, 8, 9, 15,
-6, 10, then 12's tiny edits: kernels first, the timed edits before the
-profiler, the card-vs-CPU comparisons last.
+Evaluation and first-stage training (the tenth slice):
+ 16. the evaluation CLIs in-process: 64 + 64 synthetic 512^2 PNGs (the
+     port's writer), eval_fid on Inception and on --clip-features (random
+     weights), eval_clip_score over a 16-pair COCOEE directory and its
+     results, eval_gmm on a pickled k=20, 2048-d full-covariance GMM
+     stand-in built from numpy, create_square_gt_for_fid; every number
+     finite and in range, the card's float64 GMM log-likelihoods within
+     1e-9 of a CPU run of the same code, the bf16 CLIP B/32 embeddings
+     within 2e-2 cosine of the fp32 CPU ones; each CLI's time.
+ 17. the backward kernels at the VAE's head dim 512 (csrc/flash_bwd.cu's
+     wide pair) against their plain versions at (4, 1024, 1, 512) (phase
+     18's shape) and (2, 4096, 1, 512), at N = 20, 77 and 1000 and on peaked
+     scores, each launched twice and compared bitwise; the forward with the
+     LSE at the same shapes; each timed (CUDA graphs) beside its plain
+     version and SDPA's (its backward alone), naming SDPA's backend.
+ 18. the slice: make_vae_train_step on v1's first stage at full width
+     (256^2, batch 4, bf16, flash, PatchDiscriminator(64, 3), the VGG16
+     term, disc_start=0) for 8 steps with every kernel's launch count set
+     to 0 just before and read just after (6 K2, 2 of them with the LSE, 2
+     K5 and 2 K6 a step); finite losses, d_weight in [0, 5000], weights
+     moved; step p50, images/s, peak memory and one step's device time by
+     group (torch.profiler) with the K5/K6 share.
+ 19. 3 training steps of a configs/tiny.yaml-sized first stage on the card
+     in bf16 against the same steps on the CPU in fp32, noise injected.
+
+A run takes them in the order 1, 2, 7, 17, 11, 3, 4, 12, 13, 14, 5, 8, 9,
+15, 16, 18, 6, 10, 19, then 12's tiny edits: kernels first, the timed edits
+before the profiler, the card-vs-CPU comparisons last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -224,6 +250,19 @@ GRAD_L2_REL = 1e-2
 # tile
 BWD_CHECKS = ((1, 100, 2, 40), (2, 333, 3, 80), (2, 130, 4, 16), (1, 90, 2, 32),
               (1, 70, 2, 160), (3, 47, 2, 48))
+
+# phases 17-18, first-stage (VAE) training: the v1 VAE's single-head mid
+# attention at d = 512. Phase 18 trains at 256^2 (configs/v1.yaml
+# ddconfig.resolution) and batch 4: a 32^2 latent, N = 1024. A step runs the
+# forward kernel 6 times there, 2 of them with the LSE (the adaptive
+# weight's encode and decode and the D step's without it, the G step's with
+# it), and each backward kernel twice (the G step's encode and decode);
+# (2, 4096, 1, 512), a 512^2 pair, is held and timed but is not on phase
+# 18's path. (name, (B, N, H, D), backward launches a step)
+VAE_BWD_SHAPES = (("vae_256_b4", (4, 1024, 1, 512), 2), ("vae_512_b2", (2, 4096, 1, 512), 0))
+VAE_STEP_FWD, VAE_STEP_FWD_LSE, VAE_STEP_BWD = 6, 2, 2
+# N below one tile (32 rows) of the d = 512 kernels and one that no tile divides
+VAE_BWD_CHECKS = ((1, 77, 1, 512), (1, 1000, 1, 512), (1, 20, 1, 512))
 
 # K3 and K4 beyond the benchmark's shapes: ds8, N that no tile divides, head
 # dims 16 and 512; K3 runs each at clusters of 1, 2 and 4, so a cluster's
@@ -473,6 +512,98 @@ def bound(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float):
     return max(terms, key=lambda x: x[1])
 
 
+def sdpa_backend(q, k, v) -> str:
+    """The backend torch's scaled_dot_product_attention picks for these
+    (B, H, N, D) inputs, as its dispatcher decides it."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    except (AttributeError, RuntimeError, ValueError) as e:  # a private entry
+        return f"not determined ({type(e).__name__})"
+
+
+def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replaces: str,
+             rand) -> list[dict]:
+    """At one training shape: the dQ and dK/dV kernels and the forward
+    kernel with the LSE against their plain versions on randn inputs, then
+    each timed (CUDA graphs) beside its plain version and SDPA (its
+    backward alone for the pair, its forward for the forward): the dq, dkv
+    and fwd+lse rows of the kernels line, each expecting per_step (the
+    forward fwd_per_step) launches a training step."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, h, d = shape
+    q, k, v, do = (rand(shape) for _ in range(4))
+    errs = check_bwd(fa, q, k, v, do, f"{name} {shape}")
+    ferr, flerr = check_flash(fa, q, k, v, f"{name} fwd+lse {shape}")
+    out, lse = fa.flash_fwd(q, k, v, return_lse=True)
+    dd = fa.rowsum_do_o(do, out)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    backend = sdpa_backend(qt, kt, vt)
+    # SDPA's backward alone: the gradient of one saved output, taken on
+    # the stream its forward ran on and captured there
+    sdpa_stream = torch.cuda.Stream()
+    sdpa_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(sdpa_stream):
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+    sdpa_bwd_ms = graph_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
+                                                       retain_graph=True),
+                           20, stream=sdpa_stream)
+    bnhd, bhn = b * n * h * d * 2, b * h * n * 4
+    common = {"route": "cuda", "source": "pbe_tpu_torch/csrc/flash_bwd.cu",
+              "library": f"sdpa backward ({backend})"}
+    rows = []
+    for kname, replaces, flop, nbytes, launch, plain in (
+            ("flash_bwd_dq", K5, 6.0, 5 * bnhd + 2 * bhn,
+             lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd),
+             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, dd)),
+            ("flash_bwd_dkv", K6, 8.0, 6 * bnhd + 2 * bhn,
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd),
+             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd))):
+        by, ms_bound = bound(flop, b, n, h, d, nbytes)
+        outs = ("dq",) if kname == "flash_bwd_dq" else ("dk", "dv")
+        rows.append({"name": f"{kname}/{name}", **common, "replaces": replaces,
+                     "launches": None, "expected_launches_per_step": per_step,
+                     "max_abs_err": max(errs[o][0] for o in outs),
+                     "max_abs_g": max(errs[o][1] for o in outs),
+                     "rel_l2": max(errs[o][2] for o in outs),
+                     "ms": graph_ms(launch, 20), "plain_ms": graph_ms(plain, 3),
+                     "bound_ms": ms_bound,
+                     "bound_by": "bytes" if by == "bytes" else "operations",
+                     # SDPA's whole backward (dQ, dK and dV), the yardstick
+                     # of the two kernels' sum
+                     "library_ms": sdpa_bwd_ms, "eager_ms": cuda_ms(launch, 20)})
+    by, ms_bound = bound(4.0, b, n, h, d, 4 * bnhd + bhn)
+    rows.append({"name": f"flash_fwd_lse/{name}_train", "route": "cuda",
+                 "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": fwd_replaces,
+                 "launches": None, "expected_launches_per_step": fwd_per_step,
+                 "max_abs_err": ferr, "lse_max_abs_err": flerr,
+                 "ms": graph_ms(lambda: fa.flash_fwd(q, k, v, return_lse=True), 20),
+                 "plain_ms": graph_ms(lambda: fa.flash_attention_plain(
+                     q, k, v, return_lse=True), 3),
+                 "bound_ms": ms_bound,
+                 "bound_by": "bytes" if by == "bytes" else "operations",
+                 "library": f"sdpa ({sdpa_backend(*(x.detach() for x in (qt, kt, vt)))})",
+                 "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                        20)})
+    dq_row, dkv_row, f_row = rows
+    log(f"[bwd] {name} {shape} (graph-timed): dq {dq_row['ms']:.4f} ms (eager "
+        f"{dq_row['eager_ms']:.4f}, plain {dq_row['plain_ms']:.4f}, bound "
+        f"{dq_row['bound_ms']:.4f}); dkv {dkv_row['ms']:.4f} ms (eager "
+        f"{dkv_row['eager_ms']:.4f}, plain {dkv_row['plain_ms']:.4f}, bound "
+        f"{dkv_row['bound_ms']:.4f}); pair {dq_row['ms'] + dkv_row['ms']:.4f} ms vs SDPA "
+        f"backward {sdpa_bwd_ms:.4f} ms ({backend}); fwd+lse {f_row['ms']:.4f} ms (plain "
+        f"{f_row['plain_ms']:.4f}, SDPA {f_row['library_ms']:.4f} {f_row['library']}, bound "
+        f"{f_row['bound_ms']:.4f})")
+    del q, k, v, do, out, lse, dd, qt, kt, vt, dot, o_sdpa
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_kernels() -> list[dict]:
     """The backward kernels, and the forward kernel with the LSE, at the
     v1 training shapes (plus ragged and odd ones for the backward): each
@@ -500,68 +631,8 @@ def phase_train_kernels() -> list[dict]:
 
     rows = []
     for name, shape, per_step in TRAIN_SHAPES:
-        b, n, h, d = shape
-        q, k, v, do = (rand(shape) for _ in range(4))
-        errs = check_bwd(fa, q, k, v, do, f"{name} {shape}")
-        ferr, flerr = check_flash(fa, q, k, v, f"{name} fwd+lse {shape}")
-        out, lse = fa.flash_fwd(q, k, v, return_lse=True)
-        dd = fa.rowsum_do_o(do, out)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        dot = do.transpose(1, 2)
-        # SDPA's backward alone: the gradient of one saved output, taken on
-        # the stream its forward ran on and captured there
-        sdpa_stream = torch.cuda.Stream()
-        sdpa_stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(sdpa_stream):
-            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt)
-        sdpa_bwd_ms = graph_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
-                                                           retain_graph=True),
-                               20, stream=sdpa_stream)
-        bnhd, bhn = b * n * h * d * 2, b * h * n * 4
-        common = {"route": "cuda", "source": "pbe_tpu_torch/csrc/flash_bwd.cu"}
-        for kname, replaces, flop, nbytes, launch, plain in (
-                ("flash_bwd_dq", K5, 6.0, 5 * bnhd + 2 * bhn,
-                 lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd),
-                 lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, dd)),
-                ("flash_bwd_dkv", K6, 8.0, 6 * bnhd + 2 * bhn,
-                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd),
-                 lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd))):
-            by, ms_bound = bound(flop, b, n, h, d, nbytes)
-            outs = ("dq",) if kname == "flash_bwd_dq" else ("dk", "dv")
-            rows.append({"name": f"{kname}/{name}", **common, "replaces": replaces,
-                         "launches": None, "expected_launches_per_step": per_step,
-                         "max_abs_err": max(errs[o][0] for o in outs),
-                         "max_abs_g": max(errs[o][1] for o in outs),
-                         "rel_l2": max(errs[o][2] for o in outs),
-                         "ms": graph_ms(launch, 20), "plain_ms": graph_ms(plain, 3),
-                         "bound_ms": ms_bound,
-                         "bound_by": "bytes" if by == "bytes" else "operations",
-                         # SDPA's whole backward (dQ, dK and dV), the yardstick
-                         # of the two kernels' sum
-                         "library_ms": sdpa_bwd_ms, "eager_ms": cuda_ms(launch, 20)})
-        by, ms_bound = bound(4.0, b, n, h, d, 4 * bnhd + bhn)
-        rows.append({"name": f"flash_fwd_lse/{name}_train", "route": "cuda",
-                     "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": K1,
-                     "launches": None, "expected_launches_per_step": 2 * per_step,
-                     "max_abs_err": ferr, "lse_max_abs_err": flerr,
-                     "ms": graph_ms(lambda: fa.flash_fwd(q, k, v, return_lse=True), 20),
-                     "plain_ms": graph_ms(lambda: fa.flash_attention_plain(
-                         q, k, v, return_lse=True), 3),
-                     "bound_ms": ms_bound,
-                     "bound_by": "bytes" if by == "bytes" else "operations",
-                     "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                                            20)})
-        dq_row, dkv_row, f_row = rows[-3:]
-        log(f"[bwd] {name} {shape} (graph-timed): dq {dq_row['ms']:.4f} ms (eager "
-            f"{dq_row['eager_ms']:.4f}, plain {dq_row['plain_ms']:.4f}, bound "
-            f"{dq_row['bound_ms']:.4f}); dkv {dkv_row['ms']:.4f} ms (eager "
-            f"{dkv_row['eager_ms']:.4f}, plain {dkv_row['plain_ms']:.4f}, bound "
-            f"{dkv_row['bound_ms']:.4f}); pair {dq_row['ms'] + dkv_row['ms']:.4f} ms vs SDPA "
-            f"backward {sdpa_bwd_ms:.4f} ms; fwd+lse {f_row['ms']:.4f} ms (plain "
-            f"{f_row['plain_ms']:.4f}, SDPA {f_row['library_ms']:.4f}, bound "
-            f"{f_row['bound_ms']:.4f})")
-        del q, k, v, do, out, lse, dd, qt, kt, vt, dot, o_sdpa
-        torch.cuda.empty_cache()
+        # under remat the forward runs twice a step at each shape
+        rows += bwd_rows(fa, name, shape, per_step, 2 * per_step, K1, rand)
 
     # K2 at the frozen VAE's mid attention in the training step (no LSE)
     b, n, h, d = VAE_TRAIN_SHAPE
@@ -583,6 +654,57 @@ def phase_train_kernels() -> list[dict]:
         f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {by})")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    return rows
+
+
+def phase_vae_kernels() -> list[dict]:
+    """Phase 17: the backward kernels at the VAE's head dim 512 and the
+    forward kernel with the LSE there (the G step of first-stage training):
+    each against its plain version at VAE_BWD_SHAPES, at ragged N below and
+    above a tile and on peaked scores, each backward launched twice and
+    compared bitwise; then timed beside the plain versions and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for shape in VAE_BWD_CHECKS:
+        q, k, v, do = (rand(shape) for _ in range(4))
+        check_bwd(fa, q, k, v, do, f"check {shape}")
+        check_flash(fa, q, k, v, f"fwd+lse check {shape}")
+    for _, shape, _ in VAE_BWD_SHAPES:
+        q, k, v, do = (rand(shape) for _ in range(4))
+        check_bwd(fa, q * 8, k * 8, v, do, f"peaked (q, k x8) {shape}")
+        check_flash(fa, q * 8, k * 8, v, f"fwd+lse peaked (q, k x8) {shape}")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    rows = []
+    for name, shape, per_step in VAE_BWD_SHAPES:
+        rows += bwd_rows(fa, name, shape, per_step, VAE_STEP_FWD_LSE if per_step else 0, K2,
+                         rand)
+    # K2 without the LSE at phase 18's shape: the passes without a gradient
+    name, shape, _ = VAE_BWD_SHAPES[0]
+    b, n, h, d = shape
+    q, k, v = (rand(shape) for _ in range(3))
+    err, lerr = check_flash(fa, q, k, v, f"{name} fwd {shape}")
+    by, ms_bound = bound(4.0, b, n, h, d, 4 * b * n * h * d * 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows.append({"name": f"flash_fwd/{name}_train", "route": "cuda",
+                 "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": K2,
+                 "launches": None,
+                 "expected_launches_per_step": VAE_STEP_FWD - VAE_STEP_FWD_LSE,
+                 "max_abs_err": err, "lse_max_abs_err": lerr,
+                 "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
+                 "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v), 3),
+                 "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
+                 "library": f"sdpa ({sdpa_backend(qt, kt, vt)})",
+                 "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                        20)})
+    r = rows[-1]
+    log(f"[bwd] {name} fwd {shape}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
+        f"{r['library_ms']:.4f} {r['library']}, bound {r['bound_ms']:.4f} by {by})")
     return rows
 
 
@@ -2000,6 +2122,302 @@ def phase_train_reference() -> None:
         raise AssertionError("card training disagrees with the CPU fp32 reference")
 
 
+# phase 16, evaluation: 64 + 64 synthetic 512^2 images, a 16-pair COCOEE
+# directory and its results, and a k=20 GMM over 2048-d pool3 features with
+# full covariances (the reference's COCO GMM's shape)
+EVAL_IMAGES, EVAL_PAIRS, GMM_K, GMM_D = 64, 16, 20, 2048
+
+
+def gmm_stand_in(feats: np.ndarray, seed: int):
+    """A fitted-GMM stand-in built from numpy (no sklearn): k=20 components
+    with full covariances, sklearn's attribute names. The means are 20 of
+    the given feature rows, each precision Cholesky factor upper triangular
+    (sklearn's form): s on the diagonal and seeded noise of 1e-3 s above it,
+    with s such that a feature at its mean scores 250, inside QS's (0, 300)
+    window, and the rest of the rows fall wherever their distance puts
+    them."""
+    from types import SimpleNamespace
+
+    g = np.random.default_rng(seed)
+    k, d = GMM_K, feats.shape[1]
+    log_s = (250.0 + 0.5 * d * np.log(2 * np.pi) + np.log(k)) / d
+    s = np.exp(log_s)
+    chol = np.triu(g.standard_normal((k, d, d)) * 1e-3 * s, 1)
+    chol[:, np.arange(d), np.arange(d)] = s
+    return SimpleNamespace(covariance_type="full", weights_=np.full(k, 1.0 / k),
+                           means_=feats[g.choice(len(feats), k, replace=False)].astype(np.float64),
+                           precisions_cholesky_=chol)
+
+
+def phase_eval(card: str) -> dict:
+    """Phase 16, the evaluation CLIs in-process on the card: eval_fid
+    (Inception, then --clip-features), eval_clip_score over a synthetic
+    COCOEE directory and its results, eval_gmm on a pickled stand-in GMM,
+    create_square_gt_for_fid; each number finite and in range, the card's
+    GMM log-likelihoods against a float64 CPU run of the same code, and the
+    card's bf16 CLIP embeddings against the CPU's fp32 ones."""
+    import pickle
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from pbe_tpu_torch.data.transforms import save_image
+    from pbe_tpu_torch.evaltools.clip_score import VIT_B32, CLIPImageEmbedder
+    from pbe_tpu_torch.evaltools.fid import list_images, make_inception_feature_fn
+    from pbe_tpu_torch.evaltools.gmm_score import gmm_log_likelihood
+    from pbe_tpu_torch.scripts import (create_square_gt_for_fid, eval_clip_score, eval_fid,
+                                       eval_gmm)
+
+    g = np.random.default_rng(16)
+    times, out = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = []
+        for name in ("a", "b"):
+            os.makedirs(os.path.join(tmp, name))
+            for i in range(EVAL_IMAGES):
+                save_image(smooth_image(g, 512) / 255.0, os.path.join(tmp, name, f"{i:03d}.png"))
+            dirs.append(os.path.join(tmp, name))
+        out["fid_inception"] = timed("eval_fid", lambda: eval_fid.main(dirs))
+        out["fid_clip"] = timed("eval_fid --clip-features",
+                                lambda: eval_fid.main(dirs + ["--clip-features"]))
+
+        bench, results = os.path.join(tmp, "bench"), os.path.join(tmp, "results")
+        os.makedirs(results)
+        for i in write_test_bench(bench, EVAL_PAIRS, 512, seed=17):
+            save_image(smooth_image(g, 512) / 255.0, os.path.join(results, f"{i}.png"))
+        out["clip_score"] = timed("eval_clip_score", lambda: eval_clip_score.main(
+            ["--result_dir", results, "--test_bench_dir", bench]))
+
+        images = np.stack([np.asarray(Image.open(f).convert("RGB").resize(
+            (299, 299), Image.BILINEAR), np.float32) / 255.0 for f in list_images(dirs[0])])
+        feats = make_inception_feature_fn()(images)
+        gmm = gmm_stand_in(feats, seed=18)
+        with open(os.path.join(tmp, "gmm.pkl"), "wb") as f:
+            pickle.dump(gmm, f)
+        out["qs"] = timed("eval_gmm", lambda: eval_gmm.main(
+            [dirs[0], "--gmm", os.path.join(tmp, "gmm.pkl")]))
+        ll_card = gmm_log_likelihood(feats, gmm, device="cuda")
+        ll_cpu = gmm_log_likelihood(feats, gmm, device="cpu")
+        ll_rel = float(np.abs(ll_card - ll_cpu).max() / np.abs(ll_cpu).max())
+        in_window = int(((ll_cpu > 0) & (ll_cpu < 300)).sum())
+
+        n_sq = timed("create_square_gt_for_fid", lambda: create_square_gt_for_fid.main(
+            [os.path.join(bench, "GT_3500"), os.path.join(tmp, "square")]))
+
+    # the bf16 tower on the card against the fp32 tower on the CPU, one
+    # set of weights
+    cpu = CLIPImageEmbedder(VIT_B32, device="cpu")
+    gpu = CLIPImageEmbedder(VIT_B32, state_dict=cpu.tower.state_dict(), device="cuda")
+    crops = np.stack([np.asarray(Image.fromarray(smooth_image(g, 512)).resize(
+        (224, 224), Image.BICUBIC), np.float32) / 255.0 for _ in range(8)])
+    cos = (gpu(crops) * cpu(crops)).sum(-1)
+    out.update({"gmm_loglik_rel_err": ll_rel, "gmm_rows_in_window": in_window,
+                "clip_min_cosine": float(cos.min()), "seconds": times})
+    log(f"[eval] FID (Inception, random weights) {out['fid_inception']:.4f}, FID (CLIP) "
+        f"{out['fid_clip']:.6f}, region CLIP score {out['clip_score']:.4f} over {EVAL_PAIRS} "
+        f"pairs, QS {out['qs']:.4f} ({in_window} of {EVAL_IMAGES} log-likelihoods inside "
+        f"(0, 300)); {n_sq} square GT images")
+    log(f"[eval] GMM k={GMM_K} d={GMM_D} full: card vs CPU float64 log-likelihood max rel "
+        f"{ll_rel:.3e} (tol 1e-9); CLIP B/32 bf16 card vs fp32 CPU min cosine "
+        f"{out['clip_min_cosine']:.5f} (tol 1 - 2e-2)")
+    log(f"[eval] seconds by CLI ({card}): " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    ok = (all(np.isfinite(out[k]) for k in ("fid_inception", "fid_clip", "clip_score", "qs"))
+          and 0.0 <= out["qs"] <= 100.0 and -100.0 <= out["clip_score"] <= 100.0
+          and n_sq == EVAL_PAIRS and ll_rel <= 1e-9 and out["clip_min_cosine"] >= 1 - 2e-2
+          and feats.shape == (EVAL_IMAGES, GMM_D))
+    if not ok:
+        raise AssertionError(f"evaluation CLIs: a number out of range or off its reference {out}")
+    return out
+
+
+def build_first_stage(config: str, dtype, device: str, seed: int = 0):
+    """The first stage of a config YAML, built in dtype on device with
+    attn_impl="flash", fp32 weights drawn as flax initializes them; returns
+    (vae, its ddconfig.resolution)."""
+    from pbe_tpu_torch.config import load_config
+    from pbe_tpu_torch.models.layers import init_like_flax
+    from pbe_tpu_torch.models.vae import AutoencoderKLConfig
+
+    p = load_config(config)["model"]["params"]["first_stage_config"]["params"]
+    vae = AutoencoderKLConfig(ddconfig=p["ddconfig"], embed_dim=p["embed_dim"]).build(
+        dtype, attn_impl="flash").to(device)
+    return init_like_flax(vae, seed), p["ddconfig"]["resolution"]
+
+
+def vae_trainer(vae, device: str, dtype, disc_ch: int, disc_layers: int, lr: float = 4.5e-6):
+    """State and step of make_vae_train_step with everything on: the
+    PatchDiscriminator from step 0 (disc_start=0), so the GAN term and the
+    adaptive weight run, and the VGG16 perceptual term. The discriminator
+    and VGG16 get seeded weights drawn on the host, so that every device
+    gets the same ones."""
+    from pbe_tpu_torch.models.layers import init_like_flax
+    from pbe_tpu_torch.training.perceptual import VGG16Features, make_vgg_perceptual_fn
+    from pbe_tpu_torch.training.vae_train import (PatchDiscriminator, create_vae_train_state,
+                                                  make_vae_train_step)
+
+    disc = init_like_flax(PatchDiscriminator(ch=disc_ch, n_layers=disc_layers, dtype=dtype),
+                          seed=1).to(device)
+    state = create_vae_train_state(vae, disc, lr=lr)
+    vgg = init_like_flax(VGG16Features(dtype=dtype), seed=2).to(device)
+    step = make_vae_train_step(vae, disc, disc_start=0,
+                               perceptual_fn=make_vgg_perceptual_fn(vgg))
+    return state, step
+
+
+def phase_vae_train(card: str, rows: list[dict]) -> dict:
+    """Phase 18, the slice: make_vae_train_step on v1's first stage at full
+    width (configs/v1.yaml ddconfig: ch 128, ch_mult 1-2-4-4, 2 res blocks)
+    at its 256^2 resolution, batch 4, bf16 compute and fp32 weights, flash
+    attention, PatchDiscriminator(64, 3), the VGG16 term: 2 warm steps, then
+    8 with every kernel's launch count set to 0 just before and read just
+    after; losses, the adaptive weight and moved weights checked; step p50,
+    images/s, peak memory and one step's device time by group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+
+    vae, size = build_first_stage("configs/v1.yaml", torch.bfloat16, "cuda")
+    state, step = vae_trainer(vae, "cuda", torch.bfloat16, 64, 3)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    warm, steps, batch = 2, 8, 4
+    images = [torch.rand((batch, size, size, 3), generator=g, device="cuda") * 2 - 1
+              for _ in range(warm + steps)]
+    checksum = lambda m: torch.stack([p.double().square().sum() for p in m.parameters()])
+    before = checksum(state.vae), checksum(state.disc)
+    for x in images[:warm]:
+        step(state, x, generator=g)
+    torch.cuda.synchronize()
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_fwd_resident,
+               fa.flash_fwd_pipelined)
+    for k in kernels:
+        k.launches = 0
+        k.launches_by_shape.clear()
+    fa.flash_fwd.lse_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [torch.cuda.Event(enable_timing=True)], []
+    events[0].record()
+    for x in images[warm:]:
+        metrics.append(step(state, x, generator=g))
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    counts = {k.symbol: (k.launches, dict(k.launches_by_shape)) for k in kernels}
+    lse = fa.flash_fwd.lse_launches
+    peak = torch.cuda.max_memory_allocated()
+    metrics = [{k: v.item() for k, v in m.items()} for m in metrics]
+    after = checksum(state.vae), checksum(state.disc)
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    p50 = float(np.median(step_ms))
+    log(f"[vae-train] v1 first stage {size}^2 batch {batch} bf16: step ms "
+        f"{['%.2f' % t for t in step_ms]}: p50 {p50:.3f} ms, {batch * 1e3 / p50:.4f} images/s; "
+        f"peak memory {peak / 2**30:.3f} GiB ({card})")
+    for i, m in enumerate(metrics):
+        log(f"[vae-train] step {warm + i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+    log(f"[vae-train] launches in {steps} steps: {json.dumps({k: v[0] for k, v in counts.items()})}"
+        f" ({lse} forward launches with the LSE); by shape {counts}")
+
+    shape = VAE_BWD_SHAPES[0][1]
+    want = {"pbe_flash_fwd_bf16": VAE_STEP_FWD, "pbe_flash_bwd_dq_bf16": VAE_STEP_BWD,
+            "pbe_flash_bwd_dkv_bf16": VAE_STEP_BWD, "pbe_flash_resident_bf16": 0,
+            "pbe_flash_pipelined_bf16": 0}
+    for sym, per_step in want.items():
+        n, by_shape = counts[sym]
+        if n != per_step * steps or (n and by_shape != {shape: n}):
+            raise AssertionError(f"{sym}: {n} launches {by_shape} in {steps} steps, expected "
+                                 f"{per_step} a step at {shape}")
+    if lse != VAE_STEP_FWD_LSE * steps:
+        raise AssertionError(f"{lse} forward launches with the LSE in {steps} steps, expected "
+                             f"{VAE_STEP_FWD_LSE} a step")
+    if not all(np.isfinite([m[k] for k in ("g_loss", "rec", "kl", "d_loss")]).all()
+               and 0.0 <= m["d_weight"] <= 0.5e4 for m in metrics):
+        raise AssertionError(f"a VAE training metric is not finite or d_weight is out of range: "
+                             f"{metrics}")
+    moved = [int((b != a).sum()) for b, a in zip(before, after)]
+    if not all(moved):
+        raise AssertionError(f"weights did not move (changed tensors: vae, disc = {moved})")
+    log(f"[vae-train] weights moved: {moved[0]} of {len(before[0])} VAE tensors, {moved[1]} of "
+        f"{len(before[1])} discriminator tensors")
+    sym_of = {"flash_bwd_dq": "pbe_flash_bwd_dq_bf16", "flash_bwd_dkv": "pbe_flash_bwd_dkv_bf16"}
+    for row in rows:
+        kname, sname = row["name"].split("/")
+        n = (lse if kname == "flash_fwd_lse" else
+             counts["pbe_flash_fwd_bf16"][0] - lse if kname == "flash_fwd" else
+             counts[sym_of[kname]][0])
+        if not sname.startswith(VAE_BWD_SHAPES[0][0]):
+            n = 0  # a shape phase 18 does not run
+        wanted = row.pop("expected_launches_per_step")
+        if n != wanted * steps:
+            raise AssertionError(f"{row['name']}: {n} launches in {steps} steps, expected "
+                                 f"{wanted} a step")
+        row["launches"] = n // steps
+        row["launches_in_run"], row["run_steps"] = n, steps
+
+    # one step's device time by group, against the unprofiled p50
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, images[-1], generator=g)
+        torch.cuda.synchronize()
+    kern, busy, groups = device_time(prof)
+    bwd = groups.get("flash_bwd_dq", 0.0) + groups.get("flash_bwd_dkv", 0.0)
+    log(f"[vae-train-profile] one step: device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / p50:.3f} of the p50 step; K5+K6 {bwd:.4f} ms ({bwd / busy:.4f} of busy)")
+    log(f"[vae-train-profile] by group (ms/step): "
+        f"{json.dumps({k: round(v, 4) for k, v in sorted(groups.items())})}")
+    for e in kern[:12]:
+        log(f"[vae-train-profile]   {DEV_MS(e):9.4f} ms/step  x{e.count:4d}  {e.key[:110]}")
+    return {"step_ms": step_ms, "p50_ms": p50, "images_per_s": batch * 1e3 / p50,
+            "peak_gib": peak / 2**30, "metrics": metrics,
+            "launches_per_step": {sym: n // steps for sym, (n, _) in counts.items()},
+            "lse_launches_per_step": lse // steps, "device_busy_ms": busy,
+            "idle_share": 1 - busy / p50, "groups_ms": groups, "k5_k6_share": bwd / busy}
+
+
+def phase_vae_train_reference() -> None:
+    """Phase 19: 3 training steps of a configs/tiny.yaml-sized first stage
+    (ch 16, ch_mult 1-2, one res block) at 64^2, batch 2, on the card in
+    bf16 (the kernels) against the same steps on the CPU in fp32 (their
+    plain versions): one set of weights, the same images and latent draws."""
+    import torch
+
+    torch.manual_seed(0)
+    gpu, size = build_first_stage("configs/tiny.yaml", torch.bfloat16, "cuda")
+    cpu, _ = build_first_stage("configs/tiny.yaml", torch.float32, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    runs = {}
+    for name, vae, dev, dtype in (("card", gpu, "cuda", torch.bfloat16),
+                                  ("cpu", cpu, "cpu", torch.float32)):
+        state, step = vae_trainer(vae, dev, dtype, 16, 2, lr=1e-4)
+        g = np.random.default_rng(19)
+        out = []
+        for _ in range(3):
+            x = torch.from_numpy(g.uniform(-1, 1, (2, size, size, 3)).astype(np.float32))
+            eps = torch.from_numpy(g.standard_normal(vae.latent_shape(x.shape)).astype(np.float32))
+            m = step(state, x.to(dev), noise=eps.to(dev))
+            out.append({k: v.item() for k, v in m.items()})
+        runs[name] = out
+    # bf16 activations round each element by up to 2^-8; the losses are
+    # means over thousands of elements, in which that rounding mostly
+    # cancels (1e-2); d_weight is a ratio of two gradient norms over one
+    # conv's weight, each a sum of bf16 products (5e-2)
+    tol = {"g_loss": 1e-2, "rec": 1e-2, "kl": 1e-2, "d_loss": 1e-2, "d_weight": 5e-2}
+    rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in tol}
+           for a, b in zip(runs["card"], runs["cpu"])]
+    log(f"[vae-train-reference] tiny first stage 3 steps, card bf16 vs CPU fp32: card "
+        f"{runs['card']}; cpu {runs['cpu']}; rel diff {rel} (tol {tol})")
+    if not all(r[k] <= tol[k] for r in rel for k in tol):
+        raise AssertionError("card VAE training disagrees with the CPU fp32 reference")
+
+
 def main() -> int:
     import torch
 
@@ -2022,6 +2440,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     train_rows = phase_train_kernels()
+    vae_rows = phase_vae_kernels()
     variant_rows = phase_variants()
     from pbe_tpu_torch.pipelines.loading import (eps_rms_probe, load_pipeline,
                                                  randomize_zero_params)
@@ -2052,8 +2471,12 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(card, train)
+    evaluation = phase_eval(card)
+    vae_train = phase_vae_train(card, vae_rows)
+    torch.cuda.empty_cache()
     phase_reference()
     phase_train_reference()
+    phase_vae_train_reference()
     phase_reference_samplers()
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
@@ -2061,8 +2484,10 @@ def main() -> int:
     log(f"[cli] summary {json.dumps(cli)}")
     log(f"[serve] summary {json.dumps(serving)}")
     log(f"[int8] summary {json.dumps(int8)}")
-    print(json.dumps({"kernels": rows + train_rows + variant_rows + cli_rows + serve_rows}),
-          flush=True)
+    log(f"[eval] summary {json.dumps(evaluation)}")
+    log(f"[vae-train] summary {json.dumps(vae_train)}")
+    print(json.dumps({"kernels": rows + train_rows + vae_rows + variant_rows + cli_rows
+                      + serve_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

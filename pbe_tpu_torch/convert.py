@@ -99,3 +99,62 @@ def state_dict_from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor
         key, value = torch_key_and_value(path, np.asarray(arr, np.float32))
         sd[key] = torch.from_numpy(np.array(value, np.float32))
     return sd
+
+
+def _layer_param(path: tuple[str, ...], arr: np.ndarray) -> tuple[list[str], str, np.ndarray]:
+    """A flax conv/dense/norm leaf -> (torch module path, torch leaf, value in
+    torch layout); a GroupNorm32's inner ``norm`` scope is dropped."""
+    *mods, leaf = path
+    if mods and mods[-1] == "norm" and leaf in ("scale", "bias"):
+        mods.pop()
+    if leaf == "kernel":
+        return mods, "weight", (np.transpose(arr, (3, 2, 0, 1)) if arr.ndim == 4
+                                else np.transpose(arr, (1, 0)))
+    return mods, {"scale": "weight"}.get(leaf, leaf), arr
+
+
+def _tensors(items) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in items}
+
+
+def discriminator_state_dict_from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``training.vae_train.PatchDiscriminator`` params (the tree under
+    'params') -> the port's state_dict: the module names are flax's."""
+    items = []
+    for path, arr in flatten_params(params_np).items():
+        mods, leaf, value = _layer_param(path, np.asarray(arr, np.float32))
+        items.append((".".join(mods + [leaf]), value))
+    return _tensors(items)
+
+
+def vgg16_state_dict_from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``training.perceptual.VGG16Features`` params -> the port's
+    state_dict (torchvision's ``features.<i>`` keys for flax's ``conv_<i>``)."""
+    items = []
+    for path, arr in flatten_params(params_np).items():
+        mods, leaf, value = _layer_param(path, np.asarray(arr, np.float32))
+        items.append((f"features.{mods[0].removeprefix('conv_')}.{leaf}", value))
+    return _tensors(items)
+
+
+def asym_decoder_state_dict_from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``models.vae_asym.AsymmetricDecoder`` params -> the port's state_dict:
+    the trunk by the first stage's decoder key map, the conditional branch's
+    ``level_<i>_block``/``level_<i>_down`` as ``level_block.<i>``/
+    ``level_down.<i>``, ``cond_proj_<i>`` as ``cond_proj.<i>``, and the
+    scalars ``blend_scale_<i>`` as one vector ``blend_scale``."""
+    items, scales = [], {}
+    for path, arr in flatten_params(params_np).items():
+        arr = np.asarray(arr, np.float32)
+        if path[0].startswith("blend_scale_"):
+            scales[int(path[0].removeprefix("blend_scale_"))] = float(arr)
+        elif path[0] == "cond_encoder" or path[0].startswith("cond_proj_"):
+            mods, leaf, value = _layer_param(path, arr)
+            mods = [re.sub(r"^level_(\d+)_(block|down)$", r"level_\2.\1", m) for m in mods]
+            mods = [re.sub(r"^cond_proj_(\d+)$", r"cond_proj.\1", m) for m in mods]
+            items.append((".".join(mods + [leaf]), value))
+        else:
+            key, value = torch_key_and_value(("decoder",) + path, arr)
+            items.append((key.removeprefix("decoder."), value))
+    items.append(("blend_scale", np.asarray([scales[i] for i in range(len(scales))])))
+    return _tensors(items)

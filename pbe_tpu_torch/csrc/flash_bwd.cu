@@ -6,8 +6,9 @@
 // which _flash_bwd_bhnd launches (:512, :531) from the flash_attention
 // custom VJP. The v1 training step reaches them at the UNet self-attention
 // shapes (B*8, N, d) = (32, 4096, 40), (32, 1024, 80), (32, 256, 160) and
-// (32, 64, 160) at batch 4. Same contracts as the forward (csrc/flash_fwd.cu)
-// and the Pallas kernels:
+// (32, 64, 160) at batch 4; first-stage training (training/vae_train.py) at
+// the VAE's single-head mid attention, (4, 1024, 512) at 256^2 and batch 4.
+// Same contracts as the forward (csrc/flash_fwd.cu) and the Pallas kernels:
 //   q2 = round_bf16(q * d^-1/2 * log2(e))     the forward's own prescale, so
 //   P  = exp2(q2 K^T - L2)                    P is the forward's P (L2: its
 //                                             log2-domain LSE, (B*H, N) fp32)
@@ -60,6 +61,21 @@
 //     reads (its q2 rows; its K and V rows) and write 16-byte rows.
 // Inputs are (B, N, H, D) with explicit strides: no transpose copy.
 //
+// At d = 512 (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel) the
+// accumulators of 16 whole rows would be 256 fp32 registers a thread for dQ
+// and 512 for dK + dV, so the head dim is split across warps, as the wide
+// forward splits O: 8 warps, 32 rows a block, tiles of 32 streamed through
+// 2 stages. Per tile, warp (rg, c) computes the 16x8 tiles of both scores
+// (S and dP, or S^T and dP^T) for row group rg and columns [8c, 8c+8) over
+// all 512 columns (abt_tile), turns them into P and dS in registers,
+// writes them as bf16 to a (32 x 40) shared tile, and after a barrier
+// multiplies its row group's 16x32 of them into its 128-column slice of
+// the accumulators (pv_product): 64 fp32 registers for dQ, 128 for dK and
+// dV. Two barriers a tile. The dK/dV kernel makes q2 in registers from the
+// unscaled Q tile that dK needs (bit for bit the forward's prescale), which
+// saves a third 33 KB tile a stage; shared memory 202,240 B (dQ) and
+// 205,312 B (dK/dV), one block an SM.
+//
 // Tiles: launch_dq<DP, WARPS, BK, HOLD, MINB> and launch_dkv<DP, WARPS, BQ,
 // HOLD, SPLIT, MINB> in the entries below; MINB blocks an SM caps ptxas at
 // 64K / (32 * WARPS * MINB) registers a thread, so that 16 warps share an
@@ -81,9 +97,12 @@
 //   dkv     48    8   32   yes   1     2    1024                50,688   128
 //   dkv     80    8   64   yes   1     1    256                113,664   242
 //   dkv    160    4   32   no    2     1    256 / 64            86,528   196
-// (tile: key tile BK for dq, q tile BQ for dkv.) The file builds in about
-// 12 s, beside flash_fwd.cu's 49 s (chip_smoke.py phase 1 prints both times
-// and the ptxas report).
+//   dq     512    8   32   wide  -     1    (VAE) 128 / 256    202,240   186
+//   dkv    512    8   32   wide  -     1    (VAE) 128 / 256    205,312   245
+// (tile: key tile BK for dq, q tile BQ for dkv; the wide rows' grids at
+// (4, 1024, 1, 512) and (2, 4096, 1, 512).) The file builds in 9-11 s with
+// the d = 512 pair, beside flash_fwd.cu's 6-8 s (nvcc 12.9; chip_smoke.py
+// phase 1 prints both times and the ptxas report).
 
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the dQ kernel
 // does 6*BH*N^2*d FLOP, the dK/dV kernel 8*BH*N^2*d, and each BH*N^2 exp2
@@ -95,7 +114,10 @@
 // loads with the products, so exp2 and mma.sync issue are what is left;
 // the exp2 of each (q, k) pair is still taken in both kernels, which the
 // two-kernel, atomic-free split costs. wgmma, TMA and warp specialisation
-// are later work.
+// are later work. At d = 512 the products bind (K5 0.0130 ms, K6 0.0174 at
+// (4, 1024, 1, 512)); there each warp reads its A rows and B columns from
+// shared memory by ldmatrix for every 16x8 score tile (3 ldmatrix a pair of
+// mma), which a wgmma design would take off.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -500,6 +522,282 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// --- the d = 512 kernels: flash_bwd_dq_wide_kernel (K5) and
+// flash_bwd_dkv_wide_kernel (K6), the VAE's single-head mid attention -----
+
+// One warp's 16x8 tile of A B^T over the DP columns, fp32 in the C layout
+// (c[0..1] row g, columns 2t, 2t+1; c[2..3] row g+8): A the warp's 16 rows
+// (arow: its row lane%16 at column (lane/16)*8), B 8 rows (brow: row lane%8
+// at column (lane/8)*8, so that one ldmatrix.x4 gives b0, b1 of two k16
+// steps). Where SCALE_B, every B element is first rounded to
+// bf16(b * bscale) in registers: the dK/dV kernel's q2, bit for bit the
+// forward's prescale, made from the unscaled Q tile that dK needs as it is.
+// Four independent accumulators keep the dependent mma chains short.
+template <int DP, bool SCALE_B>
+__device__ __forceinline__ void abt_tile(float (&c)[4], const bf16* arow, const bf16* brow,
+                                         float bscale) {
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; kk += 2) {
+    uint32_t b[4], a0[4], a1[4];
+    ldsm_x4(b, brow + kk * 16);
+    ldsm_x4(a0, arow + kk * 16);
+    ldsm_x4(a1, arow + kk * 16 + 16);
+    if constexpr (SCALE_B) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b[i]));
+        b[i] = pack_bf16(f.x * bscale, f.y * bscale);
+      }
+    }
+    mma_bf16(acc[kk % 4], a0, b[0], b[1]);
+    mma_bf16(acc[(kk + 1) % 4], a1, b[2], b[3]);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = acc[0][e] + acc[1][e] + acc[2][e] + acc[3][e];
+}
+
+// k16 A fragments of a warp's 16 rows (from row0) of a bf16 (rows x LDP)
+// tile over its KS * 16 columns
+template <int KS, int LDP>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* tile, int row0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(a[kk], tile + (row0 + lane % 16) * LDP + kk * 16 + (lane / 16) * 8);
+}
+
+// The tiles of both wide kernels: 8 warps, warp w in row group w / 4 (16 of
+// the block's 32 rows) and slice w % 4. Per streamed tile of 32 rows, warp
+// (rg, c) computes the 16x8 tiles of the two scores over the whole head dim
+// for columns [8c, 8c+8) of the tile, turns them into bf16 P and dS in
+// registers and writes them to shared memory; after a barrier it multiplies
+// its row group's 16x32 of them into its slice [128c, 128c+128) of the
+// accumulators (64 fp32 registers each).
+struct WideBwdTile {
+  static constexpr int DP = 512, ROWS = 32, WARPS = 8, THREADS = 32 * WARPS;
+  static constexpr int LD = DP + 8;     // bf16 row pitch of the (32 x 512) tiles
+  static constexpr int LDP = ROWS + 8;  // bf16 row pitch of P and dS: conflict-free
+  static constexpr int SLICE = DP / 4;  // accumulator columns a warp
+  static constexpr int NO = SLICE / 8;  // its n8 tiles
+  static constexpr size_t TILE = align128(size_t(ROWS) * LD * 2);   // 33,280 bytes
+  static constexpr size_t PDS = align128(size_t(ROWS) * LDP * 2);   // P or dS
+  static constexpr size_t STAT = align128(size_t(ROWS) * 4);        // L2 or D
+};
+
+// dQ at d = 512: the block's 32 query rows (q2, made in place once, and dO)
+// stay in shared memory; key tiles of 32 (K, V) stream through 2 stages.
+// Shared memory: q2 + dO + 2 x (K + V) + dS = 202,240 bytes, one block an SM
+struct DqWide : WideBwdTile {
+  static constexpr size_t SMEM = 6 * TILE + PDS;
+  static_assert(SMEM <= kSmemPerBlock, "shared memory per block");
+};
+
+__global__ void __launch_bounds__(WideBwdTile::THREADS, 1) flash_bwd_dq_wide_kernel(const Args a) {
+  using T = DqWide;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // q2 after the prologue
+  bf16* sDO = reinterpret_cast<bf16*>(smem + T::TILE);
+  unsigned char* ring = smem + 2 * T::TILE;  // K0, V0, K1, V1
+  bf16* sDS = reinterpret_cast<bf16*>(smem + 6 * T::TILE);
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::ROWS, n = a.N, d = a.D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rg = warp / 4, c = warp % 4;
+  const bf16* kb = head_of(a.k, a.st.k, bh, a.H);
+  const bf16* vb = head_of(a.v, a.st.v, bh, a.H);
+  const int tiles = (n + T::ROWS - 1) / T::ROWS;
+  auto stage = [&](int j, int which) {  // K (0) or V (1) of key tile j
+    return reinterpret_cast<bf16*>(ring + ((j & 1) * 2 + which) * T::TILE);
+  };
+  auto issue = [&](int j) {
+    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(stage(j, 0), kb, a.st.k[1], j * T::ROWS,
+                                                     n, d);
+    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(stage(j, 1), vb, a.st.v[1], j * T::ROWS,
+                                                     n, d);
+    cp_async_commit();
+  };
+
+  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sQ, head_of(a.q, a.st.q, bh, a.H),
+                                                   a.st.q[1], q0, n, d);
+  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sDO, head_of(a.dout, a.st.o, bh, a.H),
+                                                   a.st.o[1], q0, n, d);
+  issue(0);
+  // L2 and D of this thread's rows g and g+8 of its row group (0 past n)
+  const int row0 = q0 + rg * 16;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    l2[i] = r < n ? a.lse[(long long)bh * n + r] : 0.f;
+    dd[i] = r < n ? a.dd[(long long)bh * n + r] : 0.f;
+  }
+  cp_async_wait_all();
+  prescale_own<T::DP, T::LD, T::ROWS, T::THREADS>(sQ, sQ, a.scale_log2);
+
+  // A rows of this row group (q2, dO); B rows of keys [8c, 8c+8) of a tile
+  const int aoff = (rg * 16 + lane % 16) * T::LD + (lane / 16) * 8;
+  const int boff = (c * 8 + lane % 8) * T::LD + (lane / 8) * 8;
+  float acc[T::NO][4];
+  zero(acc);
+
+  for (int j = 0; j < tiles; ++j) {
+    if (j > 0) cp_async_wait_all();
+    // tile j (and at j = 0 q2) is visible to every thread; every warp is
+    // done with tile j-1's stage, which the next copy overwrites, and with
+    // sDS
+    __syncthreads();
+    if (j + 1 < tiles) issue(j + 1);
+    const bf16* sK = stage(j, 0);
+
+    float s[4], dp[4];
+    abt_tile<T::DP, false>(s, sQ + aoff, sK + boff, 0.f);          // S  = q2 K^T
+    abt_tile<T::DP, false>(dp, sDO + aoff, stage(j, 1) + boff, 0.f);  // dP = dO V^T
+    // rows: queries g, g+8 of the row group; columns: keys 8c + 2t, +1
+    const int kv = n - j * T::ROWS;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(s[e] - l2[e / 2]);
+      if (c * 8 + 2 * t + (e & 1) >= kv) p = 0.f;
+      dp[e] = p * (dp[e] - dd[e / 2]) * a.scale;
+    }
+    bf16* w = sDS + (rg * 16 + g) * T::LDP + c * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(w) = pack_bf16(dp[0], dp[1]);
+    *reinterpret_cast<uint32_t*>(w + 8 * T::LDP) = pack_bf16(dp[2], dp[3]);
+    __syncthreads();  // the block's 32x32 dS is whole
+
+    uint32_t ds[T::ROWS / 16][4];
+    load_a<T::ROWS / 16, T::LDP>(ds, sDS, rg * 16);
+    pv_product<T::ROWS / 16, T::NO, T::LD>(acc, ds, sK, c * T::SLICE, d);  // dQ += dS K
+  }
+  // q2 has not been read since the last tile's second barrier: each warp
+  // stages its 16 x 128 block of dQ in its own rows and columns of it
+  store_acc<T::NO, T::LD>(acc, sQ + rg * 16 * T::LD + c * T::SLICE, a.out0, a, bh, row0,
+                          c * T::SLICE);
+}
+
+// dK and dV at d = 512: the block's 32 key rows (K, V) stay in shared
+// memory; q tiles of 32 (the unscaled Q, dO, L2 and D) stream through 2
+// stages. q2 = bf16(q * d^-1/2 log2 e) is made in registers from Q as the
+// scores' B operand (abt_tile<.., true>), which saves a third (32 x 512)
+// tile a stage: shared memory K + V + 2 x (Q + dO + L2 + D) + P + dS =
+// 205,312 bytes, one block an SM. Each warp holds 16 x 128 of dK and of dV
+// (128 fp32 registers).
+struct DkvWide : WideBwdTile {
+  static constexpr size_t STAGE = 2 * TILE + 2 * STAT;
+  static constexpr size_t SMEM = 2 * TILE + 2 * STAGE + 2 * PDS;
+  static_assert(SMEM <= kSmemPerBlock, "shared memory per block");
+};
+
+__global__ void __launch_bounds__(WideBwdTile::THREADS, 1) flash_bwd_dkv_wide_kernel(const Args a) {
+  using T = DkvWide;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = reinterpret_cast<bf16*>(smem + T::TILE);
+  unsigned char* ring = smem + 2 * T::TILE;  // stage s at ring + s * STAGE
+  bf16* sP = reinterpret_cast<bf16*>(ring + 2 * T::STAGE);
+  bf16* sDS = reinterpret_cast<bf16*>(ring + 2 * T::STAGE + T::PDS);
+  const int bh = blockIdx.y, k0 = blockIdx.x * T::ROWS, n = a.N, d = a.D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rg = warp / 4, c = warp % 4;
+  const bf16* qb = head_of(a.q, a.st.q, bh, a.H);
+  const bf16* ob = head_of(a.dout, a.st.o, bh, a.H);
+  const float* lb = a.lse + (long long)bh * n;
+  const float* db = a.dd + (long long)bh * n;
+  const int tiles = (n + T::ROWS - 1) / T::ROWS;
+
+  // q tile j into stage j & 1: Q at +0, dO at +TILE, L2 and D after them
+  auto issue = [&](int j) {
+    unsigned char* st = ring + (j & 1) * T::STAGE;
+    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(reinterpret_cast<bf16*>(st), qb,
+                                                     a.st.q[1], j * T::ROWS, n, d);
+    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(reinterpret_cast<bf16*>(st + T::TILE), ob,
+                                                     a.st.o[1], j * T::ROWS, n, d);
+    cp_async_stat<T::ROWS, T::THREADS>(reinterpret_cast<float*>(st + 2 * T::TILE), lb,
+                                       j * T::ROWS, n);
+    cp_async_stat<T::ROWS, T::THREADS>(reinterpret_cast<float*>(st + 2 * T::TILE + T::STAT), db,
+                                       j * T::ROWS, n);
+    cp_async_commit();
+  };
+
+  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sK, head_of(a.k, a.st.k, bh, a.H),
+                                                   a.st.k[1], k0, n, d);
+  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sV, head_of(a.v, a.st.v, bh, a.H),
+                                                   a.st.v[1], k0, n, d);
+  issue(0);
+
+  // A rows of this row group (K, V); B rows of queries [8c, 8c+8) of a tile
+  const int aoff = (rg * 16 + lane % 16) * T::LD + (lane / 16) * 8;
+  const int boff = (c * 8 + lane % 8) * T::LD + (lane / 8) * 8;
+  float dk[T::NO][4], dv[T::NO][4];
+  zero(dk);
+  zero(dv);
+
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait_all();
+    // q tile j (and at j = 0 K and V) is visible to every thread; every
+    // warp is done with tile j-1's stage, which the next copy overwrites,
+    // and with sP and sDS
+    __syncthreads();
+    if (j + 1 < tiles) issue(j + 1);
+    unsigned char* st = ring + (j & 1) * T::STAGE;
+    const bf16* sQ = reinterpret_cast<const bf16*>(st);
+    const bf16* sDO = reinterpret_cast<const bf16*>(st + T::TILE);
+    const float* sL = reinterpret_cast<const float*>(st + 2 * T::TILE);
+    const float* sD = reinterpret_cast<const float*>(st + 2 * T::TILE + T::STAT);
+
+    float s[4], dp[4];
+    abt_tile<T::DP, true>(s, sK + aoff, sQ + boff, a.scale_log2);  // S^T  = K q2^T
+    abt_tile<T::DP, false>(dp, sV + aoff, sDO + boff, 0.f);       // dP^T = V dO^T
+    // rows: keys g, g+8 of the row group; columns: queries 8c + 2t, +1,
+    // whose L2 and D sit side by side
+    const int qv = n - j * T::ROWS;
+    const int col = c * 8 + 2 * t;
+    const float2 l2 = *reinterpret_cast<const float2*>(sL + col);
+    const float2 dd = *reinterpret_cast<const float2*>(sD + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(s[e] - ((e & 1) ? l2.y : l2.x));
+      if (col + (e & 1) >= qv) p = 0.f;
+      s[e] = p;
+      dp[e] = p * (dp[e] - ((e & 1) ? dd.y : dd.x)) * a.scale;
+    }
+    const int off = (rg * 16 + g) * T::LDP + col;
+    *reinterpret_cast<uint32_t*>(sP + off) = pack_bf16(s[0], s[1]);
+    *reinterpret_cast<uint32_t*>(sP + off + 8 * T::LDP) = pack_bf16(s[2], s[3]);
+    *reinterpret_cast<uint32_t*>(sDS + off) = pack_bf16(dp[0], dp[1]);
+    *reinterpret_cast<uint32_t*>(sDS + off + 8 * T::LDP) = pack_bf16(dp[2], dp[3]);
+    __syncthreads();  // the block's 32x32 P^T and dS^T are whole
+
+    {
+      uint32_t pf[T::ROWS / 16][4];
+      load_a<T::ROWS / 16, T::LDP>(pf, sP, rg * 16);
+      pv_product<T::ROWS / 16, T::NO, T::LD>(dv, pf, sDO, c * T::SLICE, d);  // dV += P^T dO
+    }
+    uint32_t ds[T::ROWS / 16][4];
+    load_a<T::ROWS / 16, T::LDP>(ds, sDS, rg * 16);
+    pv_product<T::ROWS / 16, T::NO, T::LD>(dk, ds, sQ, c * T::SLICE, d);  // dK += dS^T Q
+  }
+  // K and V have not been read since the last tile's second barrier: each
+  // warp stages its 16 x 128 blocks of dK and dV in its own rows and
+  // columns of them
+  store_acc<T::NO, T::LD>(dk, sK + rg * 16 * T::LD + c * T::SLICE, a.out0, a, bh,
+                          k0 + rg * 16, c * T::SLICE);
+  store_acc<T::NO, T::LD>(dv, sV + rg * 16 * T::LD + c * T::SLICE, a.out1, a, bh,
+                          k0 + rg * 16, c * T::SLICE);
+}
+
+template <typename T>
+cudaError_t launch_wide(void (*kern)(const Args), const Args& a, cudaStream_t stream) {
+  // once per kernel (thread-safe static init): allow > 48 KB dynamic smem
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  if (attr != cudaSuccess) return attr;
+  kern<<<dim3((a.N + T::ROWS - 1) / T::ROWS, a.B * a.H), T::THREADS, T::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
 cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* dd, void* out0, void* out1, int B, int N,
                       int H, int D, const long long* st, float scale_log2, float scale) {
@@ -531,9 +829,9 @@ cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, cons
 // lse, dd: fp32 (B*H, N) contiguous; outputs bf16 (B, N, H, D) contiguous.
 // scale_log2 = d^-1/2 * log2(e) (the q prescale), scale = d^-1/2. Launch on
 // `stream`; return the cudaError_t of the launch. Padded head dims: 48/80/160
-// serve configs/v1.yaml's UNet, 16/32 configs/tiny.yaml (ops/flash_attention.py
-// BWD_HEAD_DIMS lists the same); the VAE's d=512 attention is frozen and has
-// no backward.
+// serve configs/v1.yaml's UNet, 16/32 configs/tiny.yaml, 512 the VAE's mid
+// attention when the first stage is trained (ops/flash_attention.py
+// BWD_HEAD_DIMS lists the same).
 extern "C" int pbe_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* dd,
                                      void* dq, int B, int N, int H, int D,
@@ -550,6 +848,7 @@ extern "C" int pbe_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
     case 48:  return (int)launch_dq<48, 16, 32, true, 1>(a, s);
     case 80:  return (int)launch_dq<80, 8, 32, false, 2>(a, s);
     case 160: return (int)launch_dq<160, 4, 64, false, 1>(a, s);
+    case 512: return (int)launch_wide<DqWide>(flash_bwd_dq_wide_kernel, a, s);
     default:  return (int)cudaErrorInvalidValue;
   }
 }
@@ -570,6 +869,7 @@ extern "C" int pbe_flash_bwd_dkv_bf16(const void* q, const void* k, const void* 
     case 48:  return (int)launch_dkv<48, 8, 32, true, 1, 2>(a, s);
     case 80:  return (int)launch_dkv<80, 8, 64, true, 1, 1>(a, s);
     case 160: return (int)launch_dkv<160, 4, 32, false, 2, 1>(a, s);
+    case 512: return (int)launch_wide<DkvWide>(flash_bwd_dkv_wide_kernel, a, s);
     default:  return (int)cudaErrorInvalidValue;
   }
 }

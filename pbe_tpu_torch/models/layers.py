@@ -7,6 +7,8 @@ other model's layers stay fp under it. ``QuantConv2d``'s fp conv is
 ``ops/conv.conv2d``, which computes every example of a batch alike."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -50,3 +52,27 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def init_like_flax(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded weights of the kinds flax's initializers give, drawn on the
+    module's device in parameter order: lecun-normal (truncated) kernels,
+    zero biases, unit norm scales, normal(0.02) embeddings (a CLIP tower's
+    class and position embeddings) and normal(1.0) for PaintByExample's
+    learnable vector."""
+    gen = torch.Generator(device=next(module.parameters()).device).manual_seed(int(seed))
+    for name, p in module.named_parameters():
+        if name == "learnable_vector":
+            p.normal_(0.0, 1.0, generator=gen)
+        elif name.endswith(("class_embedding", "position_embedding.weight")):
+            p.normal_(0.0, 0.02, generator=gen)
+        elif name.endswith("weight") and p.dim() >= 2:
+            # variance 1/fan_in, truncated at 2 std, the std corrected for it
+            std = (1.0 / math.prod(p.shape[1:])) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
+        elif name.endswith("weight"):
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    return module

@@ -160,11 +160,16 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def features(self, z: torch.Tensor) -> torch.Tensor:
+        """Everything up to conv_out: the input of the last layer, which
+        the adaptive GAN weight differentiates (training/vae_train.py)."""
         h = self.mid(self.conv_in(z))
         for level in reversed(self.up):
             h = level(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return F.silu(self.norm_out(h))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.conv_out(self.features(z))
 
 
 class AutoencoderKL(nn.Module):
@@ -190,6 +195,29 @@ class AutoencoderKL(nn.Module):
         """z NHWC latent -> NHWC image."""
         return to_nhwc(self.decoder(self.post_quant_conv(to_nchw(z).to(self.dtype))))
 
+    def latent_shape(self, image_shape: Sequence[int]) -> tuple[int, int, int, int]:
+        """(N, H, W, C) image -> the (N, h, w, embed_dim) shape of its latent."""
+        n, h, w, _ = image_shape
+        f = 2 ** (len(self.encoder.down) - 1)
+        return n, h // f, w // f, self.post_quant_conv.in_channels
+
+    def forward(self, x: torch.Tensor, noise: torch.Tensor | None = None, sample: bool = True,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+        """x NHWC -> (reconstruction NHWC, (mean, logvar)): decode of
+        z = mean + std * eps where ``sample`` (eps: ``noise`` of the
+        latent's shape, or drawn from ``generator``), of the mean where
+        not. JAX's PRNG and torch's differ, so a caller that wants JAX's
+        draws passes them as ``noise``."""
+        mean, logvar = self.encode(x)
+        if not sample:
+            z = mean
+        elif noise is not None:
+            z = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+        else:
+            z = sample_diagonal_gaussian(generator, mean, logvar)
+        return self.decode(z), (mean, logvar)
+
 
 def sample_diagonal_gaussian(generator: torch.Generator, mean: torch.Tensor,
                              logvar: torch.Tensor) -> torch.Tensor:
@@ -197,6 +225,13 @@ def sample_diagonal_gaussian(generator: torch.Generator, mean: torch.Tensor,
     eps = torch.randn(mean.shape, generator=generator, device=mean.device,
                       dtype=torch.float32).to(mean.dtype)
     return mean + torch.exp(0.5 * logvar) * eps
+
+
+def diagonal_gaussian_kl(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """KL(q || N(0,1)) per example (distributions.py:42-52, other=None),
+    in fp32."""
+    mean, logvar = mean.float(), logvar.float()
+    return 0.5 * (mean.square() + logvar.exp() - 1.0 - logvar).sum(dim=tuple(range(1, mean.dim())))
 
 
 @dataclasses.dataclass

@@ -47,8 +47,9 @@ LOG2E = 1.4426950408889634  # log2(e): exp(x) == exp2(x * LOG2E)
 # padded head dims instantiated in csrc/flash_fwd.cu: 48/80/160/512 serve
 # configs/v1.yaml (d = 40, 80, 160 and the VAE's 512), 16/32 configs/tiny.yaml
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
-# ... and in csrc/flash_bwd.cu: the UNet's; the VAE (d=512) is frozen
-BWD_HEAD_DIMS = (16, 32, 48, 80, 160)
+# ... and in csrc/flash_bwd.cu: the UNet's, and the VAE's 512 for first-stage
+# training (training/vae_train.py)
+BWD_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
 # q tile of csrc/flash_variants.cu's resident kernel by padded head dim
 # (ResidentTile, ResidentWideTile): the cluster is planned over these tiles
 RESIDENT_BLOCK_Q = {**{dp: 64 for dp in (16, 32, 48, 80, 160)}, 512: 32}
@@ -245,6 +246,7 @@ class FlashForward(_Kernel):
 
     def __init__(self, variant: str | None = None):
         self.variant = variant
+        self.lse_launches = 0  # the launches that also wrote the LSE
         # [key block [, cluster size]]
         extra = {None: [], "resident": [_I32] * 2, "pipelined": [_I32]}[variant]
         super().__init__("flash_variants" if variant else "flash_fwd",
@@ -282,6 +284,7 @@ class FlashForward(_Kernel):
                      out.data_ptr(), None if lse is None else lse.data_ptr(),
                      b, n, h, d, strides, d ** -0.5 * LOG2E, *extra,
                      torch.cuda.current_stream(q.device).cuda_stream)
+        self.lse_launches += return_lse
         return (out, lse) if return_lse else out
 
 

@@ -7,12 +7,12 @@ initializes it from a seed as flax does, and overlays a reference-format
 """
 from __future__ import annotations
 
-import math
 import re
 
 import torch
 from torch import nn
 
+from pbe_tpu_torch.models.layers import init_like_flax
 from pbe_tpu_torch.models.pbe import PaintByExample, build_from_yaml
 from pbe_tpu_torch.models.unet import MyResBlock, ResBlock, SpatialTransformer, UNetModel
 from pbe_tpu_torch.pipelines.inference import EditPipeline
@@ -45,27 +45,13 @@ def _zero_init_modules(model: nn.Module) -> list[nn.Module]:
 
 @torch.no_grad()
 def init_parameters(model: PaintByExample, seed: int = 0) -> PaintByExample:
-    """Initialize every parameter in place as flax does: lecun-normal
-    (truncated) kernels, zero biases, unit norm scales, normal(0.02) CLIP
-    embeddings, normal(1.0) learnable vector, zero-init heads. Draws come
-    from a generator on the model's device, so nothing is built on the host."""
-    gen = torch.Generator(device=model.device).manual_seed(int(seed))
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name == "learnable_vector":
-            p.normal_(0.0, 1.0, generator=gen)
-        elif name.endswith(("class_embedding", "position_embedding.weight")):
-            p.normal_(0.0, 0.02, generator=gen)
-        elif leaf == "weight" and p.dim() >= 2:
-            fan_in = math.prod(p.shape[1:])
-            # flax lecun_normal: variance 1/fan_in, truncated at 2 std, with
-            # the std corrected for the truncation
-            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
-        elif leaf == "weight":
-            p.fill_(1.0)
-        else:
-            p.zero_()
+    """Initialize every parameter in place as flax does
+    (``models.layers.init_like_flax``: lecun-normal (truncated) kernels,
+    zero biases, unit norm scales, normal(0.02) CLIP embeddings,
+    normal(1.0) learnable vector), then the zero-init heads. Draws come
+    from a generator on the model's device, so nothing is built on the
+    host."""
+    init_like_flax(model, seed)
     for m in _zero_init_modules(model):
         m.weight.zero_()
     return model

@@ -139,7 +139,7 @@ def ptxas_report(log: str) -> str:
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '_Z\w*?"
                       r"(flash_(?:fwd|fwd_wide|resident|resident_wide|pipelined|pipelined_wide"
-                      r"|bwd_dq|bwd_dkv)_kernel)(I\w+?EE)?", line)
+                      r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide)_kernel)(I\w+?EE)?", line)
         if m and i + 3 < len(lines):
             args = ", ".join(re.findall(r"L[ib](\d+)E", m[2] or "")) or "-"
             report.append(f"  {m[1]}<{args}>: {lines[i + 2].strip()}; "

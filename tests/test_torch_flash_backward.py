@@ -16,9 +16,11 @@ from pbe_tpu.ops import flash_attention as jfa
 from pbe_tpu_torch.ops import flash_attention as tfa
 from pbe_tpu_torch.ops.attention import multi_head_attention
 
-# (B, N, H, D): a padded head dim (40 -> 48), the tiny config's 16, and
-# the v1 UNet's other two head dims (80, 160) at a tiny N
-SHAPES = [(1, 128, 2, 40), (2, 256, 2, 16), (1, 128, 2, 80), (1, 64, 2, 160)]
+# (B, N, H, D): a padded head dim (40 -> 48), the tiny config's 16, the v1
+# UNet's other two head dims (80, 160) and the VAE's single head of 512 at a
+# tiny N
+SHAPES = [(1, 128, 2, 40), (2, 256, 2, 16), (1, 128, 2, 80), (1, 64, 2, 160),
+          (1, 64, 1, 512)]
 
 
 def _inputs(shape, seed=0):

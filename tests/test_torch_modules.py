@@ -303,7 +303,13 @@ def test_port_imports_no_jax_and_nothing_of_pbe_tpu():
             "pbe_tpu_torch/data/quadruple.py", "pbe_tpu_torch/evaltools/inception.py",
             "pbe_tpu_torch/evaltools/fid.py", "pbe_tpu_torch/evaltools/fid_callback.py",
             "pbe_tpu_torch/scripts/train.py",
-            "pbe_tpu_torch/scripts/make_synthetic_openimages.py"} <= names
+            "pbe_tpu_torch/scripts/make_synthetic_openimages.py",
+            "pbe_tpu_torch/evaltools/gmm_score.py", "pbe_tpu_torch/evaltools/clip_score.py",
+            "pbe_tpu_torch/scripts/eval_fid.py", "pbe_tpu_torch/scripts/eval_clip_score.py",
+            "pbe_tpu_torch/scripts/eval_gmm.py",
+            "pbe_tpu_torch/scripts/create_square_gt_for_fid.py",
+            "pbe_tpu_torch/training/perceptual.py", "pbe_tpu_torch/training/vae_train.py",
+            "pbe_tpu_torch/models/vae_asym.py"} <= names
     banned = []
     for f in files:
         for mod in _imported_modules(f):
@@ -311,3 +317,28 @@ def test_port_imports_no_jax_and_nothing_of_pbe_tpu():
             if top in ("jax", "jaxlib", "flax", "optax", "orbax", "scripts") or top == "pbe_tpu":
                 banned.append((f.relative_to(REPO).as_posix(), mod))
     assert banned == []
+
+
+def test_port_imports_sklearn_only_where_fit_gmm_asks_for_it():
+    """Scoring a GMM needs no scikit-learn: no module of the port imports
+    it at module level, and the one import inside a function is fit_gmm's
+    (the JAX module's lazy import)."""
+    files = sorted((REPO / "pbe_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    at_top, inside = [], []
+    for f in files:
+        tree = ast.parse(f.read_text())
+        top_level = {id(n) for n in tree.body}
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                if any(n.split(".")[0] == "sklearn" for n in names):
+                    (at_top if id(node) in top_level else inside).append(
+                        f.relative_to(REPO).as_posix())
+    assert at_top == []
+    assert inside == ["pbe_tpu_torch/evaltools/gmm_score.py"]
+    fit = next(n for n in ast.walk(ast.parse(
+        (REPO / "pbe_tpu_torch/evaltools/gmm_score.py").read_text()))
+        if isinstance(n, ast.FunctionDef) and n.name == "fit_gmm")
+    assert any(isinstance(n, ast.ImportFrom) and n.module.startswith("sklearn")
+               for n in ast.walk(fit))
