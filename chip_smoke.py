@@ -6,9 +6,10 @@
 Phases:
   1. card name and power limit, torch/CUDA versions; build the kernels
      from csrc/flash_fwd.cu (the models' forward kernels), flash_variants.cu
-     (the resident and pipelined kernels) and flash_bwd.cu (the backward
-     kernels, the d = 512 pair among them; one nvcc each, started together)
-     and print each kernel's registers and spills from their -Xptxas -v
+     (the resident and pipelined kernels), flash_bwd.cu (the backward
+     kernels, the d = 512 pair among them) and flash_fp32.cu (the fp32
+     forward, dQ and dK/dV kernels; one nvcc each, started together) and
+     print each kernel's registers and spills from their -Xptxas -v
      reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
      edit gives it (bf16), at ragged N for every padded head dim, and with
@@ -134,9 +135,42 @@ Evaluation and first-stage training (the tenth slice):
  19. 3 training steps of a configs/tiny.yaml-sized first stage on the card
      in bf16 against the same steps on the CPU in fp32, noise injected.
 
-A run takes them in the order 1, 2, 7, 17, 11, 3, 4, 12, 13, 14, 5, 8, 9,
-15, 16, 18, 6, 10, 19, then 12's tiny edits: kernels first, the timed edits
-before the profiler, the card-vs-CPU comparisons last.
+--precision full, tiling and the safety checker (the eleventh slice):
+ 20. the fp32 kernels (csrc/flash_fp32.cu) against their plain versions at
+     fp32: the forward at every edit shape and the VAE's, with and without
+     the LSE, at ragged N for every padded head dim, on peaked scores, on a
+     row max rising at every key tile and on packed q/k/v views; the dQ and
+     dK/dV kernels at the training shapes and (4, 1024, 1, 512), at ragged N
+     and on the same stress inputs, each launched twice and compared
+     bitwise; max|err| <= 2^-14 max|ref| and rel L2 <= 1e-5. Each timed
+     beside its plain version and SDPA at fp32 (its backend named), with its
+     bound at the fp32 FMA rate (rows with "dtype": "float32").
+ 21. --precision full at full width, each run's launches counted from 0:
+     scripts.inference.main on v1 (512^2, PLMS 50, CFG 5; 818 fp32 forward
+     launches and no bf16 one), scripts.train.main --precision full on v1
+     at batch 4, 512^2, 4 steps (the fp32 forward, dQ and dK/dV kernels as
+     often a step as phase 9's bf16 ones, finite losses, step p50, peak
+     memory), and make_vae_train_step on an fp32 first stage for 2 steps.
+ 22. phase 6's tiny edit and phase 10's 3 training steps in fp32 on the
+     card against fp32 on the CPU: the edit within max 2e-3 / mean 2e-4 of
+     [0,1], losses and gradient norms within 1e-4 relative.
+ 23. scripts.inference.main at 1024^2 (bf16, PLMS 50, CFG 5) un-tiled and
+     with --tile_ks 64 --tile_stride 32 (9 crops, UNet calls at batch 18),
+     the launches by shape printed; K1 at (2, 16384, 8, 40) and K2 at (1,
+     16384, 1, 512) against the plain version (a few heads at a time) and
+     timed beside it and SDPA; a tiny tiled edit, card bf16 against CPU
+     fp32 with phase 6's bounds.
+ 24. the safety checker at ViT-L/14 geometry from a seeded diffusers-layout
+     state_dict (torch.save to a .bin) through scripts.inference.main
+     --safety_ckpt --n_samples 2: thresholds from a first pass's
+     embeddings so that exactly sample 0 flags; under --enforce_safety its
+     result is black and the other equal to the first pass's; the card's
+     fp32 cosines and scores within 1e-4 of the CPU's.
+
+A run takes them in the order 1, 2, 7, 17, 20, 11, 3, 4, 12, 13, 14, 5, 8,
+9, 15, 16, 18, 6, 10, 19, 12's tiny edits, then 21, 22, 23, 24: kernels
+first, the timed edits before the profiler, the card-vs-CPU comparisons
+last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -147,6 +181,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -157,6 +192,9 @@ BF16_FLOP_PER_S = 989e12
 # special-function (exp2) throughput of H100 SXM5 as the FlashAttention-3
 # paper gives it: B*H*N^2 exponentials bind before the products at d=40
 EXP2_PER_S = 3.9e12
+# fp32 FMA outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz): the
+# rate of csrc/flash_fp32.cu's kernels
+FP32_FLOP_PER_S = 66.9e12
 
 K1 = "pbe_tpu/ops/flash_attention.py:85"   # _flash_kernel_rowblock
 K2 = "pbe_tpu/ops/flash_attention.py:218"  # _flash_kernel (streamed)
@@ -272,6 +310,18 @@ VARIANT_CHECKS = ((2, 64, 8, 160), (1, 100, 2, 40), (2, 333, 3, 80), (1, 70, 2, 
                   (2, 130, 4, 16), (1, 1000, 2, 80), (1, 4000, 2, 40), (1, 77, 1, 512))
 
 
+# phase 20, the fp32 kernels (csrc/flash_fp32.cu) against their plain
+# versions: both keep every value in fp32 and differ in the order of the
+# sums and in the exp2 (exp2f against torch.exp2), so an element lands a few
+# fp32 ulps of the largest partial sum away: max|err| <= 2^-14 max|ref| (the
+# LSE's too) and rel L2 <= 1e-5
+F32_MAX_REL = 2.0 ** -14
+F32_L2_REL = 1e-5
+# first-stage training's single-head attention (phase 21's fp32 step, as
+# phase 18's): backward launches a step
+F32_VAE_STAGE1 = ("vae_256_b4", (4, 1024, 1, 512), 2)
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -336,7 +386,7 @@ def phase_build():
     from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
 
     t0 = time.perf_counter()
-    names = ("flash_fwd", "flash_variants", "flash_bwd")
+    names = ("flash_fwd", "flash_variants", "flash_bwd", "flash_fp32")
     with ThreadPoolExecutor(len(names)) as pool:
         each = list(pool.map(timed_build, names))
     log(f"[build] {', '.join(n + '.cu' for n in names)} built side by side in "
@@ -355,7 +405,7 @@ def check_flash(fa, q, k, v, label: str) -> tuple[float, float]:
 
 def compare_flash(got, want, label: str) -> tuple[float, float]:
     """(O, LSE) of a kernel against (O, LSE) of the plain version; raises
-    past the tolerances above."""
+    past the tolerances above (bf16) or F32_MAX_REL / F32_L2_REL (fp32)."""
     import torch
 
     (out, lse), (want, want_lse) = got, want
@@ -364,11 +414,16 @@ def compare_flash(got, want, label: str) -> tuple[float, float]:
     scale = want.float().abs().max().item()
     rel_l2 = (diff.norm() / want.float().norm()).item()
     lerr = (lse - want_lse).abs().max().item()
-    ok = err <= OUT_MAX_REL * scale and rel_l2 <= OUT_L2_REL and lerr <= LSE_ATOL
+    if want.dtype == torch.float32:
+        max_rel, l2_rel = F32_MAX_REL, F32_L2_REL
+        lse_tol = F32_MAX_REL * want_lse.abs().max().item()
+    else:
+        max_rel, l2_rel, lse_tol = OUT_MAX_REL, OUT_L2_REL, LSE_ATOL
+    ok = err <= max_rel * scale and rel_l2 <= l2_rel and lerr <= lse_tol
     log(f"[kernel] {label}: out max|err| {err:.3e} (max|O| {scale:.3e}, tol "
-        f"{OUT_MAX_REL * scale:.3e}), rel L2 {rel_l2:.3e} (tol {OUT_L2_REL}), "
+        f"{max_rel * scale:.3e}), rel L2 {rel_l2:.3e} (tol {l2_rel}), "
         f"rms O {want.float().square().mean().sqrt().item():.3e}; lse max|err| "
-        f"{lerr:.3e} (tol {LSE_ATOL}) {'ok' if ok else 'FAIL'}")
+        f"{lerr:.3e} (tol {lse_tol:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash kernel disagrees with its plain version at {label}")
     del out, lse, diff
@@ -376,8 +431,8 @@ def compare_flash(got, want, label: str) -> tuple[float, float]:
     return err, lerr
 
 
-def rising_scores(shape, gen):
-    """q and k (bf16, on the card) whose scores grow with the key's position:
+def rising_scores(shape, gen, dtype=None):
+    """q and k (bf16 or ``dtype``, on the card) whose scores grow with the key's position:
     q[..., 0] = 1 and k[:, j, :, 0] = j * 0.02 / (d^-1/2 log2 e), so a score
     rises by 0.02 a key in the exp2 domain (1.28 a 64-key tile), far above
     the other columns' noise (0.1 randn each): every key tile raises the row
@@ -392,7 +447,7 @@ def rising_scores(shape, gen):
     q[..., 0] = 1.0
     step = 0.02 / (d ** -0.5 * LOG2E)
     k[..., 0] = (torch.arange(n, device="cuda", dtype=torch.float32) * step)[None, :, None]
-    return q.to(torch.bfloat16), k.to(torch.bfloat16)
+    return q.to(dtype or torch.bfloat16), k.to(dtype or torch.bfloat16)
 
 
 def check_stress(fa, rand, gen) -> None:
@@ -436,23 +491,28 @@ def phase_kernels() -> list[dict]:
 def kernel_row(fa, name: str, shape, replaces: str, rand) -> dict:
     """flash_fwd against its plain version on randn inputs at one shape,
     then timed beside the plain version and SDPA: one row of the kernels
-    line (launches filled in by the main path's run)."""
+    line (launches filled in by the main path's run). ``rand`` gives bf16
+    or fp32 inputs; an fp32 row is the fp32 kernel's (csrc/flash_fp32.cu),
+    its products bound by the fp32 FMA rate."""
     import torch
     import torch.nn.functional as F
 
     b, n, h, d = shape
     q, k, v = rand(shape), rand(shape), rand(shape)
+    f32 = q.dtype == torch.float32
     err, lerr = check_flash(fa, q, k, v, f"{name} {shape}")
-    # the least time for this work: products at the bf16 tensor-core rate,
-    # exponentials at the special-function rate (both operations), or q,
-    # k, v read once and o written once at the HBM rate
-    t_mma = 4.0 * b * h * n * n * d / BF16_FLOP_PER_S * 1e3
+    # the least time for this work: products at the bf16 tensor-core rate
+    # (fp32: the FMA rate), exponentials at the special-function rate (both
+    # operations), or q, k, v read once and o written once at the HBM rate
+    t_mma = 4.0 * b * h * n * n * d / (FP32_FLOP_PER_S if f32 else BF16_FLOP_PER_S) * 1e3
     t_exp2 = 1.0 * b * h * n * n / EXP2_PER_S * 1e3
-    t_bytes = 4.0 * b * n * h * d * 2 / HBM_BYTES_PER_S * 1e3
-    binding = max(("mma", t_mma), ("exp2", t_exp2), ("bytes", t_bytes), key=lambda x: x[1])
+    t_bytes = 4.0 * b * n * h * d * q.element_size() / HBM_BYTES_PER_S * 1e3
+    binding = max(("fma" if f32 else "mma", t_mma), ("exp2", t_exp2), ("bytes", t_bytes),
+                  key=lambda x: x[1])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     row = {"name": f"flash_fwd/{name}", "route": "cuda",
-           "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": replaces,
+           "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu",
+           "replaces": replaces, "dtype": str(q.dtype).removeprefix("torch."),
            "launches": None, "max_abs_err": err, "lse_max_abs_err": lerr,
            "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
            "plain_ms": graph_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
@@ -460,10 +520,12 @@ def kernel_row(fa, name: str, shape, replaces: str, rand) -> dict:
            "bound_by": "bytes" if binding[0] == "bytes" else "operations",
            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20),
            "eager_ms": cuda_ms(lambda: fa.flash_fwd(q, k, v), 20)}
+    if f32:  # at fp32 SDPA's flash backend does not run: name the one that does
+        row["library"] = f"sdpa ({sdpa_backend(qt, kt, vt)})"
     log(f"[kernel] {name}: kernel {row['ms']:.4f} ms ({row['eager_ms']:.4f} launched "
-        f"eagerly), plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-        f"bound {row['bound_ms']:.4f} ms by {binding[0]} (mma {t_mma:.4f}, exp2 "
-        f"{t_exp2:.4f}, bytes {t_bytes:.4f})")
+        f"eagerly), plain {row['plain_ms']:.4f} ms, {row.get('library', 'sdpa')} "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {binding[0]} "
+        f"({'fma' if f32 else 'mma'} {t_mma:.4f}, exp2 {t_exp2:.4f}, bytes {t_bytes:.4f})")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -488,25 +550,31 @@ def check_bwd(fa, q, k, v, do, label: str) -> dict:
         raise AssertionError(f"flash backward kernels are not bitwise repeatable at {label}")
     torch.cuda.synchronize()
     res, ok = {}, True
+    max_rel, l2_rel = ((F32_MAX_REL, F32_L2_REL) if q.dtype == torch.float32
+                       else (GRAD_MAX_REL, GRAD_L2_REL))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         diff = g.float() - w.float()
         err, scale = diff.abs().max().item(), w.float().abs().max().item()
         rel_l2 = (diff.norm() / w.float().norm()).item()
         res[name] = (err, scale, rel_l2)
-        ok = ok and err <= GRAD_MAX_REL * scale and rel_l2 <= GRAD_L2_REL
+        ok = ok and err <= max_rel * scale and rel_l2 <= l2_rel
     log(f"[bwd] {label} (repeat bitwise equal): " + "; ".join(
-        f"{n} max|err| {e:.3e} (max|g| {m:.3e}, tol {GRAD_MAX_REL * m:.3e}) rel L2 {r:.3e}"
-        for n, (e, m, r) in res.items()) + f" (tol {GRAD_L2_REL}) {'ok' if ok else 'FAIL'}")
+        f"{n} max|err| {e:.3e} (max|g| {m:.3e}, tol {max_rel * m:.3e}) rel L2 {r:.3e}"
+        for n, (e, m, r) in res.items()) + f" (tol {l2_rel}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash backward kernels disagree with their plain versions "
                              f"at {label}")
     return res
 
 
-def bound(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float):
-    """(least ms, binding term) for B*H*N^2*D*flop_per_n2d tensor-core FLOP,
-    B*H*N^2 exponentials and nbytes of device memory traffic."""
-    terms = (("mma", flop_per_n2d * b * h * n * n * d / BF16_FLOP_PER_S * 1e3),
+def bound(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float,
+          f32: bool = False):
+    """(binding term, least ms) for B*H*N^2*D*flop_per_n2d tensor-core FLOP
+    (fp32 FMA with ``f32``), B*H*N^2 exponentials and nbytes of device
+    memory traffic."""
+    terms = (("fma" if f32 else "mma",
+              flop_per_n2d * b * h * n * n * d / (FP32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+              * 1e3),
              ("exp2", 1.0 * b * h * n * n / EXP2_PER_S * 1e3),
              ("bytes", nbytes / HBM_BYTES_PER_S * 1e3))
     return max(terms, key=lambda x: x[1])
@@ -537,6 +605,7 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
 
     b, n, h, d = shape
     q, k, v, do = (rand(shape) for _ in range(4))
+    f32 = q.dtype == torch.float32
     errs = check_bwd(fa, q, k, v, do, f"{name} {shape}")
     ferr, flerr = check_flash(fa, q, k, v, f"{name} fwd+lse {shape}")
     out, lse = fa.flash_fwd(q, k, v, return_lse=True)
@@ -553,9 +622,11 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
     sdpa_bwd_ms = graph_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
                                                        retain_graph=True),
                            20, stream=sdpa_stream)
-    bnhd, bhn = b * n * h * d * 2, b * h * n * 4
-    common = {"route": "cuda", "source": "pbe_tpu_torch/csrc/flash_bwd.cu",
-              "library": f"sdpa backward ({backend})"}
+    bnhd, bhn = b * n * h * d * q.element_size(), b * h * n * 4
+    dtype = {"dtype": str(q.dtype).removeprefix("torch.")}
+    common = {"route": "cuda",
+              "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_bwd'}.cu",
+              "library": f"sdpa backward ({backend})", **dtype}
     rows = []
     for kname, replaces, flop, nbytes, launch, plain in (
             ("flash_bwd_dq", K5, 6.0, 5 * bnhd + 2 * bhn,
@@ -564,7 +635,7 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
             ("flash_bwd_dkv", K6, 8.0, 6 * bnhd + 2 * bhn,
              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd),
              lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd))):
-        by, ms_bound = bound(flop, b, n, h, d, nbytes)
+        by, ms_bound = bound(flop, b, n, h, d, nbytes, f32)
         outs = ("dq",) if kname == "flash_bwd_dq" else ("dk", "dv")
         rows.append({"name": f"{kname}/{name}", **common, "replaces": replaces,
                      "launches": None, "expected_launches_per_step": per_step,
@@ -577,9 +648,10 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
                      # SDPA's whole backward (dQ, dK and dV), the yardstick
                      # of the two kernels' sum
                      "library_ms": sdpa_bwd_ms, "eager_ms": cuda_ms(launch, 20)})
-    by, ms_bound = bound(4.0, b, n, h, d, 4 * bnhd + bhn)
+    by, ms_bound = bound(4.0, b, n, h, d, 4 * bnhd + bhn, f32)
     rows.append({"name": f"flash_fwd_lse/{name}_train", "route": "cuda",
-                 "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": fwd_replaces,
+                 "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu",
+                 "replaces": fwd_replaces, **dtype,
                  "launches": None, "expected_launches_per_step": fwd_per_step,
                  "max_abs_err": ferr, "lse_max_abs_err": flerr,
                  "ms": graph_ms(lambda: fa.flash_fwd(q, k, v, return_lse=True), 20),
@@ -705,6 +777,70 @@ def phase_vae_kernels() -> list[dict]:
     r = rows[-1]
     log(f"[bwd] {name} fwd {shape}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
         f"{r['library_ms']:.4f} {r['library']}, bound {r['bound_ms']:.4f} by {by})")
+    return rows
+
+
+def phase_fp32_kernels() -> list[dict]:
+    """Phase 20: the fp32 kernels (csrc/flash_fp32.cu) against their plain
+    versions at fp32: the forward at every edit shape and the VAE's, with
+    the LSE and without it (the same bits of O), at ragged N for every
+    padded head dim, on peaked scores, on a row max rising at every key tile
+    and on packed q/k/v views; the backward at the training shapes and
+    first-stage training's (4, 1024, 1, 512), at ragged N and on the same
+    stress inputs, each launched twice and compared bitwise; then each timed
+    (CUDA graphs) beside its plain version and SDPA at fp32 with its bound
+    at the fp32 FMA rate. Returns the rows of the kernels line (dtype
+    "float32"), their launches filled in by phase 21."""
+    import torch
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    for shape in RAGGED_CHECKS + tuple(s for _, s, _, _ in FLASH_SHAPES):
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        check_flash(fa, q, k, v, f"fp32 check {shape}")
+        if not torch.equal(fa.flash_fwd(q, k, v), fa.flash_fwd(q, k, v, return_lse=True)[0]):
+            raise AssertionError(f"fp32 forward: O without the LSE differs from O with it "
+                                 f"at {shape}")
+    for shape in STRESS_SHAPES:
+        b, n, h, d = shape
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        check_flash(fa, q * 8, k * 8, v, f"fp32 peaked (q, k x8) {shape}")
+        qr, kr = rising_scores(shape, gen, torch.float32)
+        check_flash(fa, qr, kr, v, f"fp32 rising max {shape}")
+        q, k, v = rand((b, n, 3, h, d)).unbind(2)
+        check_flash(fa, q, k, v, f"fp32 packed qkv views {shape} strides {q.stride()}")
+        del q, k, v, qr, kr
+        torch.cuda.empty_cache()
+    for shape in BWD_CHECKS + VAE_BWD_CHECKS:
+        check_bwd(fa, rand(shape), rand(shape), rand(shape), rand(shape), f"fp32 check {shape}")
+    for _, shape, _ in TRAIN_SHAPES + (F32_VAE_STAGE1,):
+        b, n, h, d = shape
+        q, k, v, do = (rand(shape) for _ in range(4))
+        check_bwd(fa, q * 8, k * 8, v, do, f"fp32 peaked (q, k x8) {shape}")
+        qr, kr = rising_scores(shape, gen, torch.float32)
+        check_bwd(fa, qr, kr, v, do, f"fp32 rising max {shape}")
+        q, k, v = rand((b, n, 3, h, d)).unbind(2)
+        check_bwd(fa, q, k, v, do, f"fp32 packed qkv views {shape} strides {q.stride()}")
+        del q, k, v, do, qr, kr
+        torch.cuda.empty_cache()
+    log(f"[fp32] every check passed in {time.perf_counter() - t0:.1f} s")
+
+    rows = []
+    for name, shape, replaces, per_edit in FLASH_SHAPES:
+        rows.append({**kernel_row(fa, f"f32_{name}", shape, replaces, rand),
+                     "expected_launches": per_edit})
+    # the frozen VAE's mid attention in the fp32 training step (no LSE)
+    rows.append({**kernel_row(fa, "f32_vae_mid_train", VAE_TRAIN_SHAPE, K2, rand),
+                 "expected_launches_per_step": 2})
+    for name, shape, per_step in TRAIN_SHAPES:
+        rows += bwd_rows(fa, f"f32_{name}", shape, per_step, 2 * per_step, K1, rand)
+    name, shape, per_step = F32_VAE_STAGE1
+    rows += bwd_rows(fa, f"f32_{name}", shape, per_step, VAE_STEP_FWD_LSE, K2, rand)
+    rows.append({**kernel_row(fa, f"f32_{name}_train", shape, K2, rand),
+                 "expected_launches_per_step": VAE_STEP_FWD - VAE_STEP_FWD_LSE})
     return rows
 
 
@@ -2418,6 +2554,500 @@ def phase_vae_train_reference() -> None:
         raise AssertionError("card VAE training disagrees with the CPU fp32 reference")
 
 
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_resident",
+           "flash_fwd_pipelined")
+
+
+def counted_all(fa, fn):
+    """fn() with every kernel's counts set to 0 just before and read just
+    after -> (fn's result, {wrapper name: (launches by dtype, launches by
+    shape)}, forward launches with the LSE)."""
+    for name in KERNELS:
+        getattr(fa, name).reset()
+    out = fn()
+    counts = {name: (dict(getattr(fa, name).launches_by_dtype),
+                     dict(getattr(fa, name).launches_by_shape)) for name in KERNELS}
+    return out, counts, fa.flash_fwd.lse_launches
+
+
+def write_edit_inputs(root: str, size: int, seed: int, box: tuple) -> tuple[str, str, str]:
+    """A smooth size^2 source PNG, a mask PNG whose white box (y0, y1, x0,
+    x1) is the region to edit, and a 224^2 exemplar PNG under root."""
+    from PIL import Image
+
+    g = np.random.default_rng(seed)
+    paths = tuple(os.path.join(root, f) for f in ("src.png", "mask.png", "ref.png"))
+    Image.fromarray(smooth_image(g, size)).save(paths[0])
+    m = np.zeros((size, size), np.uint8)
+    m[box[0]:box[1], box[2]:box[3]] = 255
+    Image.fromarray(m).save(paths[1])
+    Image.fromarray(smooth_image(g, 224)).save(paths[2])
+    return paths
+
+
+def phase_precision_full(ckpt: str, card: str, rows: list[dict]) -> dict:
+    """Phase 21: --precision full through the CLIs on the card at full
+    width, with every kernel's counts set to 0 just before each run and
+    read just after: (a) scripts.inference.main on configs/v1.yaml, a 512^2
+    50-step PLMS edit at CFG 5 (818 fp32 forward launches, no bf16 one);
+    (b) scripts.train.main --precision full on v1, batch 4, 512^2, 4 steps
+    over a synthetic OpenImages tree: each step launches the fp32 forward,
+    dQ and dK/dV kernels as often as phase 9's bf16 step launches the bf16
+    ones, and no bf16 kernel; finite losses, step p50 and peak memory; (c)
+    make_vae_train_step on v1's first stage in fp32, 2 steps at 256^2, batch
+    4. Fills the launches of phase 20's rows."""
+    import torch
+    from PIL import Image
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import inference
+    from pbe_tpu_torch.scripts import train as train_cli
+    from pbe_tpu_torch.scripts.make_synthetic_openimages import make_tree
+    from pbe_tpu_torch.training import trainer as trainer_mod
+
+    def only_fp32(counts, label):
+        bf16 = {k: v[0]["bfloat16"] for k, v in counts.items() if v[0].get("bfloat16")}
+        if bf16:
+            raise AssertionError(f"{label}: bf16 kernels launched under --precision full: {bf16}")
+
+    row_of = {r["name"]: r for r in rows}
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the edit CLI
+        src, mask, ref = write_edit_inputs(tmp, 512, 31, (128, 384, 96, 352))
+        out = os.path.join(tmp, "edit")
+        times, counts, _ = counted_all(fa, lambda: inference.main([
+            "--config", "configs/v1.yaml", "--ckpt", ckpt, "--image_path", src, "--mask_path",
+            mask, "--reference_path", ref, "--plms", "--scale", "5", "--n_iter", "1",
+            "--seed", "321", "--precision", "full", "--outdir", out]))
+        fwd_dtype, fwd_shape = counts["flash_fwd"]
+        result = np.asarray(Image.open(os.path.join(out, "results", "src_321.png")))
+        log(f"[fp32] (a) inference CLI --precision full, v1 512^2 PLMS 50 scale 5: edit "
+            f"{times[0]:.3f} s ({card}); forward launches {fwd_dtype} (expected float32 "
+            f"{LAUNCHES_PER_EDIT}), by shape {fwd_shape}; result {result.shape} mean "
+            f"{result.mean():.2f}")
+        only_fp32(counts, "the fp32 edit")
+        if fwd_dtype != {"float32": LAUNCHES_PER_EDIT} or result.shape != (512, 512, 3):
+            raise AssertionError(f"the fp32 edit launched {fwd_dtype} or wrote {result.shape}")
+        for name, shape, _, per_edit in FLASH_SHAPES:
+            row = row_of[f"flash_fwd/f32_{name}"]
+            row["launches"] = fwd_shape.get(shape, 0)
+            if row.pop("expected_launches") != row["launches"]:
+                raise AssertionError(f"{row['name']}: {row['launches']} launches, expected "
+                                     f"{per_edit}")
+        summary["edit_s"] = times[0]
+
+        # (b) the training CLI
+        make_tree(f"{tmp}/oi", n_train=8, n_val=4, size=512, seed=0)
+        split = lambda state: {"target": "ldm.data.open-images.OpenImageDataset",
+                               "params": {"state": state, "dataset_dir": f"{tmp}/oi",
+                                          "arbitrary_mask_percent": 0.5, "image_size": 512}}
+        with open(f"{tmp}/data.yaml", "w") as f:
+            json.dump({"data": {"target": "main.DataModuleFromConfig",
+                                "params": {"batch_size": 4, "num_workers": 4,
+                                           "train": split("train"),
+                                           "validation": split("validation")}}}, f)
+        Trainer = trainer_mod.Trainer
+        saved_step = Trainer.train_step
+        rec = {"starts": [], "per_step": []}
+
+        def train_step(self, batch):
+            if not rec["starts"]:
+                torch.cuda.reset_peak_memory_stats()
+            rec["starts"].append(torch.cuda.Event(enable_timing=True))
+            rec["starts"][-1].record()
+            out, c, _ = counted_all(fa, lambda: saved_step(self, batch))
+            rec["per_step"].append(c)
+            return out
+
+        Trainer.train_step = train_step
+        steps = 4
+        try:
+            t0 = time.perf_counter()
+            trainer = train_cli.main(["--base", "configs/v1.yaml", f"{tmp}/data.yaml",
+                                      "--precision", "full", "--max_steps", str(steps),
+                                      "--log_every", "1", "--val_every", "1000",
+                                      "--logdir", f"{tmp}/run"])
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            Trainer.train_step = saved_step
+        peak = torch.cuda.max_memory_allocated()
+        marks = rec["starts"] + [end]
+        step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(len(rec["starts"]))]
+        with open(trainer.logger.path) as f:
+            losses = [json.loads(line)["train/loss"] for line in f if "train/loss" in line]
+        p50 = float(np.median(step_ms[1:]))
+        per_step = [{k: v[0] for k, v in c.items() if v[0]} for c in rec["per_step"]]
+        log(f"[fp32] (b) train CLI --precision full, v1 batch 4 512^2, {steps} steps in "
+            f"{run_s:.1f} s: step ms {['%.1f' % t for t in step_ms]}, p50 of steps 2-{steps} "
+            f"{p50:.3f} ms; peak memory {peak / 2**30:.3f} GiB ({card}); losses {losses}; "
+            f"launches a step {per_step}")
+        want = {"flash_fwd": {"float32": FWD_PER_STEP}, "flash_bwd_dq": {"float32": BWD_PER_STEP},
+                "flash_bwd_dkv": {"float32": BWD_PER_STEP}}
+        if len(per_step) != steps or any(c != want for c in per_step):
+            raise AssertionError(f"the fp32 training steps launched {per_step}, expected "
+                                 f"{want} a step")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"fp32 training losses {losses}")
+        by_shape = {k: v[1] for k, v in rec["per_step"][-1].items()}
+        shape_of = {**{n: sh for n, sh, _ in TRAIN_SHAPES}, "vae_mid": VAE_TRAIN_SHAPE}
+        for row in rows:
+            kname, sname = row["name"].split("/")
+            base = sname.removeprefix("f32_").removesuffix("_train")
+            if "expected_launches_per_step" not in row or base not in shape_of:
+                continue
+            n = by_shape["flash_fwd" if kname.startswith("flash_fwd") else kname].get(
+                shape_of[base], 0)
+            if n != row.pop("expected_launches_per_step"):
+                raise AssertionError(f"{row['name']}: {n} launches in the last fp32 step")
+            row["launches"] = n  # per training step
+        summary["train"] = {"step_ms": step_ms, "p50_ms": p50, "peak_gib": peak / 2**30,
+                            "losses": losses}
+        del trainer
+        torch.cuda.empty_cache()
+
+    # (c) first-stage training in fp32
+    vae, size = build_first_stage("configs/v1.yaml", torch.float32, "cuda")
+    state, step = vae_trainer(vae, "cuda", torch.float32, 64, 3)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    vae_steps, metrics, lse = 2, [], 0
+    per_step = []
+    for _ in range(vae_steps):
+        x = torch.rand((4, size, size, 3), generator=g, device="cuda") * 2 - 1
+        m, c, n_lse = counted_all(fa, lambda: step(state, x, generator=g))
+        metrics.append({k: v.item() for k, v in m.items()})
+        per_step.append({k: v[0] for k, v in c.items() if v[0]})
+        lse = n_lse
+    log(f"[fp32] (c) make_vae_train_step on v1's first stage in fp32, {size}^2 batch 4, "
+        f"{vae_steps} steps: {metrics}; launches a step {per_step} ({lse} with the LSE)")
+    want = {"flash_fwd": {"float32": VAE_STEP_FWD}, "flash_bwd_dq": {"float32": VAE_STEP_BWD},
+            "flash_bwd_dkv": {"float32": VAE_STEP_BWD}}
+    if any(c != want for c in per_step) or lse != VAE_STEP_FWD_LSE:
+        raise AssertionError(f"the fp32 first-stage steps launched {per_step} ({lse} with the "
+                             f"LSE), expected {want} ({VAE_STEP_FWD_LSE})")
+    if not all(np.isfinite([m[k] for k in ("g_loss", "rec", "kl", "d_loss")]).all()
+               for m in metrics):
+        raise AssertionError(f"an fp32 first-stage metric is not finite: {metrics}")
+    name = F32_VAE_STAGE1[0]
+    for kname, n in (("flash_bwd_dq", VAE_STEP_BWD), ("flash_bwd_dkv", VAE_STEP_BWD),
+                     ("flash_fwd_lse", lse), ("flash_fwd", VAE_STEP_FWD - lse)):
+        row = row_of[f"{kname}/f32_{name}" + ("_train" if "fwd" in kname else "")]
+        if row.pop("expected_launches_per_step") != n:
+            raise AssertionError(f"{row['name']}: {n} launches a step")
+        row["launches"] = n
+    summary["vae_train"] = metrics
+    del vae, state, step
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_fp32_reference() -> None:
+    """Phase 22: phase 6's tiny 4-step edit and phase 10's 3 training steps
+    in fp32 on the card (the fp32 kernels) against fp32 on the CPU: max
+    |diff| <= 2e-3 and mean <= 2e-4 of the [0,1] edit, losses and gradient
+    norms within 1e-4 relative."""
+    import torch
+
+    from pbe_tpu_torch.models.pbe import build_from_yaml
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.pipelines.loading import (init_parameters, load_pipeline,
+                                                 randomize_zero_params)
+    from pbe_tpu_torch.training.partition import split_parameters
+    from pbe_tpu_torch.training.train_step import make_optimizer, train_step
+
+    gpu, _ = load_pipeline("configs/tiny.yaml", device="cuda", dtype=torch.float32,
+                           verbose=False)
+    randomize_zero_params(gpu.model, seed=0)
+    cpu, _ = load_pipeline("configs/tiny.yaml", device="cpu", dtype=torch.float32,
+                           attn_impl="plain", verbose=False)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    image, mask, ref = edit_inputs(64, gpu.ref_size, seed=5)
+    n = 64 // gpu.model.latent_downsample
+    x_T = np.random.default_rng(6).standard_normal((1, n, n, 4)).astype(np.float32)
+    kw = dict(steps=4, scale=5.0, x_T=x_T, det_first_stage=True)
+    got, counts, _ = counted_all(fa, lambda: gpu.edit_batch(image, mask, ref, **kw))
+    want = cpu.edit_batch(image, mask, ref, **kw)
+    diff = np.abs(got - want)
+    # fp32 on both sides: the sums run in other orders (the kernels'
+    # against the plain einsum attention, cuBLAS and cuDNN against the
+    # CPU's), a few fp32 ulps per op through 5 UNet calls and the decode
+    log(f"[fp32-reference] tiny 64^2 4-step edit, card fp32 ({counts['flash_fwd'][0]}) vs "
+        f"CPU fp32: max|diff| {diff.max():.3e} (tol 2e-3), mean {diff.mean():.3e} (tol 2e-4)")
+    if counts["flash_fwd"][0].get("float32", 0) == 0 or "bfloat16" in counts["flash_fwd"][0]:
+        raise AssertionError(f"the fp32 card edit launched {counts['flash_fwd'][0]}")
+    if not (np.isfinite(got).all() and diff.max() <= 2e-3 and diff.mean() <= 2e-4):
+        raise AssertionError("the fp32 card edit disagrees with the CPU fp32 reference")
+    del gpu, cpu
+
+    card, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.float32, attn_impl="flash",
+                              device="cuda")
+    init_parameters(card, seed=0)
+    randomize_zero_params(card, seed=0)
+    host, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.float32, attn_impl="flash",
+                              device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batches = train_batches(3, 64, 224, 2, seed=13)
+    g = np.random.default_rng(14)
+    n = 64 // card.latent_downsample
+    draws = [(g.integers(0, 1000, (2,)), g.standard_normal((2, n, n, 4)).astype(np.float32))
+             for _ in batches]
+    losses = {}
+    for name, model, dev in (("card", card, "cuda"), ("cpu", host, "cpu")):
+        params, _ = split_parameters(model)
+        opt, sched = make_optimizer(params, base_lr=1e-4, scheduler=lambda n: 1.0)
+        out = []
+        for batch, (t, noise) in zip(batches, draws):
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            m = train_step(model, params, opt, sched, tb, torch.from_numpy(t).to(dev),
+                           torch.from_numpy(noise).to(dev), torch.tensor(0.5, device=dev))
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        losses[name] = out
+    rel = [(abs(a[0] - b[0]) / b[0], abs(a[1] - b[1]) / b[1])
+           for a, b in zip(losses["card"], losses["cpu"])]
+    log(f"[fp32-reference] tiny 3 train steps, card fp32 vs CPU fp32: (loss, grad_norm) card "
+        f"{losses['card']} cpu {losses['cpu']}; rel diff {rel} (tol 1e-4 each)")
+    if not all(np.isfinite(x).all() and max(r) <= 1e-4 for x, r in zip(losses["card"], rel)):
+        raise AssertionError("fp32 card training disagrees with the CPU fp32 reference")
+
+
+# phase 23: the un-tiled 1024^2 edit's shapes at N = 16384 (launches in one
+# PLMS 50 CFG edit: 5 self-attentions a UNet call at the 128^2 latent, 51
+# calls; the VAE's mid attention at 128^2 in the encode and the decode)
+LONG_SHAPES = (("unet_1024_ds1", (2, 16384, 8, 40), K1, 5 * 51),
+               ("vae_1024_mid", (1, 16384, 1, 512), K2, 2))
+TILE_KS, TILE_STRIDE = 64, 32  # 1024^2: a 128^2 latent, 3 x 3 crops of 64^2
+
+
+def plain_by_head(fa, q, k, v, heads: int = 2):
+    """flash_attention_plain over a few heads at a time: the same function,
+    without the (B, H, N, N) fp32 scores of all heads at once (17 GB at
+    (2, 16384, 8, 40))."""
+    import torch
+
+    return torch.cat([torch.cat([fa.flash_attention_plain(q[b:b + 1, :, h:h + heads],
+                                                          k[b:b + 1, :, h:h + heads],
+                                                          v[b:b + 1, :, h:h + heads])
+                                 for h in range(0, q.shape[2], heads)], dim=2)
+                      for b in range(q.shape[0])], dim=0)
+
+
+def long_row(fa, name: str, shape, replaces: str, launches: int) -> dict:
+    """The bf16 forward kernel at an N = 16384 shape against its plain
+    version (taken a few heads at a time), timed beside it and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, n, h, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out = fa.flash_fwd(q, k, v)
+    want = plain_by_head(fa, q, k, v)
+    diff = out.float() - want.float()
+    err, scale = diff.abs().max().item(), want.float().abs().max().item()
+    rel_l2 = (diff.norm() / want.float().norm()).item()
+    ok = err <= OUT_MAX_REL * scale and rel_l2 <= OUT_L2_REL
+    log(f"[long] {name} {shape}: out max|err| {err:.3e} (tol {OUT_MAX_REL * scale:.3e}), rel "
+        f"L2 {rel_l2:.3e} (tol {OUT_L2_REL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash kernel disagrees with its plain version at {shape}")
+    del out, want, diff
+    by, ms_bound = bound(4.0, b, n, h, d, 4 * b * n * h * d * 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row = {"name": f"flash_fwd/{name}", "route": "cuda",
+           "source": "pbe_tpu_torch/csrc/flash_fwd.cu", "replaces": replaces,
+           "dtype": "bfloat16", "launches": launches, "max_abs_err": err,
+           "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 5),
+           "plain_ms": cuda_ms(lambda: plain_by_head(fa, q, k, v), 2, warmup=1),
+           "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
+           "library": f"sdpa ({sdpa_backend(qt, kt, vt)})",
+           "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)}
+    log(f"[long] {name}: kernel {row['ms']:.4f} ms, plain (by heads) {row['plain_ms']:.4f} ms, "
+        f"{row['library']} {row['library_ms']:.4f} ms, bound {ms_bound:.4f} ms by {by} (mma "
+        f"{4.0 * b * h * n * n * d / BF16_FLOP_PER_S * 1e3:.4f}, exp2 "
+        f"{b * h * n * n / EXP2_PER_S * 1e3:.4f})")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_tiling(ckpt: str, card: str, rows: list[dict]) -> dict:
+    """Phase 23: scripts.inference.main at --H 1024 --W 1024 (bf16, PLMS 50,
+    CFG 5) un-tiled, then with --tile_ks 64 --tile_stride 32 (9 crops: UNet
+    calls at batch 18 on 64^2 latents), each run's launches counted from 0;
+    K1 at (2, 16384, 8, 40) and K2 at (1, 16384, 1, 512) against the plain
+    version and timed; a tiny tiled edit in bf16 on the card against fp32
+    on the CPU with phase 6's bounds."""
+    import torch
+    from PIL import Image
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.ops.tiling import TilingSpec
+    from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
+    from pbe_tpu_torch.scripts import inference
+
+    summary, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, mask, ref = write_edit_inputs(tmp, 1024, 33, (256, 768, 192, 704))
+        common = ["--config", "configs/v1.yaml", "--ckpt", ckpt, "--image_path", src,
+                  "--mask_path", mask, "--reference_path", ref, "--H", "1024", "--W", "1024",
+                  "--plms", "--scale", "5", "--n_iter", "1", "--seed", "321"]
+        for label, extra in (("untiled", []), ("tiled", ["--tile_ks", str(TILE_KS),
+                                                         "--tile_stride", str(TILE_STRIDE)])):
+            out = os.path.join(tmp, label)
+            times, counts, _ = counted_all(fa, lambda: inference.main(
+                common + extra + ["--outdir", out]))
+            result = np.asarray(Image.open(os.path.join(out, "results", "src_321.png")))
+            by_dtype, by_shape = counts["flash_fwd"]
+            log(f"[tiling] 1024^2 CLI edit {label} (bf16, PLMS 50, CFG 5): {times[0]:.3f} s "
+                f"({card}); forward launches {by_dtype}, by shape {by_shape}; result "
+                f"{result.shape}")
+            if result.shape != (1024, 1024, 3) or sum(by_dtype.values()) != LAUNCHES_PER_EDIT:
+                raise AssertionError(f"the {label} 1024^2 edit wrote {result.shape} with "
+                                     f"{by_dtype} launches")
+            if any(v[0] for k, v in counts.items() if k != "flash_fwd"):
+                raise AssertionError(f"the {label} edit launched {counts}")
+            runs[label] = by_shape
+            summary[f"{label}_edit_s"] = times[0]
+        crops = ((1024 // 8 - TILE_KS) // TILE_STRIDE + 1) ** 2
+        tiled_ds1 = (2 * crops, 4096, 8, 40)
+        if runs["tiled"].get(tiled_ds1) != 5 * 51:
+            raise AssertionError(f"the tiled edit ran the UNet's ds1 attention "
+                                 f"{runs['tiled'].get(tiled_ds1)} times at {tiled_ds1}")
+    for name, shape, replaces, per_edit in LONG_SHAPES:
+        if runs["untiled"].get(shape) != per_edit:
+            raise AssertionError(f"{name}: {runs['untiled'].get(shape)} launches in the "
+                                 f"un-tiled 1024^2 edit, expected {per_edit}")
+        rows.append(long_row(fa, name, shape, replaces, per_edit))
+
+    # the tiny tiled edit: bf16 on the card against fp32 on the CPU
+    spec = TilingSpec(ks=(8, 8), stride=(4, 4))
+    gpu, _ = load_pipeline("configs/tiny.yaml", device="cuda", verbose=False, tiling=spec)
+    randomize_zero_params(gpu.model, seed=0)
+    cpu, _ = load_pipeline("configs/tiny.yaml", device="cpu", dtype=torch.float32,
+                           attn_impl="plain", verbose=False, tiling=spec)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    image, mask, ref = edit_inputs(64, gpu.ref_size, seed=5)
+    n = 64 // gpu.model.latent_downsample
+    x_T = np.random.default_rng(6).standard_normal((1, n, n, 4)).astype(np.float32)
+    kw = dict(steps=4, scale=5.0, x_T=x_T, det_first_stage=True)
+    got, counts, _ = counted_all(fa, lambda: gpu.edit_batch(image, mask, ref, **kw))
+    want = cpu.edit_batch(image, mask, ref, **kw)
+    diff = np.abs(got - want)
+    log(f"[tiling] tiny 64^2 4-step edit tiled (8, 4) card bf16 vs CPU fp32: launches by "
+        f"shape {counts['flash_fwd'][1]}; max|diff| {diff.max():.4f} (tol 0.15), mean "
+        f"{diff.mean():.5f} (tol 0.02)")
+    if not (np.isfinite(got).all() and diff.max() <= 0.15 and diff.mean() <= 0.02):
+        raise AssertionError("the tiled card edit disagrees with the CPU fp32 reference")
+    return summary
+
+
+def phase_safety(ckpt: str, card: str) -> dict:
+    """Phase 24: the safety checker at full geometry (ViT-L/14: 24 layers,
+    width 1024, 224^2, projection 768, 17 + 3 concepts) from a seeded
+    diffusers-layout state_dict written with torch.save, through
+    scripts.inference.main --safety_ckpt --n_samples 2. A first pass
+    (nothing can flag) records the two frames the checker sees; the concept
+    0 embedding becomes the direction between their embeddings and its
+    threshold their midpoint, so the second pass (--enforce_safety) flags
+    sample 0 alone, each score >= 0.005 from a rounding edge. Checked: the
+    flagged result is black, the other equal to the first pass's, and the
+    card's fp32 cosines and scores within 1e-4 of the CPU's."""
+    import torch
+    from PIL import Image
+
+    from pbe_tpu_torch.models import safety
+    from pbe_tpu_torch.models.layers import init_like_flax
+    from pbe_tpu_torch.scripts import inference
+
+    module = init_like_flax(safety.SafetyChecker().to("cuda"), seed=24)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    with torch.no_grad():
+        module.concept_embeds.normal_(generator=g)
+        module.special_care_embeds.normal_(generator=g)
+        module.concept_embeds_weights.fill_(2.0)  # cos <= 1 < 2: nothing flags
+        module.special_care_embeds_weights.fill_(2.0)
+    sd = {k: v.cpu() for k, v in module.state_dict().items()}
+    sd["vision_model.vision_model.embeddings.position_ids"] = torch.arange(257)[None]
+    del module
+    seen = []
+    saved_check = safety.LoadedSafetyChecker.check
+
+    def check(self, images01, enforce=False):
+        seen.append(np.array(images01, copy=True))
+        out, flags = saved_check(self, images01, enforce)
+        seen.append(flags)
+        return out, flags
+
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, mask, ref = write_edit_inputs(tmp, 512, 34, (64, 448, 64, 448))
+        path = os.path.join(tmp, "safety.bin")
+        t0 = time.perf_counter()
+        torch.save(sd, path)
+        log(f"[safety] ViT-L/14 checker state_dict ({len(sd)} tensors, "
+            f"{sum(v.numel() for v in sd.values()) / 1e6:.1f}M values) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        common = ["--config", "configs/v1.yaml", "--ckpt", ckpt, "--image_path", src,
+                  "--mask_path", mask, "--reference_path", ref, "--ddim_steps", "20",
+                  "--scale", "5", "--n_iter", "1", "--n_samples", "2", "--seed", "321",
+                  "--no_watermark", "--safety_ckpt", path]
+        safety.LoadedSafetyChecker.check = check
+        try:
+            times = inference.main(common + ["--outdir", os.path.join(tmp, "first")])
+            frames, flags0 = seen[0], seen[1]
+            checker = safety.load_safety_checker(path, device="cuda")
+            with torch.no_grad():
+                pix = safety.preprocess_for_safety(torch.from_numpy(frames).cuda())
+                e = checker.module.embed(pix).double()
+            e = e / e.norm(dim=-1, keepdim=True)
+            direction = (e[0] - e[1]) / (e[0] - e[1]).norm()
+            cos = (e @ direction).tolist()
+            sd["concept_embeds"][0] = direction.float().cpu()
+            sd["concept_embeds_weights"][0] = float(sum(cos) / 2)
+            margin = (cos[0] - cos[1]) / 2 - 0.0005
+            log(f"[safety] first pass ({times[0]:.2f} s, flags {flags0}): the frames' "
+                f"embeddings at cosine {float(e[0] @ e[1]):.6f}; concept 0 := their "
+                f"difference, cosines {cos}, threshold their midpoint: scores +-"
+                f"{(cos[0] - cos[1]) / 2:.4f}, {margin:.4f} from a rounding edge")
+            if flags0 != [False, False] or margin < 0.005:
+                raise AssertionError(f"first pass flags {flags0}, margin {margin}")
+            torch.save(sd, path)
+            inference.main(common + ["--enforce_safety", "--outdir", os.path.join(tmp, "second")])
+            flags = seen[3]
+        finally:
+            safety.LoadedSafetyChecker.check = saved_check
+        png = lambda run, k: np.asarray(Image.open(os.path.join(tmp, run, "results",
+                                                                f"src_321{k}.png")))
+        black, kept, first = png("second", ""), png("second", "_1"), png("first", "_1")
+        log(f"[safety] second pass --enforce_safety: flags {flags}; sample 0 max {black.max()}, "
+            f"sample 1 equal to the first pass's: {np.array_equal(kept, first)}")
+        if flags != [True, False] or black.any() or not np.array_equal(kept, first):
+            raise AssertionError("the checker did not black out exactly sample 0")
+
+        # the card's fp32 scores against the CPU's on the same frames
+        card_checker = safety.load_safety_checker(path, device="cuda")
+        cpu_checker = safety.load_safety_checker(path, device="cpu")
+        got, want = card_checker.scores(frames), cpu_checker.scores(frames)
+        with torch.no_grad():
+            cosines = [safety.cosine_distance(
+                c.module.embed(safety.preprocess_for_safety(torch.from_numpy(frames).to(
+                    c.device))), c.module.concept_embeds).cpu().numpy()
+                for c in (card_checker, cpu_checker)]
+        cos_err = float(np.abs(cosines[0] - cosines[1]).max())
+        score_err = max(float(np.abs(a - b).max()) for a, b in zip(got[1:], want[1:]))
+        log(f"[safety] card vs CPU fp32 on the two frames: flags {got[0].tolist()} / "
+            f"{want[0].tolist()}, max|cosine diff| {cos_err:.3e} (tol 1e-4), max|score diff| "
+            f"{score_err:.3e} (tol 1e-4)")
+        if (got[0].tolist() != want[0].tolist() or cos_err > 1e-4 or score_err > 1e-4):
+            raise AssertionError("the card's safety scores disagree with the CPU's")
+        summary.update(flags=flags, cos_err=cos_err, score_err=score_err, edit_s=times[0])
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2441,6 +3071,7 @@ def main() -> int:
     rows = phase_kernels()
     train_rows = phase_train_kernels()
     vae_rows = phase_vae_kernels()
+    f32_rows = phase_fp32_kernels()
     variant_rows = phase_variants()
     from pbe_tpu_torch.pipelines.loading import (eps_rms_probe, load_pipeline,
                                                  randomize_zero_params)
@@ -2463,7 +3094,13 @@ def main() -> int:
     serving = phase_serving(pipe, card, serve_rows)
     int8 = phase_int8(pipe, card)
     phase_profile(pipe.model)  # after the timed edits: the profiler slows the host
-    del pipe
+    # the tensors randomize_zero_params changed, for the CLIs of phases
+    # 21, 23 and 24 (the rest is load_pipeline's seeded init)
+    seeded = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(seeded.name, "seeded.ckpt")
+    params = dict(pipe.model.named_parameters())
+    torch.save({"state_dict": {n: params[n].detach().cpu() for n in zero_names}}, ckpt)
+    del pipe, params
     torch.cuda.empty_cache()
     model = build_v1_for_training()
     phase_unet_grad(model)
@@ -2478,6 +3115,12 @@ def main() -> int:
     phase_train_reference()
     phase_vae_train_reference()
     phase_reference_samplers()
+    precision_full = phase_precision_full(ckpt, card, f32_rows)
+    phase_fp32_reference()
+    long_rows = []
+    tiling = phase_tiling(ckpt, card, long_rows)
+    safety = phase_safety(ckpt, card)
+    seeded.cleanup()
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
     log(f"[train-cli] summary {json.dumps(train_cli)}")
@@ -2486,8 +3129,14 @@ def main() -> int:
     log(f"[int8] summary {json.dumps(int8)}")
     log(f"[eval] summary {json.dumps(evaluation)}")
     log(f"[vae-train] summary {json.dumps(vae_train)}")
-    print(json.dumps({"kernels": rows + train_rows + vae_rows + variant_rows + cli_rows
-                      + serve_rows}), flush=True)
+    log(f"[fp32] summary {json.dumps(precision_full)}")
+    log(f"[tiling] summary {json.dumps(tiling)}")
+    log(f"[safety] summary {json.dumps(safety)}")
+    kernels = (rows + train_rows + vae_rows + variant_rows + cli_rows + serve_rows + f32_rows
+               + long_rows)
+    for row in kernels:
+        row.setdefault("dtype", "bfloat16")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

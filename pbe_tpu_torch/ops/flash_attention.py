@@ -24,6 +24,12 @@ and the backward recomputes P from the same q2 and the LSE:
     dQ = round(dS.to(dtype) K)                       (dQ kernel)
     dV = round(P.to(dtype)^T dO),  dK = round(dS.to(dtype)^T Q)   (dK/dV kernel)
 
+At fp32 (``--precision full``) every round_to_dtype and cast above does
+nothing, as in the Pallas kernels, which run in their operands' dtype: the
+models' forward and the backward pair then launch the fp32 kernels of
+``csrc/flash_fp32.cu`` (one wrapper each, the entry picked by the operands'
+dtype). The resident and pipelined kernels take bf16 only.
+
 The kernels in ``csrc/`` are built with nvcc at first use and bound with
 ctypes. Layout: (B, N, H, D) with
 strides, as the attention projections produce it, so no transpose copy is
@@ -44,11 +50,12 @@ import torch
 from pbe_tpu_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634  # log2(e): exp(x) == exp2(x * LOG2E)
-# padded head dims instantiated in csrc/flash_fwd.cu: 48/80/160/512 serve
-# configs/v1.yaml (d = 40, 80, 160 and the VAE's 512), 16/32 configs/tiny.yaml
+# padded head dims instantiated in csrc/flash_fwd.cu and csrc/flash_fp32.cu:
+# 48/80/160/512 serve configs/v1.yaml (d = 40, 80, 160 and the VAE's 512),
+# 16/32 configs/tiny.yaml
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
-# ... and in csrc/flash_bwd.cu: the UNet's, and the VAE's 512 for first-stage
-# training (training/vae_train.py)
+# ... and in csrc/flash_bwd.cu and csrc/flash_fp32.cu: the UNet's, and the
+# VAE's 512 for first-stage training (training/vae_train.py)
 BWD_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
 # q tile of csrc/flash_variants.cu's resident kernel by padded head dim
 # (ResidentTile, ResidentWideTile): the cluster is planned over these tiles
@@ -138,11 +145,12 @@ def _round_up(x: int, m: int) -> int:
 
 def layout_error(x: torch.Tensor) -> str | None:
     """Why the kernel cannot read x in place, or None: it takes a unit
-    head-dim stride and 16-byte aligned rows and base (bf16 x 8)."""
+    head-dim stride and rows and base aligned to 8 elements (16 bytes of
+    bf16, 32 of fp32)."""
     if x.dim() != 4:
         return f"expected (B,N,H,D), got shape {tuple(x.shape)}"
     if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-        return (f"needs a unit head-dim stride and 16-byte aligned rows and base, "
+        return (f"needs a unit head-dim stride and rows and base aligned to 8 elements, "
                 f"got strides {x.stride()}")
     if x.shape[3] % 8 or _round_up(x.shape[3], 16) not in SUPPORTED_HEAD_DIMS:
         return (f"head dim {x.shape[3]} unsupported (a multiple of 8 padding to one of "
@@ -187,41 +195,72 @@ def resident_cluster(shape: tuple, cluster: int | None = None, sms: int = SMS) -
     return cluster
 
 
-class _Kernel:
-    """A kernel's ctypes entry point in ``csrc/<lib>.cu``, loaded at first
-    launch, and its launch counts: ``launches`` in all and
-    ``launches_by_shape`` by (B, N, H, D); both change only where the
-    kernel is launched."""
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
-    def __init__(self, lib: str, symbol: str, argtypes: list):
-        self.lib, self.symbol, self.argtypes = lib, symbol, argtypes
+
+class _Kernel:
+    """A kernel's ctypes entry points by operand dtype, ``entries[dtype] =
+    (csrc/<lib>.cu, symbol)`` (``lib`` and ``symbol``: the bf16 one), each
+    loaded at its first launch, and the launch counts: ``launches`` in all,
+    ``launches_by_shape`` by (B, N, H, D) and ``launches_by_dtype`` by the
+    operands' dtype name ("bfloat16", "float32"); they change only where a
+    kernel is launched, and :meth:`reset` sets them to 0."""
+
+    def __init__(self, entries: dict, argtypes: list):
+        self.entries, self.argtypes = entries, argtypes
+        self.lib, self.symbol = entries[torch.bfloat16]
         self.launches = 0
         self.launches_by_shape: collections.Counter = collections.Counter()
-        self._fn = None
+        self.launches_by_dtype: collections.Counter = collections.Counter()
+        self._fns: dict = {}
 
-    def _launch(self, shape: tuple, *args) -> None:
-        if self._fn is None:
-            fn = getattr(cuda_build.load(self.lib), self.symbol)
+    def reset(self) -> None:
+        self.launches = 0
+        self.launches_by_shape.clear()
+        self.launches_by_dtype.clear()
+
+    def _launch(self, dtype: torch.dtype, shape: tuple, *args) -> None:
+        fn = self._fns.get(dtype)
+        if fn is None:
+            lib, symbol = self.entries[dtype]
+            fn = getattr(cuda_build.load(lib), symbol)
             fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
-            self._fn = fn
-        err = self._fn(*args)
+            self._fns[dtype] = fn
+        err = fn(*args)
         if err != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {err} at "
+            raise RuntimeError(f"{self.entries[dtype][1]} launch failed: CUDA error {err} at "
                                f"(B,N,H,D)={shape}")
         self.launches += 1
         self.launches_by_shape[shape] += 1
+        self.launches_by_dtype[_dtype_name(dtype)] += 1
 
 
-def _check_operands(kernel: str, head_dims: tuple, **xs: torch.Tensor) -> None:
-    """Raise unless every x is a bf16 (B,N,H,D) CUDA tensor of the first
-    one's shape and device that the kernel can read in place."""
+def operand_dtype(kernel: str, dtypes, **xs: torch.Tensor) -> torch.dtype:
+    """The one dtype of the operands xs, which must be one of ``dtypes``
+    (the kernel's entries); raises TypeError for any other or for a mix."""
+    got = {x.dtype for x in xs.values()}
+    if len(got) != 1:
+        raise TypeError(f"{kernel}: operands must share one dtype, got "
+                        + ", ".join(f"{n} {x.dtype}" for n, x in xs.items()))
+    dtype = got.pop()
+    if dtype not in dtypes:
+        raise TypeError(f"{kernel} takes {' or '.join(map(_dtype_name, dtypes))}, "
+                        f"got {dtype}")
+    return dtype
+
+
+def _check_operands(kernel: str, head_dims: tuple, dtypes, **xs: torch.Tensor) -> torch.dtype:
+    """Raise unless every x is a (B,N,H,D) CUDA tensor of the first one's
+    shape, device and dtype, that dtype one of ``dtypes``, which the kernel
+    can read in place; returns the dtype."""
     first = next(iter(xs.values()))
     for name, x in xs.items():
         if x.device.type != "cuda" or x.device != first.device:
             raise ValueError(f"{kernel}: {name} must be on a CUDA device shared by all "
                              f"operands, got {x.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{kernel} takes bfloat16, {name} is {x.dtype}")
+    dtype = operand_dtype(kernel, dtypes, **xs)
+    for name, x in xs.items():
         if x.shape != first.shape:
             raise ValueError(f"{kernel}: operands must share one shape, got "
                              f"{tuple(first.shape)} and {name} {tuple(x.shape)}")
@@ -231,28 +270,36 @@ def _check_operands(kernel: str, head_dims: tuple, **xs: torch.Tensor) -> None:
     if _round_up(first.shape[3], 16) not in head_dims:
         raise ValueError(f"{kernel}: head dim {first.shape[3]} unsupported (pads to one "
                          f"of {head_dims})")
+    return dtype
 
 
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 class FlashForward(_Kernel):
-    """A forward kernel: (q, k, v) -> O [, LSE]. ``variant`` None is
-    ``pbe_flash_fwd_bf16`` (csrc/flash_fwd.cu), the models' kernels
-    (K1/K2); "resident" ``pbe_flash_resident_bf16`` (K3) and "pipelined"
-    ``pbe_flash_pipelined_bf16`` (K4), csrc/flash_variants.cu, take a key
-    block ``block`` (block_k or block_c), and the resident kernel a
-    ``cluster`` size."""
+    """A forward kernel: (q, k, v) -> O [, LSE]. ``variant`` None is the
+    models' kernels (K1/K2): ``pbe_flash_fwd_bf16`` (csrc/flash_fwd.cu) for
+    bf16 operands and ``pbe_flash_fwd_f32`` (csrc/flash_fp32.cu) for fp32;
+    "resident" ``pbe_flash_resident_bf16`` (K3) and "pipelined"
+    ``pbe_flash_pipelined_bf16`` (K4), csrc/flash_variants.cu, bf16 only,
+    take a key block ``block`` (block_k or block_c), and the resident kernel
+    a ``cluster`` size."""
 
     def __init__(self, variant: str | None = None):
         self.variant = variant
         self.lse_launches = 0  # the launches that also wrote the LSE
         # [key block [, cluster size]]
         extra = {None: [], "resident": [_I32] * 2, "pipelined": [_I32]}[variant]
-        super().__init__("flash_variants" if variant else "flash_fwd",
-                         f"pbe_flash_{variant or 'fwd'}_bf16",
-                         [_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32] + extra
-                         + [_PTR])
+        entries = {torch.bfloat16: ("flash_variants" if variant else "flash_fwd",
+                                    f"pbe_flash_{variant or 'fwd'}_bf16")}
+        if variant is None:
+            entries[torch.float32] = ("flash_fp32", "pbe_flash_fwd_f32")
+        super().__init__(entries, [_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32]
+                         + extra + [_PTR])
+
+    def reset(self) -> None:
+        super().reset()
+        self.lse_launches = 0
 
     def plan(self, shape: tuple, block: int | None = None, cluster: int | None = None,
              sms: int = SMS) -> list[int]:
@@ -274,13 +321,13 @@ class FlashForward(_Kernel):
         sms = (torch.cuda.get_device_properties(q.device).multi_processor_count
                if q.device.type == "cuda" else SMS)
         extra = self.plan(q.shape, block, cluster, sms)
-        _check_operands(f"{self.variant or 'flash'} kernel", SUPPORTED_HEAD_DIMS,
-                        q=q, k=k, v=v)
+        dtype = _check_operands(f"{self.variant or 'flash'} kernel", SUPPORTED_HEAD_DIMS,
+                                tuple(self.entries), q=q, k=k, v=v)
         out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
         lse = (torch.empty((b * h, n), device=q.device, dtype=torch.float32)
                if return_lse else None)
         strides = (_I64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-        self._launch((b, n, h, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        self._launch(dtype, (b, n, h, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), None if lse is None else lse.data_ptr(),
                      b, n, h, d, strides, d ** -0.5 * LOG2E, *extra,
                      torch.cuda.current_stream(q.device).cuda_stream)
@@ -290,17 +337,20 @@ class FlashForward(_Kernel):
 
 class FlashBackward(_Kernel):
     """``pbe_flash_bwd_dq_bf16`` or ``pbe_flash_bwd_dkv_bf16``
-    (csrc/flash_bwd.cu): (q, k, v, dO, LSE, D) -> dQ, or (dK, dV)."""
+    (csrc/flash_bwd.cu) for bf16 operands, ``pbe_flash_bwd_dq_f32`` or
+    ``pbe_flash_bwd_dkv_f32`` (csrc/flash_fp32.cu) for fp32: (q, k, v, dO,
+    LSE, D) -> dQ, or (dK, dV)."""
 
     def __init__(self, which: str):
         self.outputs = {"dq": 1, "dkv": 2}[which]
-        super().__init__("flash_bwd", f"pbe_flash_bwd_{which}_bf16",
+        super().__init__({torch.bfloat16: ("flash_bwd", f"pbe_flash_bwd_{which}_bf16"),
+                          torch.float32: ("flash_fp32", f"pbe_flash_bwd_{which}_f32")},
                          [_PTR] * (6 + self.outputs) + [_I32] * 4
                          + [ctypes.POINTER(_I64), _F32, _F32, _PTR])
 
     def __call__(self, q, k, v, do, lse, dd):
-        _check_operands(f"flash backward ({self.symbol})", BWD_HEAD_DIMS,
-                        q=q, k=k, v=v, do=do)
+        dtype = _check_operands(f"flash backward ({self.symbol})", BWD_HEAD_DIMS,
+                                tuple(self.entries), q=q, k=k, v=v, do=do)
         b, n, h, d = q.shape
         for name, x in (("lse", lse), ("D", dd)):
             if (x.dtype != torch.float32 or x.shape != (b * h, n)
@@ -312,7 +362,7 @@ class FlashBackward(_Kernel):
                 for _ in range(self.outputs)]
         strides = (_I64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                               *do.stride()[:3])
-        self._launch((b, n, h, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        self._launch(dtype, (b, n, h, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
                      *(x.data_ptr() for x in outs), b, n, h, d, strides,
                      d ** -0.5 * LOG2E, d ** -0.5,

@@ -2,7 +2,8 @@
 
 One edit: VAE-encode the masked source, encode the exemplar, run the
 S-step CFG sampler (PLMS: S+1 UNet calls at doubled batch, DDIM: S, DDPM:
-the full T-step chain; scale 1 runs the UNet once at batch B), VAE-decode,
+the full T-step chain; scale 1 runs the UNet once at batch B; with
+``tiling``, every UNet call over latent crops in one batch), VAE-decode,
 optionally paste the original pixels back outside the mask, then [0,1]
 float32, uint8 or the sampled latent. NHWC numpy in and out, like the JAX
 pipeline. PyTorch runs it eagerly on the model's device.
@@ -16,6 +17,7 @@ from pbe_tpu_torch.models.pbe import PaintByExample
 from pbe_tpu_torch.models.vae_asym import paste_back as paste_back_fn
 from pbe_tpu_torch.ops import quant
 from pbe_tpu_torch.ops.image import resize_mask
+from pbe_tpu_torch.ops.tiling import TilingSpec, tiled_apply
 from pbe_tpu_torch.samplers.cfg import make_cfg_eps_fn
 from pbe_tpu_torch.samplers.ddim import ddim_sample
 from pbe_tpu_torch.samplers.ddpm_ancestral import ddpm_ancestral_sample
@@ -57,17 +59,17 @@ class PendingOutput:
 class EditPipeline:
     """Holds a PaintByExample model (already on its device, in eval mode)."""
 
-    def __init__(self, model: PaintByExample, quantize: str | None = None, tiling=None,
-                 quant_scales: tuple | None = None):
-        if tiling is not None:
-            raise NotImplementedError("the tiled pipeline is not ported yet (ROADMAP "
-                                      "Queue 1, item 13)")
+    def __init__(self, model: PaintByExample, quantize: str | None = None,
+                 tiling: TilingSpec | None = None, quant_scales: tuple | None = None):
+        # tiling: run every UNet eps call of an edit over latent crops
+        # (ks/stride in latent pixels; ops/tiling.py), all crops at once.
         # "int8": every edit runs the UNet's eligible matmuls and convs in
         # w8a8 (ops/quant.py); quant_scales: calibrated static scales from
         # calibrate_int8() (no runtime amax)
         if quant_scales is not None and quantize != "int8":
             raise ValueError("quant_scales requires quantize='int8'")
         self.model = model.eval()
+        self.tiling = tiling
         self.quantize = quantize
         self.quant_scales = quant_scales
 
@@ -139,7 +141,7 @@ class EditPipeline:
                                              None if det_first_stage else gen)
         m_lat = resize_mask(mask_t, z_inpaint.shape[1:3]).to(z_inpaint.dtype)
         c = model.get_conditioning(ref_t)
-        eps_fn = make_cfg_eps_fn(model.apply_model, c, model.uncond_vector(b), float(scale))
+        eps_fn = make_cfg_eps_fn(self._apply_fn(), c, model.uncond_vector(b), float(scale))
         noise_t = None if noise is None else as_t(noise, torch.float32)
         if sampler == "ddpm":
             x0 = ddpm_ancestral_sample(eps_fn, model.schedule, x_t, z_inpaint, m_lat,
@@ -169,6 +171,25 @@ class EditPipeline:
         if not block:
             return PendingOutput(out)
         return out.cpu().numpy()
+
+    def _apply_fn(self):
+        """The UNet eps call of an edit: the model's, or with ``tiling`` the
+        model's over latent crops. The crops are stacked crop-major into the
+        batch, so t and ctx repeat whole-batch blocks (``Tensor.repeat``, as
+        JAX's ``jnp.tile``); CFG's doubling happens outside, so a tiled CFG
+        call runs at batch 2B * L."""
+        apply_model, spec = self.model.apply_model, self.tiling
+        if spec is None:
+            return apply_model
+
+        def apply_fn(x9, t, ctx):
+            def inner(patches):
+                reps = patches.shape[0] // x9.shape[0]
+                return apply_model(patches, t.repeat(reps), ctx.repeat(reps, 1, 1))
+
+            return tiled_apply(inner, x9, spec)
+
+        return apply_fn
 
     def edit(self, image: np.ndarray, mask: np.ndarray, ref: np.ndarray, **kw) -> np.ndarray:
         """Single-example convenience; HWC in, HWC out."""

@@ -128,14 +128,17 @@ def load_pipeline(config_path: str, ckpt_path: str | None = None,
                   device: str | torch.device | None = "cuda",
                   dtype: torch.dtype = torch.bfloat16, attn_impl: str = "flash",
                   seed: int = 0, verbose: bool = True, quantize: str | None = None,
-                  quant_scales: tuple | None = None) -> tuple[EditPipeline, dict]:
+                  tiling=None, quant_scales: tuple | None = None
+                  ) -> tuple[EditPipeline, dict]:
     """Build the model from YAML on ``device`` (+ optional reference .ckpt)
     -> (pipeline, raw config). ``attn_impl="flash"`` runs the UNet and VAE
-    self-attention through the Hopper kernel on CUDA (bf16 only) and its
-    plain version on the CPU; ``"plain"`` runs einsum attention.
-    ``quantize="int8"`` serves with w8a8 UNet matmuls and convs
+    self-attention through the Hopper kernels on CUDA (bf16 or fp32, by
+    ``dtype``) and their plain version on the CPU; ``"plain"`` runs einsum
+    attention. ``quantize="int8"`` serves with w8a8 UNet matmuls and convs
     (ops/quant.py); ``quant_scales`` are calibrated static scales
-    (``EditPipeline.calibrate_int8``)."""
+    (``EditPipeline.calibrate_int8``). ``tiling``: an ops.tiling.TilingSpec
+    that runs every UNet eps call of an edit over latent crops (the
+    reference's split_input_params, latent_diffusion.py:656-736)."""
     model, raw = build_from_yaml(config_path, dtype=dtype, attn_impl=attn_impl,
                                  device=device, remat=False)
     init_parameters(model, seed)
@@ -147,4 +150,5 @@ def load_pipeline(config_path: str, ckpt_path: str | None = None,
     if verbose:
         n = sum(p.numel() for p in model.parameters())
         print(f"model parameters: {n / 1e6:.1f}M")
-    return EditPipeline(model, quantize=quantize, quant_scales=quant_scales), raw
+    return EditPipeline(model, quantize=quantize, tiling=tiling,
+                        quant_scales=quant_scales), raw

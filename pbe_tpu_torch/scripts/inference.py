@@ -8,14 +8,17 @@ JAX CLI's file names.
         --mask_path MASK --reference_path REF --seed 321 --scale 5 [--plms]
 
 The flags are the JAX CLI's, plus --device (default cuda; cpu runs the
-kernels' plain versions in fp32 with --precision full). Without a card and
-without --device cpu it exits non-zero. DDIM unless --plms; --n_iter loops
-the sampler with the seed advancing; every result carries the invisible
-"Paint-by-Example" watermark unless --no_watermark. --quantize int8 runs the
-UNet's eligible matmuls and convs in w8a8; int8-static first calibrates
-constant scales on this edit's inputs. Not ported, and refused with a
-non-zero exit: --safety_ckpt (the safety checker) and --tile_ks/--tile_stride
-(tiling).
+kernels' plain versions). Without a card and without --device cpu it exits
+non-zero. --precision full runs the model in fp32, on the card through the
+fp32 attention kernels, with TF32 off for every product and convolution.
+DDIM unless --plms; --n_iter loops the sampler with the seed advancing;
+every result carries the invisible "Paint-by-Example" watermark unless
+--no_watermark. --quantize int8 runs the UNet's eligible matmuls and convs in
+w8a8; int8-static first calibrates constant scales on this edit's inputs.
+--safety_ckpt screens every result with the safety checker (a diffusers
+checkpoint; report-only unless --enforce_safety, which blacks out flagged
+frames). --tile_ks/--tile_stride run every UNet call over latent crops
+(ops/tiling.py).
 """
 from __future__ import annotations
 
@@ -76,16 +79,20 @@ def get_parser() -> argparse.ArgumentParser:
                         "MODE instead of sampling")
     p.add_argument("--safety_ckpt", type=str,
                    default=os.environ.get("PBE_SAFETY_CKPT", ""),
-                   help="not ported: the safety checker (refused)")
+                   help="path to the CompVis stable-diffusion-safety-checker weights "
+                        "(diffusers .bin/.pt/.ckpt/.safetensors); the check is "
+                        "report-only unless --enforce_safety")
     p.add_argument("--quantize", choices=["int8", "int8-static"], default=None,
                    help="w8a8 int8 UNet execution (ops/quant.py), opt-in; int8-static "
                         "calibrates constant scales on this edit's inputs first")
     p.add_argument("--tile_ks", type=int, default=0,
-                   help="not ported: tiled inference (refused unless 0)")
+                   help="tiled inference: latent tile size (0 = off); every UNet "
+                        "call runs over overlapping latent crops, all in one batch")
     p.add_argument("--tile_stride", type=int, default=0,
-                   help="not ported: tiled inference (refused unless 0)")
+                   help="latent tile stride (default ks/2 when --tile_ks is set)")
     p.add_argument("--enforce_safety", action="store_true",
-                   help="has no effect without --safety_ckpt")
+                   help="black out frames the safety checker flags (default: "
+                        "report only, as the reference); needs --safety_ckpt")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p
@@ -97,27 +104,35 @@ def refuse(flag: str, what: str, item: str) -> None:
 
 
 def device_and_dtype(device: str, precision: str) -> tuple[str, torch.dtype]:
-    """The CLIs' device and model dtype. Exits non-zero where the port
-    cannot run as asked: CUDA without a card, or fp32 on the card, whose
-    attention kernels take bf16 (nothing falls back to the CPU or to a
-    plain version on the card)."""
+    """The CLIs' device and model dtype. Exits non-zero for CUDA without a
+    card (nothing falls back to the CPU). --precision full is fp32
+    throughout: it turns TF32 off for matmuls and for cuDNN's convolutions,
+    which would otherwise run fp32 convolutions in TF32 on the card, and
+    says so."""
     dtype = torch.float32 if precision == "full" else torch.bfloat16
-    if device.startswith("cuda"):
-        if not torch.cuda.is_available():
-            raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
-        if dtype != torch.bfloat16:
-            raise SystemExit("--precision full runs on the CPU only: the card's "
-                             "attention kernels take bf16")
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print("--precision full: fp32 model, TF32 off (torch.backends.cuda.matmul."
+              "allow_tf32 = torch.backends.cudnn.allow_tf32 = False)")
     return device, dtype
 
 
 def main(argv=None) -> list[float]:
     """Run the CLI; returns the seconds of each of the --n_iter edits."""
     opt = get_parser().parse_args(argv)
-    if opt.safety_ckpt:
-        refuse("--safety_ckpt", "the safety checker", "13")
-    if opt.tile_ks or opt.tile_stride:
-        refuse("--tile_ks/--tile_stride", "tiled inference", "13")
+    tiling = None
+    if opt.tile_ks:
+        from pbe_tpu_torch.ops.tiling import TilingSpec
+
+        stride = opt.tile_stride or max(opt.tile_ks // 2, 1)
+        tiling = TilingSpec(ks=(opt.tile_ks, opt.tile_ks), stride=(stride, stride))
+    elif opt.tile_stride:
+        raise SystemExit(
+            "--tile_stride has no effect without --tile_ks (tiling stays off and the "
+            "stride would be silently ignored); pass --tile_ks to enable tiled inference")
     device, dtype = device_and_dtype(opt.device, opt.precision)
 
     from pbe_tpu_torch.data import transforms as T
@@ -126,7 +141,13 @@ def main(argv=None) -> list[float]:
 
     config = opt.config or os.path.join(REPO, "configs", "v1.yaml")
     pipeline, _ = load_pipeline(config, opt.ckpt or None, device=device, dtype=dtype,
-                                quantize="int8" if opt.quantize else None)
+                                quantize="int8" if opt.quantize else None, tiling=tiling)
+
+    safety = None
+    if opt.safety_ckpt:
+        from pbe_tpu_torch.models.safety import load_safety_checker
+
+        safety = load_safety_checker(opt.safety_ckpt, device=device)
 
     sample_path = os.path.join(opt.outdir, "source")
     result_path = os.path.join(opt.outdir, "results")
@@ -171,6 +192,15 @@ def main(argv=None) -> list[float]:
             x_T=x_T,  # --fixed_code pins the start noise across iterations
             paste_back=opt.paste_back, det_first_stage=opt.det_first_stage)
         times.append(time.time() - t0)
+        if safety is not None:
+            # the reference checks the decoded batch and discards the
+            # verdict; it is applied only under --enforce_safety
+            out, has_nsfw = safety.check(out, enforce=opt.enforce_safety)
+            for i, flag in enumerate(has_nsfw):
+                if flag:
+                    action = ("blacked out" if opt.enforce_safety
+                              else "report-only, kept (reference semantics)")
+                    print(f"safety: sample {it * b + i} flagged NSFW — {action}")
         if opt.skip_save:
             continue
         for i in range(b):

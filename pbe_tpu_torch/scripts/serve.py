@@ -14,9 +14,9 @@ with the JAX front's JSON + base64 API and status codes:
         --ckpt model.ckpt --warmup [--quantize int8|int8-static]
 
 The flags are the JAX front's, plus --device (default cuda; cpu runs the
-kernels' plain versions in fp32 with --precision full). Without a card and
-without --device cpu it exits non-zero, and so does --precision full on the
-card. Sampler settings (steps/sampler/scale/paste_back) are fixed per
+kernels' plain versions). Without a card and without --device cpu it exits
+non-zero. --precision full serves in fp32, on the card through the fp32
+attention kernels, with TF32 off. Sampler settings (steps/sampler/scale/paste_back) are fixed per
 deployment; per-request knobs are the images and the seed. --warmup runs
 every batch bucket before accepting traffic; --prewarm_only does that and
 exits. --data_parallel (multi-card serving) is refused with a non-zero exit.
@@ -58,7 +58,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--calib_mask", type=str, default="")
     p.add_argument("--calib_ref", type=str, default="")
     p.add_argument("--precision", type=str, choices=["full", "autocast"],
-                   default="autocast", help="fp32 (CPU only) or bf16")
+                   default="autocast", help="fp32 or bf16")
     p.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8],
                    help="batch sizes to serve; requests coalesce into the smallest "
                         "bucket that fits")
@@ -127,6 +127,12 @@ def make_handler(server, size, max_body_mb: int = 64):
             try:
                 n = int(self.headers.get("Content-Length", "0"))
                 if n > max_body:
+                    # take in a body up to 4x the limit before refusing it: a
+                    # connection closed with unread bytes resets, and the
+                    # client still sending its body reads a broken pipe
+                    # instead of the 413
+                    if n <= 4 * max_body:
+                        self.rfile.read(n)
                     self._send(413, {"error": f"body {n} bytes exceeds {max_body} limit"})
                     return
                 req = json.loads(self.rfile.read(n))

@@ -6,9 +6,9 @@ surface with OmegaConf-style dotlist overrides:
         [--max_steps N] [model.params.timesteps=500 ...]
 
 The flags are the JAX CLI's, plus --device (default cuda; cpu runs the
-kernels' plain versions, in fp32 with --precision full). Without a card and
-without --device cpu it exits non-zero; so does --precision full on the
-card, whose attention kernels take bf16. The model is built from the YAML
+kernels' plain versions). Without a card and without --device cpu it exits
+non-zero. --precision full computes in fp32, on the card through the fp32
+attention kernels, with TF32 off. The model is built from the YAML
 with remat on, initialized from --seed (or overlaid with --ckpt), and
 trained on one device by ``training.Trainer`` over the YAML's data module.
 --resume restores the latest checkpoint in --logdir. --sample_images and

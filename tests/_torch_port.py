@@ -135,3 +135,31 @@ def write_test_bench(root, n, size, seed=0):
         m[y:y + size // 3, x:x + size // 3] = 255
         Image.fromarray(m).save(root / "Mask_bbox_3500" / f"{i:012d}_mask.png")
     return ids
+
+
+# the safety checker's test geometry: CLIP width 64 (one 64-wide head, as the
+# loaders infer it), 2 layers, patch 8, image 32; projection 24; 5 + 3 concepts
+SAFETY_GEO = dict(hidden_size=64, num_layers=2, num_heads=1, mlp_dim=128, patch_size=8,
+                  image_size=32, projection_dim=24, num_concepts=5, num_special=3)
+
+
+def safety_state_dict(seed=0, concept_thr=-2.0, special_thr=2.0):
+    """A seeded diffusers-layout safety-checker state_dict at SAFETY_GEO:
+    every key of the port's module (diffusers' keys), the thresholds given,
+    and the tower's position_ids buffer that real checkpoints carry and no
+    module holds."""
+    from pbe_tpu_torch.models.safety import SafetyChecker
+
+    g = np.random.default_rng(seed)
+    sd = {}
+    for k, v in SafetyChecker(**SAFETY_GEO).state_dict().items():
+        if k.endswith("_weights"):
+            continue
+        scale = 1.0 if "embeds" in k else 0.05
+        base = 1.0 if ("norm" in k and k.endswith("weight")) else 0.0
+        sd[k] = torch.from_numpy((base + scale * g.standard_normal(v.shape)).astype(np.float32))
+    sd["concept_embeds_weights"] = torch.full((SAFETY_GEO["num_concepts"],), concept_thr)
+    sd["special_care_embeds_weights"] = torch.full((SAFETY_GEO["num_special"],), special_thr)
+    n_pos = (SAFETY_GEO["image_size"] // SAFETY_GEO["patch_size"]) ** 2 + 1
+    sd["vision_model.vision_model.embeddings.position_ids"] = torch.arange(n_pos)[None]
+    return sd

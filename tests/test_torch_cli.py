@@ -2,8 +2,10 @@
 run_inference_batch, inference_test_bench) as subprocesses on the CPU at
 configs/tiny.yaml, 64^2, 2 steps, with a checkpoint of seeded weights and
 input PNGs the tests write: the JAX CLIs' file layout, and results equal to
-the same edit run in-process. Then the flags the port refuses, and the
-refusal to run without a card unless --device cpu is given."""
+the same edit run in-process; tiled inference and the safety checker
+through the inference CLI. Then the flags the port refuses, the lifted
+flags failing as the JAX CLI fails, and the refusal to run without a card
+unless --device cpu is given."""
 import os
 import subprocess
 import sys
@@ -17,7 +19,7 @@ from pbe_tpu_torch.data import transforms as T
 from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
 from pbe_tpu_torch.scripts import inference, inference_test_bench, run_inference_batch
 
-from _torch_port import write_test_bench
+from _torch_port import safety_state_dict, write_test_bench
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "configs", "tiny.yaml")
@@ -216,10 +218,67 @@ def test_quantize_flags_run(seeded, tmp_path, capsys, request):
     _assert_same_edit(_png(out / "results" / f"{ids[0]:012d}.png"), want)
 
 
+def test_inference_cli_tiles_and_screens(seeded, tmp_path, capsys, request):
+    """--tile_ks 8 --tile_stride 4 (7 x 7 latent crops of the 32^2 latent)
+    and --safety_ckpt on a seeded diffusers-layout checker whose thresholds
+    flag everything: report-only keeps the tiled edit, which equals the
+    in-process EditPipeline(tiling=) edit; --enforce_safety blacks it out."""
+    from pbe_tpu_torch.ops.tiling import TilingSpec
+    from pbe_tpu_torch.pipelines.inference import EditPipeline
+
+    pipe, ckpt = seeded
+    img, mask, ref = _inputs(tmp_path / "in")
+    checker = tmp_path / "safety.bin"
+    torch.save(safety_state_dict(seed=3), str(checker))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
+    argv = ["--config", TINY, "--ckpt", ckpt, "--image_path", str(img), "--mask_path",
+            str(mask), "--reference_path", str(ref), "--H", "64", "--W", "64",
+            "--ddim_steps", "2", "--seed", "7", "--device", "cpu", "--precision", "full",
+            "--no_watermark", "--n_iter", "1", "--plms", "--scale", "5", "--tile_ks", "8",
+            "--tile_stride", "4", "--safety_ckpt", str(checker)]
+    inference.main(argv + ["--outdir", str(tmp_path / "report")])
+    assert "safety: sample 0 flagged NSFW — report-only, kept" in capsys.readouterr().out
+    image = T.load_image(str(img), (64, 64))
+    keep = T.load_mask(str(mask), (64, 64))
+    exemplar = T.load_reference(str(ref))
+    tiled = EditPipeline(pipe.model, tiling=TilingSpec((8, 8), (4, 4)))
+    kw = dict(steps=2, scale=5.0, sampler="plms", seed=7)
+    want = tiled.edit(image, keep, exemplar, **kw)
+    _assert_same_edit(_png(tmp_path / "report" / "results" / "photo_7.png"), want)
+    assert np.abs(want - pipe.edit(image, keep, exemplar, **kw)).max() > 1e-3
+
+    inference.main(argv + ["--enforce_safety", "--outdir", str(tmp_path / "enforce")])
+    assert "safety: sample 0 flagged NSFW — blacked out" in capsys.readouterr().out
+    assert not _png(tmp_path / "enforce" / "results" / "photo_7.png").any()
+
+
+# the flags PR 11 lifted, failing where the JAX CLI fails: a missing
+# checkpoint, a tiling that does not cover the 32^2 latent (ks 12, stride
+# 6), and --tile_stride without --tile_ks (JAX's message)
+LIFTED = {
+    "inference-safety_ckpt": (["--safety_ckpt", "{tmp}/missing.bin"], FileNotFoundError,
+                              "missing.bin"),
+    "inference-tile_ks": (["--tile_ks", "12"], ValueError, "cover the input exactly"),
+    "inference-tile_stride": (["--tile_stride", "8"], SystemExit,
+                              "--tile_stride has no effect without --tile_ks"),
+}
+
+
+@pytest.mark.parametrize("argv,error,message", list(LIFTED.values()), ids=list(LIFTED))
+def test_lifted_flags_fail_as_the_jax_cli_does(argv, error, message, tmp_path):
+    img, mask, ref = _inputs(tmp_path / "in")
+    common = ["--config", TINY, "--image_path", str(img), "--mask_path", str(mask),
+              "--reference_path", str(ref), "--H", "64", "--W", "64", "--ddim_steps", "2",
+              "--n_iter", "1", "--device", "cpu", "--precision", "full", "--outdir",
+              str(tmp_path / "out")]
+    with pytest.raises(error) as e:
+        inference.main(common + [a.format(tmp=tmp_path) for a in argv])
+    assert message in str(e.value)
+
+
 REFUSED = {
-    "inference-safety_ckpt": (inference, ["--safety_ckpt", "s.bin"], "safety checker"),
-    "inference-tile_ks": (inference, ["--tile_ks", "16"], "tiled inference"),
-    "inference-tile_stride": (inference, ["--tile_stride", "8"], "tiled inference"),
     "run_inference_batch-data_parallel": (
         run_inference_batch, ["--image_dir", "i", "--mask_dir", "m", "--reference_dir", "r",
                               "--data_parallel"], "multi-card"),
@@ -248,8 +307,22 @@ def test_cli_without_a_card_exits_unless_asked_for_the_cpu(cli, argv, monkeypatc
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert "no CUDA device" in str(e.value.code)
-    # fp32 on the card is refused too: its attention kernels take bf16
+    # fp32 on the card is taken (the fp32 kernels): the CLI builds its
+    # pipeline on the card in fp32, with TF32 off
+    from pbe_tpu_torch.pipelines import loading
+
+    built = []
+
+    class Built(Exception):
+        pass
+
+    def load_pipeline(*args, device, dtype, **kw):
+        built.append((device, dtype))
+        raise Built  # stop before anything touches the card
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit) as e:
+    monkeypatch.setattr(loading, "load_pipeline", load_pipeline)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(Built):
         cli.main(argv + ["--precision", "full"])
-    assert "bf16" in str(e.value.code)
+    assert built == [("cuda", torch.float32)] and not torch.backends.cudnn.allow_tf32

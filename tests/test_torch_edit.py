@@ -8,6 +8,7 @@ import pytest
 from pbe_tpu.data.transforms import to_uint8
 from pbe_tpu.pipelines.inference import EditPipeline as JEditPipeline
 
+from pbe_tpu_torch.ops.tiling import TilingSpec
 from pbe_tpu_torch.pipelines.inference import EditPipeline as TEditPipeline
 
 from _torch_port import pipeline_pair
@@ -102,8 +103,9 @@ def test_pending_edit_is_ready_and_reads_back_the_blocking_edit(pipelines):
 
 def test_unported_options_raise(pipelines):
     """DDIM, DDPM and paste_back are ported (tests/test_torch_samplers.py),
-    and int8 (tests/test_torch_quant.py); tiling and multi-card serving
-    still raise, and so do options no sampler or int8 mode takes."""
+    int8 (tests/test_torch_quant.py) and tiling (tests/test_torch_tiling.py,
+    which holds a tiled edit against JAX's; here one runs); multi-card
+    serving still raises, and so do options no sampler or int8 mode takes."""
     _, tp = pipelines
     image, mask, ref, x_T = _inputs()
     with pytest.raises(ValueError, match="unknown quantization mode"):
@@ -112,8 +114,9 @@ def test_unported_options_raise(pipelines):
         TEditPipeline(tp.model, quant_scales=((1.0, (1.0,)),))
     with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
         tp.shard()
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TEditPipeline(tp.model, tiling=object())
+    tiled = TEditPipeline(tp.model, tiling=TilingSpec(ks=(4, 4), stride=(2, 2)))
+    out = tiled.edit_batch(image, mask, ref, steps=2, x_T=x_T, det_first_stage=True)
+    assert out.shape == (2, 32, 32, 3) and np.isfinite(out).all()
     with pytest.raises(ValueError, match="unknown sampler"):
         tp.edit_batch(image, mask, ref, steps=2, sampler="euler", x_T=x_T)
     with pytest.raises(ValueError, match="PLMS requires eta"):

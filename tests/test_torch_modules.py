@@ -309,7 +309,8 @@ def test_port_imports_no_jax_and_nothing_of_pbe_tpu():
             "pbe_tpu_torch/scripts/eval_gmm.py",
             "pbe_tpu_torch/scripts/create_square_gt_for_fid.py",
             "pbe_tpu_torch/training/perceptual.py", "pbe_tpu_torch/training/vae_train.py",
-            "pbe_tpu_torch/models/vae_asym.py"} <= names
+            "pbe_tpu_torch/models/vae_asym.py", "pbe_tpu_torch/models/safety.py",
+            "pbe_tpu_torch/ops/tiling.py"} <= names
     banned = []
     for f in files:
         for mod in _imported_modules(f):

@@ -516,10 +516,33 @@ def test_serve_main_prewarms_and_exits(capsys, quantize):
 @pytest.mark.parametrize("argv,cuda,message", [
     (TINY + ["--data_parallel"], True, "item 11"),
     (["--config", "configs/tiny.yaml"], False, "no CUDA device"),
-    (["--config", "configs/tiny.yaml", "--precision", "full"], True, "bf16"),
-], ids=["data_parallel", "no_card", "fp32_on_the_card"])
+], ids=["data_parallel", "no_card"])
 def test_serve_main_refuses(monkeypatch, argv, cuda, message):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
     with pytest.raises(SystemExit) as e:
         serve.main(argv)
     assert message in str(e.value.code)
+
+
+def test_serve_main_takes_fp32_on_the_card(monkeypatch):
+    """--precision full on the card builds the fp32 pipeline there (the
+    fp32 attention kernels), with TF32 off for matmuls and convolutions."""
+    from pbe_tpu_torch.pipelines import loading
+
+    built = []
+
+    class Built(Exception):
+        pass
+
+    def load_pipeline(*args, device, dtype, **kw):
+        built.append((device, dtype))
+        raise Built  # stop before anything touches the card
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(loading, "load_pipeline", load_pipeline)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(Built):
+        serve.main(["--config", "configs/tiny.yaml", "--precision", "full"])
+    assert built == [("cuda", torch.float32)]
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
