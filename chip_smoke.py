@@ -8,7 +8,8 @@ Phases:
      from csrc/flash_fwd.cu (the models' forward kernels), flash_variants.cu
      (the resident and pipelined kernels), flash_bwd.cu (the backward
      kernels, the d = 512 pair among them) and flash_fp32.cu (the fp32
-     forward, dQ and dK/dV kernels; one nvcc each, started together) and
+     forward, resident, pipelined, dQ and dK/dV kernels; one nvcc each,
+     started together) and
      print each kernel's registers and spills from their -Xptxas -v
      reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
@@ -58,7 +59,14 @@ sixth):
      SDPA, the resident kernel at clusters of 1, 2 and 4; then the bench
      entry (pbe_tpu_torch.scripts.bench_attention) over every shape and
      impl, with every kernel's launch count set to 0 just before and read
-     just after.
+     just after. Then K3 and K4 at fp32 (csrc/flash_fp32.cu) by the same
+     recipe: against the plain version at fp32 (max|err| <= 2^-14
+     max|ref|, rel L2 <= 1e-5, the LSE too) at the same shapes, every fp32
+     key block and cluster size, on randn, peaked and rising-max scores;
+     each flash_forward(variant=...) call on fp32 operands one launch of
+     its fp32 kernel and of no other; each timed beside the plain version,
+     SDPA at fp32 and the FMA bound (rows with "dtype": "float32", their
+     launches those of the flash_forward calls, counted from 0).
 
 The edit CLIs (the seventh slice):
  12. on phase 4's v1 pipeline, a checkpoint of the tensors that
@@ -144,7 +152,12 @@ Evaluation and first-stage training (the tenth slice):
      and on the same stress inputs, each launched twice and compared
      bitwise; max|err| <= 2^-14 max|ref| and rel L2 <= 1e-5. Each timed
      beside its plain version and SDPA at fp32 (its backend named), with its
-     bound at the fp32 FMA rate (rows with "dtype": "float32").
+     bound (rows with "dtype": "float32"): the forward's at the fp32 FMA
+     rate, the dQ and dK/dV kernels' at fp32 accuracy (S on FMA, the other
+     products as 3xTF32 on the tensor cores), the all-FMA bound in the log.
+     On the rising-max inputs, controls for the dQ check: dQ's distance
+     from the plain version and from float64 when computed in other orders
+     and with 3xTF32 products (logged, not checked).
  21. --precision full at full width, each run's launches counted from 0:
      scripts.inference.main on v1 (512^2, PLMS 50, CFG 5; 818 fp32 forward
      launches and no bf16 one), scripts.train.main --precision full on v1
@@ -193,8 +206,11 @@ BF16_FLOP_PER_S = 989e12
 # paper gives it: B*H*N^2 exponentials bind before the products at d=40
 EXP2_PER_S = 3.9e12
 # fp32 FMA outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz): the
-# rate of csrc/flash_fp32.cu's kernels
+# rate of csrc/flash_fp32.cu's forward kernels and of the backward's S
 FP32_FLOP_PER_S = 66.9e12
+# TF32 on the tensor cores (dense): the fp32 backward's other products run
+# there as 3xTF32, three TF32 products each
+TF32_FLOP_PER_S = 495e12
 
 K1 = "pbe_tpu/ops/flash_attention.py:85"   # _flash_kernel_rowblock
 K2 = "pbe_tpu/ops/flash_attention.py:218"  # _flash_kernel (streamed)
@@ -567,6 +583,61 @@ def check_bwd(fa, q, k, v, do, label: str) -> dict:
     return res
 
 
+def dq_order_controls(fa, q, k, v, do, label: str) -> None:
+    """Controls for phase 20's dQ check (fp32 inputs): the rel L2 distance
+    of dQ from flash_bwd_dq_plain's and from the exact dQ given the plain
+    version's fp32 P (dP, dS and dS K in float64) when it is computed (a)
+    by the kernel, (b) in the plain version's order again (this harness,
+    expected 0), (c) with the keys summed in 64-key fp32 partials, (d) with
+    dP rounded once from float64, (e) with dP and (f) with dS K as 3xTF32
+    splits (hi = tf32(x) rounded to nearest, lo = x - hi; lo hi + hi lo +
+    hi hi, each product by cuBLAS at fp32 with TF32 off), (g) exactly after
+    the fp32 P and (h) all in float64, S too. Logged; none is a check."""
+    import torch
+
+    b, n, h, d = q.shape
+    out, lse = fa.flash_fwd(q, k, v, return_lse=True)
+    dd = fa.rowsum_do_o(do, out)
+    got = fa.flash_bwd_dq(q, k, v, do, lse, dd)
+    want = fa.flash_bwd_dq_plain(q, k, v, do, lse, dd)
+    hd = lambda x: x.permute(0, 2, 1, 3).float()  # (B,N,H,D) -> (B,H,N,D)
+    got, want = hd(got), hd(want)
+    lse, dd = lse.reshape(b, h, n, 1), dd.reshape(b, h, n, 1)
+    q2, kh, vh, doh = hd(fa.prescale(q)), hd(k), hd(v), hd(do)
+    vt, c = vh.transpose(-1, -2), d ** -0.5
+
+    def tf32(x):
+        return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    def mm3(x, y):
+        xh, yh = tf32(x), tf32(y)
+        return (x - xh) @ yh + xh @ (y - yh) + xh @ yh
+
+    p = torch.exp2(q2 @ kh.transpose(-1, -2) - lse)
+    dp64 = doh.double() @ vt.double()
+    ds = p * (doh @ vt - dd) * c
+    ways = {"kernel": got, "plain order (harness)": ds @ kh,
+            "64-key fp32 partials": sum(ds[..., i:i + 64] @ kh[:, :, i:i + 64]
+                                        for i in range(0, n, 64)),
+            "dS K as 3xTF32": mm3(ds, kh)}
+    del ds
+    ways["dP as 3xTF32"] = p * (mm3(doh, vt) - dd) * c @ kh
+    ways["dP rounded once from float64"] = p * (dp64.float() - dd) * c @ kh
+    exact = p.double() * (dp64 - dd.double()) * c @ kh.double()
+    ways["exact after the fp32 P"] = exact
+    del p
+    pd = torch.exp2(q2.double() @ kh.double().transpose(-1, -2) - lse.double())
+    ways["all float64 (S too)"] = pd * (dp64 - dd.double()) * c @ kh.double()
+    del pd, dp64
+    rel = lambda x, ref: ((x.double() - ref.double()).norm() / ref.double().norm()).item()
+    log(f"[fp32] dQ controls, {label}: rel L2 from the plain version / from the exact dQ "
+        f"after the fp32 P: " + "; ".join(f"{w} {rel(x, want):.3e} / {rel(x, exact):.3e}"
+                                         for w, x in ways.items())
+        + f" (the check allows {F32_L2_REL} from the plain version)")
+    del got, want, ways, exact
+    torch.cuda.empty_cache()
+
+
 def bound(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float,
           f32: bool = False):
     """(binding term, least ms) for B*H*N^2*D*flop_per_n2d tensor-core FLOP
@@ -575,6 +646,21 @@ def bound(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float,
     terms = (("fma" if f32 else "mma",
               flop_per_n2d * b * h * n * n * d / (FP32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
               * 1e3),
+             ("exp2", 1.0 * b * h * n * n / EXP2_PER_S * 1e3),
+             ("bytes", nbytes / HBM_BYTES_PER_S * 1e3))
+    return max(terms, key=lambda x: x[1])
+
+
+def bound_3xtf32(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float):
+    """(binding term, least ms) of an fp32 backward kernel at fp32 accuracy
+    on this card: S (2 FLOP a B*H*N^2*D) on fp32 FMA, as it must equal the
+    forward's, the other products (flop_per_n2d - 2) as 3xTF32 on the
+    tensor cores (three TF32 products each), B*H*N^2 exponentials and
+    nbytes of device memory traffic, each unit at its peak beside the
+    others."""
+    bhn2d = b * h * n * n * d
+    terms = (("fma", 2.0 * bhn2d / FP32_FLOP_PER_S * 1e3),
+             ("tf32", 3.0 * (flop_per_n2d - 2.0) * bhn2d / TF32_FLOP_PER_S * 1e3),
              ("exp2", 1.0 * b * h * n * n / EXP2_PER_S * 1e3),
              ("bytes", nbytes / HBM_BYTES_PER_S * 1e3))
     return max(terms, key=lambda x: x[1])
@@ -627,7 +713,7 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
     common = {"route": "cuda",
               "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_bwd'}.cu",
               "library": f"sdpa backward ({backend})", **dtype}
-    rows = []
+    rows, fma_bound = [], {}
     for kname, replaces, flop, nbytes, launch, plain in (
             ("flash_bwd_dq", K5, 6.0, 5 * bnhd + 2 * bhn,
              lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd),
@@ -636,6 +722,12 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd),
              lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd))):
         by, ms_bound = bound(flop, b, n, h, d, nbytes, f32)
+        fma_bound[kname] = ms_bound
+        if f32:
+            # the least time at fp32 accuracy: S on FMA, the other products
+            # as 3xTF32 (the dK/dV kernel's design; the dQ kernel runs all
+            # on FMA); the all-FMA bound goes to the log
+            by, ms_bound = bound_3xtf32(flop, b, n, h, d, nbytes)
         outs = ("dq",) if kname == "flash_bwd_dq" else ("dk", "dv")
         rows.append({"name": f"{kname}/{name}", **common, "replaces": replaces,
                      "launches": None, "expected_launches_per_step": per_step,
@@ -663,11 +755,13 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
                  "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                                         20)})
     dq_row, dkv_row, f_row = rows
+    fma = lambda r: (f", all-FMA bound {fma_bound[r['name'].split('/')[0]]:.4f}" if f32
+                     else "")
     log(f"[bwd] {name} {shape} (graph-timed): dq {dq_row['ms']:.4f} ms (eager "
         f"{dq_row['eager_ms']:.4f}, plain {dq_row['plain_ms']:.4f}, bound "
-        f"{dq_row['bound_ms']:.4f}); dkv {dkv_row['ms']:.4f} ms (eager "
+        f"{dq_row['bound_ms']:.4f}{fma(dq_row)}); dkv {dkv_row['ms']:.4f} ms (eager "
         f"{dkv_row['eager_ms']:.4f}, plain {dkv_row['plain_ms']:.4f}, bound "
-        f"{dkv_row['bound_ms']:.4f}); pair {dq_row['ms'] + dkv_row['ms']:.4f} ms vs SDPA "
+        f"{dkv_row['bound_ms']:.4f}{fma(dkv_row)}); pair {dq_row['ms'] + dkv_row['ms']:.4f} ms vs SDPA "
         f"backward {sdpa_bwd_ms:.4f} ms ({backend}); fwd+lse {f_row['ms']:.4f} ms (plain "
         f"{f_row['plain_ms']:.4f}, SDPA {f_row['library_ms']:.4f} {f_row['library']}, bound "
         f"{f_row['bound_ms']:.4f})")
@@ -822,6 +916,7 @@ def phase_fp32_kernels() -> list[dict]:
         check_bwd(fa, q * 8, k * 8, v, do, f"fp32 peaked (q, k x8) {shape}")
         qr, kr = rising_scores(shape, gen, torch.float32)
         check_bwd(fa, qr, kr, v, do, f"fp32 rising max {shape}")
+        dq_order_controls(fa, qr, kr, v, do, f"rising max {shape}")
         q, k, v = rand((b, n, 3, h, d)).unbind(2)
         check_bwd(fa, q, k, v, do, f"fp32 packed qkv views {shape} strides {q.stride()}")
         del q, k, v, do, qr, kr
@@ -962,6 +1057,117 @@ def phase_variants() -> list[dict]:
         row["launches"] = counts[kern.symbol][1].get(bench.SHAPES[row["name"].split("/")[1]], 0)
         if not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on the bench entry's path")
+    return rows
+
+
+def phase_variants_f32() -> list[dict]:
+    """Phase 11 at fp32: K3 and K4 of csrc/flash_fp32.cu against
+    flash_attention_plain at fp32 (F32_MAX_REL, F32_L2_REL, the LSE too) at
+    VARIANT_CHECKS and the benchmark's shapes, at every fp32 key block and
+    every cluster size of K3, on randn, peaked (q, k x8) and rising-max
+    scores; each flash_forward(variant=...) call on fp32 operands launching
+    its fp32 kernel once and no other kernel (counted by dtype); then each
+    kernel timed (a CUDA graph of 20 calls) beside the plain version, SDPA
+    at fp32 and its bound at the fp32 FMA rate. A row's launches ("dtype":
+    "float32") are its kernel's fp32 launches by the flash_forward calls at
+    its shape, every count set to 0 just before them; no path of the edit or
+    of training runs K3 or K4 (phase 21 counts them there)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import bench_attention as bench
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda")
+    kernels = {"resident": fa.flash_fwd_resident, "pipelined": fa.flash_fwd_pipelined}
+    fwd_kernels = {"flash_fwd": fa.flash_fwd, **{f"flash_fwd_{v}": k for v, k in kernels.items()}}
+    t0 = time.perf_counter()
+
+    def check_all(q, k, v, label):
+        """every fp32 launch of K3 and K4 on (q, k, v) -> {variant: (max
+        err, max lse err)}"""
+        want = fa.flash_attention_plain(q, k, v, return_lse=True)
+        dp = (q.shape[3] + 15) // 16 * 16
+        errs = {}
+        for variant, kern in kernels.items():
+            clusters = fa.CLUSTER_SIZES if variant == "resident" else (None,)
+            e = [compare_flash(kern(q, k, v, return_lse=True, block=blk,
+                                    **({"cluster": c} if c else {})), want,
+                               f"fp32 {variant} {label} {tuple(q.shape)} block {blk}"
+                               + (f" cluster {c}" if c else ""))
+                 for blk in fa.block_table(variant, f32)[1][dp] for c in clusters]
+            errs[variant] = (max(x for x, _ in e), max(y for _, y in e))
+        return errs
+
+    for shape in VARIANT_CHECKS:
+        check_all(rand(shape), rand(shape), rand(shape), "check")
+
+    rows = []
+    for name, shape in bench.SHAPES.items():
+        b, n, h, d = shape
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        want = fa.flash_attention_plain(q, k, v, return_lse=True)
+        # every flash_forward(variant=...) call on fp32 operands: the plain
+        # version's O and LSE, and one fp32 launch of its kernel
+        for kern in fwd_kernels.values():
+            kern.reset()
+        for variant in fa.VARIANTS:
+            before = {kn: dict(kern.launches_by_dtype) for kn, kern in fwd_kernels.items()}
+            compare_flash(fa.flash_forward(q, k, v, variant=variant, return_lse=True), want,
+                          f"fp32 flash_forward(variant={variant!r}) {name} {shape}")
+            diff = {kn: {dt: c - before[kn].get(dt, 0) for dt, c in
+                         kern.launches_by_dtype.items() if c != before[kn].get(dt, 0)}
+                    for kn, kern in fwd_kernels.items()}
+            mine = f"flash_fwd_{variant}" if variant in kernels else "flash_fwd"
+            if diff != {kn: ({"float32": 1} if kn == mine else {}) for kn in fwd_kernels}:
+                raise AssertionError(f"fp32 flash_forward(variant={variant!r}) at {shape} "
+                                     f"launched {diff}")
+        launches = {kn: kern.launches_by_dtype["float32"] for kn, kern in fwd_kernels.items()}
+        log(f"[variants-f32] {name}: each fp32 flash_forward variant launched its own fp32 "
+            f"kernel once: {launches}")
+        qr, kr = rising_scores(shape, gen, f32)
+        check_all(qr, kr, v, "rising max")
+        check_all(q * 8, k * 8, v, "peaked (q, k x8)")
+        del qr, kr
+        errs = check_all(q, k, v, name)
+
+        plain_ms = graph_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+        backend = sdpa_backend(qt, kt, vt)
+        by, ms_bound = bound(4.0, b, n, h, d, 4 * b * n * h * d * 4, f32=True)
+        for variant, kern in kernels.items():
+            row = {"name": f"flash_fwd_{variant}/f32_{name}", "route": "cuda",
+                   "source": "pbe_tpu_torch/csrc/flash_fp32.cu",
+                   "replaces": K3 if variant == "resident" else K4, "dtype": "float32",
+                   "launches": launches[f"flash_fwd_{variant}"],
+                   "max_abs_err": errs[variant][0],
+                   "lse_max_abs_err": errs[variant][1],
+                   "ms": graph_ms(lambda: kern(q, k, v), 20), "plain_ms": plain_ms,
+                   "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
+                   "library": f"sdpa ({backend})", "library_ms": sdpa_ms,
+                   "block": fa.key_block(variant, d, dtype=f32)}
+            if variant == "resident":
+                row["cluster"] = fa.resident_cluster(
+                    shape, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+                row["cluster_ms"] = {c: graph_ms(lambda: kern(q, k, v, cluster=c), 20)
+                                     for c in fa.CLUSTER_SIZES}
+                extra = (f", cluster {row['cluster']}; at C = 1/2/4: "
+                         + " / ".join(f"{t:.4f}" for t in row["cluster_ms"].values()))
+            else:
+                # S twice: 6*BH*N^2*D FLOP at the FMA rate, a floor the run
+                # computes (the row holds measured times only)
+                extra = (f", product floor "
+                         f"{6.0 * b * h * n * n * d / FP32_FLOP_PER_S * 1e3:.4f}")
+            log(f"[variants-f32] {variant} {name} {shape} (block {row['block']}{extra}): "
+                f"{row['ms']:.4f} ms (graph), plain {plain_ms:.4f}, SDPA {sdpa_ms:.4f} "
+                f"({backend}), bound {ms_bound:.4f} by {by}")
+            rows.append(row)
+        del q, k, v, qt, kt, vt, want
+        torch.cuda.empty_cache()
+    log(f"[variants-f32] every check passed and timed in {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -2589,7 +2795,8 @@ def phase_precision_full(ckpt: str, card: str, rows: list[dict]) -> dict:
     """Phase 21: --precision full through the CLIs on the card at full
     width, with every kernel's counts set to 0 just before each run and
     read just after: (a) scripts.inference.main on configs/v1.yaml, a 512^2
-    50-step PLMS edit at CFG 5 (818 fp32 forward launches, no bf16 one);
+    50-step PLMS edit at CFG 5 (818 fp32 forward launches, no bf16 one and
+    no other kernel);
     (b) scripts.train.main --precision full on v1, batch 4, 512^2, 4 steps
     over a synthetic OpenImages tree: each step launches the fp32 forward,
     dQ and dK/dV kernels as often as phase 9's bf16 step launches the bf16
@@ -2627,6 +2834,10 @@ def phase_precision_full(ckpt: str, card: str, rows: list[dict]) -> dict:
             f"{LAUNCHES_PER_EDIT}), by shape {fwd_shape}; result {result.shape} mean "
             f"{result.mean():.2f}")
         only_fp32(counts, "the fp32 edit")
+        others = {k: v[0] for k, v in counts.items() if k != "flash_fwd" and v[0]}
+        if others:
+            raise AssertionError(f"the fp32 edit launched other kernels than the forward: "
+                                 f"{others}")
         if fwd_dtype != {"float32": LAUNCHES_PER_EDIT} or result.shape != (512, 512, 3):
             raise AssertionError(f"the fp32 edit launched {fwd_dtype} or wrote {result.shape}")
         for name, shape, _, per_edit in FLASH_SHAPES:
@@ -3072,7 +3283,7 @@ def main() -> int:
     train_rows = phase_train_kernels()
     vae_rows = phase_vae_kernels()
     f32_rows = phase_fp32_kernels()
-    variant_rows = phase_variants()
+    variant_rows = phase_variants() + phase_variants_f32()
     from pbe_tpu_torch.pipelines.loading import (eps_rms_probe, load_pipeline,
                                                  randomize_zero_params)
 

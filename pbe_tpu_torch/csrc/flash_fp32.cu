@@ -1,16 +1,19 @@
-// Flash attention at fp32 for Hopper (sm_90a): the forward, the dQ and the
-// dK/dV kernels for fp32 operands, on the SIMT cores' fp32 FMA.
+// Flash attention at fp32 for Hopper (sm_90a): the forward, its resident
+// and pipelined variants, and the dQ and dK/dV kernels for fp32 operands.
 //
 // The Pallas kernels of pbe_tpu/ops/flash_attention.py run in their
-// operands' dtype: at fp32 (the JAX CLIs' --precision full) q/k/v stay fp32
-// and the casts of P and dS before their products (:101, :159, :253, :436,
-// :471, :480) do nothing. These kernels are that case:
-//   pbe_flash_fwd_f32      K1 _flash_kernel_rowblock (:85) and K2
-//                          _flash_kernel (:218), via _flash_fwd_bhnd (:282):
-//                          the UNet's d = 40/80/160 and the VAE's 512
-//   pbe_flash_bwd_dq_f32   K5 _flash_bwd_dq_kernel (:408), via
-//                          _flash_bwd_bhnd (:490)
-//   pbe_flash_bwd_dkv_f32  K6 _flash_bwd_dkv_kernel (:445)
+// operands' dtype: at fp32 (the JAX CLIs' --precision full, and the JAX
+// package's own tests of every variant) q/k/v stay fp32 and the casts of P
+// and dS before their products (:101, :159, :253, :436, :471, :480) do
+// nothing. These kernels are that case:
+//   pbe_flash_fwd_f32        K1 _flash_kernel_rowblock (:85) and K2
+//                            _flash_kernel (:218), via _flash_fwd_bhnd (:282):
+//                            the UNet's d = 40/80/160 and the VAE's 512
+//   pbe_flash_resident_f32   K3 _flash_kernel_resident (:182)
+//   pbe_flash_pipelined_f32  K4 _flash_kernel_pipelined (:111)
+//   pbe_flash_bwd_dq_f32     K5 _flash_bwd_dq_kernel (:408), via
+//                            _flash_bwd_bhnd (:490)
+//   pbe_flash_bwd_dkv_f32    K6 _flash_bwd_dkv_kernel (:445)
 // and compute, with every value fp32 and nothing rounded to a narrower type:
 //   q2 = q * d^-1/2 * log2(e)
 //   forward:  S = q2 K^T, P = exp2(S - m), O = (P V) / l, LSE = m + log2(l)
@@ -18,57 +21,108 @@
 //             dQ = dS K, dK = dS^T Q, dV = P^T dO   (D = rowsum(dO * O))
 // ops/flash_attention.py's flash_attention_plain and
 // flash_attention_bwd_plain compute the same at fp32. The arguments are
-// the bf16 twins' (csrc/flash_fwd.cu, csrc/flash_bwd.cu): strided (B, N, H,
-// D) operands, the LSE and D as (B*H, N) fp32 with the LSE in the log2
-// domain, outputs contiguous (B, N, H, D).
+// the bf16 twins' (csrc/flash_fwd.cu, csrc/flash_variants.cu,
+// csrc/flash_bwd.cu): strided (B, N, H, D) operands, the LSE and D as (B*H,
+// N) fp32 with the LSE in the log2 domain, outputs contiguous (B, N, H, D).
+// Every output tile has one owner: no atomics, and a repeated launch gives
+// the same bits.
 //
-// Design: a first kernel that is right, on fp32 FFMA (the tensor cores'
-// TF32 keeps ~3 decimal digits, too few for an fp32 result). Each block
-// takes one tile of rows of one head and loops over the other axis inside
-// the block, as the bf16 kernels do; every output tile has one owner, so
-// there are no atomics and a repeated launch gives the same bits.
+// The forward kernels run on the SIMT cores' fp32 FMA (1xTF32 keeps ~3
+// decimal digits, too few for an fp32 result):
 //   * Tiles are fp32 in shared memory, row-major with a pitch of DP + 4
 //     floats, read as float4. 256 threads: thread t = 16 ty + tx owns rows
 //     ty + 16 i of every tile it computes and columns tx + 16 j (scores) or
 //     VW tx + 16 VW j + e (head dim, VW = 4/2/1 by padded head dim), so
 //     the 16 lanes sharing a row are one half-warp: row max and row sum
 //     are 4 xor shuffles, and every lane ends with the same bits.
-//   * abt: a product A B^T of two row-major tiles (S = q2 K^T, dP = dO V^T,
-//     S^T = K q2^T, dP^T = V dO^T); per 4 columns of the head dim a thread
-//     loads TM + TN float4 and does 4 TM TN FMA. The pitch DP + 4 (an odd
-//     multiple of 4 floats over 32 banks) makes 8 neighbouring rows' float4
-//     hit 8 distinct bank groups.
-//   * ab: a product A B of a score tile and a row-major operand (P V,
-//     dS K, P^T dO, dS^T q2) into the register accumulator.
-//   * The forward keeps m, l and O in registers (online softmax); P goes
-//     through a (rows x BK) shared tile between the two products. The dQ
-//     kernel holds q2 and dO, the dK/dV kernel K and V, and streams the
-//     other operands' tiles. The dK/dV kernel keeps only q2, the forward's
-//     prescaled q bit for bit, and takes dK = (dS^T q2) / (d^-1/2 log2 e):
-//     scaling S^T = K Q^T after the product instead moves an exponent of a
-//     few hundred (peaked scores) by an ulp, which P then carries (rel L2
-//     3e-5 on an H100), while the division moves dK by an ulp alone.
-//   * Keys (forward, dQ) or queries (dK/dV) past N, all in the last tile,
-//     get S = -inf or P = 0; rows past N are zero-filled and never stored.
-//   * Tiles arrive by 16-byte cp.async copies, all of a tile in flight at
-//     once, with three __syncthreads a tile (tiles in, P or dS written,
-//     product done).
-// Tiles (rows a block x streamed tile, 256 threads), shared memory:
+//   * abt: a product A B^T of two row-major tiles (S = q2 K^T); per 4
+//     columns of the head dim a thread loads TM + TN float4 and does 4 TM
+//     TN FMA, each score one fmaf chain over the head dim from column 0.
+//     The pitch DP + 4 (an odd multiple of 4 floats over 32 banks) makes 8
+//     neighbouring rows' float4 hit 8 distinct bank groups. ab: a score
+//     tile times a row-major operand (P V) into the register accumulator.
+//   * m, l and O stay in registers (online softmax); P goes through a (rows
+//     x BK) shared tile between the two products. Keys past N get S = -inf;
+//     rows past N are zero-filled and never stored.
+//   * K1/K2 (flash_fwd_f32_kernel): a q tile resident, key tiles by 16-byte
+//     cp.async, all of a tile in flight at once, three __syncthreads a tile.
+//   * K3 (flash_resident_f32_kernel): the same tiles and softmax step, but,
+//     as the bf16 K3 does, a thread-block cluster of C = 1, 2 or 4 blocks
+//     (neighbouring q tiles of one head) shares each key tile: a producer
+//     warp a block copies rows r, r + C, ... of the tile's K and V (rank r)
+//     by cp.async.bulk ... multicast::cluster into the same offset of every
+//     block's ring of up to 3 stages; full/empty mbarriers (empty released
+//     by remote arrives of the C x 8 consumer warps); P double-buffered with
+//     one named barrier of the 256 consumers a tile. The ring is zeroed
+//     once, so rows past N hold zeros or an earlier tile's finite values.
+//   * K4 (flash_pipelined_f32_kernel): pass 1 takes the row max over every
+//     chunk of block_c keys (K only, no exp2), pass 2 forms P = exp2(S -
+//     m_final) with no rescale and sums l and P V; chunks arrive by
+//     cp.async into a 2-stage ring (1 where two do not fit), the next in
+//     flight while this one is computed. At d = 512 with block_c 64, pass 2
+//     takes each chunk's K and V in two halves of 32 keys, as 64 rows of
+//     both do not fit beside q. It does the S product twice: 6 BH N^2 D.
+// The backward:
+//   * dQ (flash_bwd_dq_f32_kernel) keeps the plain version's order on FMA:
+//     q2 and dO of BQ rows resident, S and dP by abt, dS through shared
+//     memory, dQ += dS K by ab, each element one fmaf chain in key order
+//     (cuBLAS's, so dQ is bit for bit the plain version's at the training
+//     shapes). K and V tiles arrive by cp.async into a 2-stage ring, the
+//     next in flight while this one is computed (one stage where two would
+//     halve the blocks an SM), 2 barriers a tile. Its products stay off the
+//     tensor cores: on chip_smoke.py phase 20's rising-max inputs a dS row
+//     sums to 0 against a key column that grows with the key, and dQ there
+//     sits past rel L2 1e-5 of the plain version under any other order of
+//     the fp32 sums, 3xTF32 or not (phase 20 logs these controls).
+//   * dK/dV (flash_bwd_dkv_f32_kernel) puts every product but S on the
+//     tensor cores: dP^T = V dO^T, dV += P^T dO and dK += dS^T q2 as
+//     mma.sync.m16n8k8 tf32 with fp32 accumulators in 3xTF32: each operand
+//     splits into hi = tf32(x) (cvt.rna's rounding) and lo = x - hi, and a
+//     product is lo hi + hi lo + hi hi. The tensor cores add with
+//     truncation, so each product sums at most 8 k8 steps into zeroed
+//     partials (hi hi in one, the small terms in another: two chains of
+//     dependent mma), which join the result in fp32.
+//   * S^T stays on FFMA and equals the forward's bit for bit: each score is
+//     one fmaf chain over the head dim from column 0 (scores_c, abt's
+//     order), q2 the forward's prescaled q. A one-ulp shift of an exponent
+//     of a few hundred (peaked scores) moves P by far more than the
+//     tolerance, so S is never re-associated or moved to the tensor cores.
+//     scores_c computes S^T in the mma's C layout, so it meets dP^T in
+//     registers; and as a k8 step's slot t may take query 2t and slot t + 4
+//     query 2t + 1, the C fragment of P^T or dS^T is the A fragment of the
+//     next product as it stands. A warp owns 16 keys; q tiles (q scaled
+//     into q2 by the threads that copied it) with their LSE and D arrive by
+//     cp.async into a 2-stage ring, one barrier a tile.
+//   * At d = 160 and 512 the head dim of dK and dV is split over SPLIT
+//     warps (2 or 4): each scores 1/SPLIT of the q tile, P^T and dS^T meet
+//     in shared memory, and each warp multiplies them into its slice (at
+//     512, 8 n8 tiles at a time). At d = 512 a block is 16 keys: K and V
+//     take 66 KB, one stage of q2 and dO 132 KB, one block an SM.
+// Tiles (rows a block x streamed rows; ring stages), shared memory:
 //   forward  DP <= 80: 64 x 64;  160: 64 x 32;  512: 32 x 32  (202,752 B)
-//   dQ       DP <= 80: 64 x 64;  160: 32 x 32;  512: 16 x 32  (200,448 B)
-//   dK/dV    DP <= 80: 64 x 32;  160: 32 x 32;  512: 16 x 32  (203,008 B)
-// At d = 512 a block holds three 32-row fp32 tiles of 66 KB, one block an
-// SM; the accumulators are 64 registers a thread (O; dK + dV).
-// Bound on an H100 SXM (fp32 FMA: 132 SMs x 128 lanes x 2 x 1.98 GHz =
-// 66.9 TFLOP/s; 3.35 TB/s): the forward does 4 BH N^2 d FLOP, the dQ kernel
-// 6 and the dK/dV kernel 8, so every shape of the edit and of training is
-// bound by the FMA rate (K1 at (2, 4096, 8, 40): 42.9 GFLOP, 0.64 ms).
-// chip_smoke.py phase 20 holds each kernel against its plain version and
-// times it beside that bound.
+//   dQ       DP <= 32: 64 x 64, 2;  48: 128 x 64, 2;  80: 64 x 64, 1;
+//            160: 64 x 32, 2 (N <= 128: 32 x 32, 1);  512: 32 x 16, 1
+//            (200,704 B)
+//   dK/dV    DP <= 80: 64 x 32, 2 (4 warps);  160: 64 x 32, 2 (8 warps;
+//            N <= 128: 32 x 32, 2, 4 warps);  512: 16 x 32, 1 (4 warps;
+//            203,520 B)
+// Bound on an H100 SXM: the forward does 4 BH N^2 d FLOP on fp32 FMA
+// (132 SMs x 128 lanes x 2 x 1.98 GHz = 66.9 TFLOP/s; K1 at (2, 4096, 8,
+// 40): 42.9 GFLOP, 0.64 ms). At fp32 accuracy the backward's S (2 BH N^2
+// d FLOP) stays on FMA and the rest can run as 3xTF32 (495 TFLOP/s of
+// TF32): the dQ kernel's 4 BH N^2 d as 12, the dK/dV kernel's 6 as 18; at
+// (4, 4096, 8, 40) 0.64 ms for dQ (its S binds) and 0.78 ms for dK/dV,
+// the bounds chip_smoke.py states (the dQ kernel's all-FMA 1.93 ms). Phases 20
+// and 11 hold each kernel against its plain version and time it beside
+// its bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_sm90.cuh"  // cp.async, mbarriers, bulk copies, clusters
 
 namespace {
 
@@ -128,6 +182,18 @@ __device__ __forceinline__ float lane4(const float4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc += x . y as four fmaf in column order
+__device__ __forceinline__ void fma4(float& acc, const float4& x, const float4& y) {
+  acc = fmaf(x.x, y.x, acc);
+  acc = fmaf(x.y, y.y, acc);
+  acc = fmaf(x.z, y.z, acc);
+  acc = fmaf(x.w, y.w, acc);
+}
+
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
   for (int o = 1; o < CT; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -146,38 +212,46 @@ __device__ __forceinline__ const float* head(const Args& a, int i, int bh) {
          (long long)(bh % a.H) * a.st[3 * i + 2];
 }
 
-// 16 bytes from src into shared memory, or 16 zero bytes where !valid (src
-// is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-// rows [r0, r0 + ROWS) of operand i's head bh into a (ROWS x LD) tile,
-// multiplied by mul; rows >= N and columns >= D are zero. 16-byte cp.async
-// copies, all in flight at once (D % 8 == 0 and 16-byte aligned rows are
-// checked by the wrapper); with mul != 1 each thread then scales the very
-// chunks it copied, which its wait has made visible to it. The caller's
-// next __syncthreads publishes the tile.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const Args& a, int i, int bh, int r0,
-                                          float mul) {
+// rows [r0, r0 + ROWS) of operand i's head bh into a (ROWS x DP + 4) tile
+// by 16-byte cp.async copies issued by NT threads (this one at threadIdx.x
+// < NT), not waited for; rows >= N and columns >= D are zero-filled (D % 8
+// == 0 and 16-byte aligned rows are checked by the wrapper)
+template <int DP, int ROWS, int NT = THREADS>
+__device__ __forceinline__ void copy_tile(float* dst, const Args& a, int i, int bh, int r0) {
   constexpr int LD = DP + 4, CH = DP / 4;
   const float* src = head(a, i, bh);
   const long long rs = a.st[3 * i + 1];
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
     const int r = idx / CH, c = (idx % CH) * 4;
     const bool valid = r0 + r < a.N && c < a.D;
     cp_async16(dst + r * LD + c, valid ? src + (long long)(r0 + r) * rs + c : src, valid);
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  if (mul != 1.f) {
-    for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
-      float4* v = reinterpret_cast<float4*>(dst + (idx / CH) * LD + (idx % CH) * 4);
-      *v = make_float4(v->x * mul, v->y * mul, v->z * mul, v->w * mul);
-    }
+}
+
+// the chunks of a tile that this thread copied by copy_tile<DP, ROWS, NT>
+// multiplied by mul, once its wait has made them visible to it
+template <int DP, int ROWS, int NT = THREADS>
+__device__ __forceinline__ void scale_tile(float* dst, float mul) {
+  constexpr int LD = DP + 4, CH = DP / 4;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
+    float4* v = reinterpret_cast<float4*>(dst + (idx / CH) * LD + (idx % CH) * 4);
+    *v = make_float4(v->x * mul, v->y * mul, v->z * mul, v->w * mul);
   }
+}
+
+// copy_tile, waited for, times mul; the caller's next barrier publishes it
+template <int DP, int ROWS, int NT = THREADS>
+__device__ __forceinline__ void load_tile(float* dst, const Args& a, int i, int bh, int r0,
+                                          float mul) {
+  copy_tile<DP, ROWS, NT>(dst, a, i, bh, r0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (mul != 1.f) scale_tile<DP, ROWS, NT>(dst, mul);
+}
+
+// 4 bytes from src into shared memory, or 0 where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 // acc[i][j] += sum_{c < kdim} A[ty + RT i][c] B[tx + CT j][c]: A B^T of two
@@ -189,20 +263,13 @@ __device__ __forceinline__ void abt(float (&acc)[TM][TN], const float* A, int ld
   for (int c = 0; c < kdim; c += 4) {
     float4 x[TM], y[TN];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-      x[i] = *reinterpret_cast<const float4*>(A + (ty + RT * i) * lda + c);
+    for (int i = 0; i < TM; ++i) x[i] = ld4(A + (ty + RT * i) * lda + c);
 #pragma unroll
-    for (int j = 0; j < TN; ++j)
-      y[j] = *reinterpret_cast<const float4*>(B + (tx + CT * j) * ldb + c);
+    for (int j = 0; j < TN; ++j) y[j] = ld4(B + (tx + CT * j) * ldb + c);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
-      }
+      for (int j = 0; j < TN; ++j) fma4(acc[i][j], x[i], y[j]);
   }
 }
 
@@ -217,8 +284,7 @@ __device__ __forceinline__ void ab(float (&acc)[TM][Cols<DP>::N], const float* A
   for (int k = 0; k < KD; k += 4) {
     float4 x[TM];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-      x[i] = *reinterpret_cast<const float4*>(A + (ty + RT * i) * lda + k);
+    for (int i = 0; i < TM; ++i) x[i] = ld4(A + (ty + RT * i) * lda + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float* row = B + (k + kk) * ldb;
@@ -233,6 +299,38 @@ __device__ __forceinline__ void ab(float (&acc)[TM][Cols<DP>::N], const float* A
             acc[i][C::VW * j + e] = fmaf(lane4(x[i], kk), y[e], acc[i][C::VW * j + e]);
       }
     }
+  }
+}
+
+// One online-softmax step over a TM x TN score tile of keys from k0 (n
+// keys in all): keys past n to -inf, the row max over the half-warp, l and
+// o rescaled by exp2(m_old - m_new), P = exp2(S - m) into sP (pitch ldp)
+// and its row sum added to l
+template <int TM, int TN, int NC>
+__device__ __forceinline__ void softmax_tile(float (&s)[TM][TN], float* sP, int ldp,
+                                             float (&m)[TM], float (&l)[TM], float (&o)[TM][NC],
+                                             int k0, int n, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (k0 + tx + CT * j >= n) s[i][j] = -INFINITY;  // keys past N
+      mx = fmaxf(mx, s[i][j]);
+    }
+    const float mn = fmaxf(m[i], half_warp_max(mx));  // finite: key k0 < N is in
+    const float alpha = exp2f(m[i] - mn);              // 0 at the first tile
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float p = exp2f(s[i][j] - mn);
+      sP[(ty + RT * i) * ldp + tx + CT * j] = p;
+      sum += p;
+    }
+    l[i] = l[i] * alpha + half_warp_sum(sum);
+    m[i] = mn;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o[i][c] *= alpha;
   }
 }
 
@@ -258,6 +356,18 @@ __device__ __forceinline__ void store_rows(float* out, const Args& a, int bh, in
       for (int e = 0; e < C::VW; ++e) y[e] = acc[i][C::VW * j + e] / div[i];
       stv<C::VW>(dst + C::col(tx, j), y);
     }
+  }
+}
+
+// the forward's LSE m + log2(l) of rows [r0, r0 + RT TM), where asked for
+template <int TM>
+__device__ __forceinline__ void store_lse(const Args& a, int bh, int r0, const float (&m)[TM],
+                                          const float (&l)[TM], int ty, int tx) {
+  if (a.lse_out == nullptr || tx != 0) return;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = r0 + ty + RT * i;
+    if (row < a.N) a.lse_out[(long long)bh * a.N + row] = m[i] + log2f(l[i]);
   }
 }
 
@@ -295,65 +405,475 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Args a) {
     __syncthreads();
     float s[T::TM][T::TN] = {};
     abt<T::TM, T::TN>(s, sQ, T::LD, sK, T::LD, a.D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < T::TM; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < T::TN; ++j) {
-        if (k0 + tx + CT * j >= n) s[i][j] = -INFINITY;  // keys past N
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], half_warp_max(mx));  // finite: key k0 < N is in
-      const float alpha = exp2f(m[i] - mn);              // 0 at the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < T::TN; ++j) {
-        const float p = exp2f(s[i][j] - mn);
-        sP[(ty + RT * i) * T::LDP + tx + CT * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(sum);
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < C::N; ++c) o[i][c] *= alpha;
-    }
+    softmax_tile<T::TM, T::TN, C::N>(s, sP, T::LDP, m, l, o, k0, n, ty, tx);
     __syncthreads();  // P is whole
     ab<T::TM, DP, BK>(o, sP, T::LDP, sV, T::LD, ty, tx);
     __syncthreads();  // K, V and P are free for the next tile
   }
   store_rows<T::TM, DP>(a.out[0], a, bh, q0, o, l, ty, tx);
-  if (a.lse_out != nullptr && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < T::TM; ++i) {
-      const int row = q0 + ty + RT * i;
-      if (row < n) a.lse_out[(long long)bh * n + row] = m[i] + log2f(l[i]);
+  store_lse<T::TM>(a, bh, q0, m, l, ty, tx);
+}
+
+// --- K3, resident: the forward's tiles and softmax step over key tiles of
+// BK that the blocks of a cluster share
+
+// the key blocks instantiated at each padded head dim; ops/flash_attention.py
+// RESIDENT_BLOCKS_F32 lists the same
+constexpr bool resident_f32_instantiated(int dp, int bk) {
+  return (bk < 128 || dp <= 48) && (dp < 512 || bk == 32);
+}
+
+template <int DP, int BK>
+struct ResF32 {
+  static constexpr int BQ = DP == 512 ? 32 : 64, TM = BQ / RT, TN = BK / CT;
+  static constexpr int LD = DP + 4, LDP = BK + 4, TE = BK * LD;  // TE: floats of a K or V tile
+  static constexpr size_t STAGE = 2 * size_t(TE) * 4;             // bytes of K and V
+  static constexpr size_t FIXED = (size_t(BQ) * LD + 2 * size_t(BQ) * LDP) * 4;  // q, P x 2
+  static constexpr int STAGES = FIXED + 3 * (STAGE + 16) <= kSmemPerBlock   ? 3
+                                : FIXED + 2 * (STAGE + 16) <= kSmemPerBlock ? 2
+                                                                            : 1;
+  static constexpr size_t OFF_KV = size_t(BQ) * LD * 4;
+  static constexpr size_t OFF_P = OFF_KV + STAGES * STAGE;
+  static constexpr size_t OFF_BAR = OFF_P + 2 * size_t(BQ) * LDP * 4;
+  static constexpr size_t SMEM = OFF_BAR + 2 * STAGES * 8;
+  static_assert(BQ % RT == 0 && BK % CT == 0 && SMEM <= kSmemPerBlock, "resident tile");
+};
+
+// The producer warp: key tiles [0, tiles) of head bh's K and V into stage j
+// % STAGES of every block's ring (K at 2 stage TE, V at + TE). This block
+// (rank r of C) copies rows r, r + C, ... of the tile's K, then of its V,
+// one bulk copy a row multicast to all C blocks; each block's full barrier
+// expects the whole tile's bytes. A stage is refilled once this block's
+// empty barrier has had every consumer warp of the cluster.
+template <int DP, int BK>
+__device__ __forceinline__ void produce(float* ring, uint64_t* bars, const Args& a, int bh) {
+  using T = ResF32<DP, BK>;
+  constexpr int STAGES = T::STAGES;
+  const int lane = threadIdx.x % 32, n = a.N;
+  const int rank = (int)cluster_rank(), csize = (int)cluster_blocks();
+  const uint16_t mask = csize == 1 ? 0 : (uint16_t)((1u << csize) - 1);
+  const float* kb = head(a, 1, bh);
+  const float* vb = head(a, 2, bh);
+  const uint32_t row_bytes = a.D * 4;  // a multiple of 32: d % 8 == 0
+  const int tiles = (n + BK - 1) / BK;
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % STAGES, rows = min(BK, n - j * BK);
+    if (j >= STAGES) mbar_wait(&bars[STAGES + s], (j / STAGES - 1) & 1);
+    if (lane == 0) mbar_expect_tx(&bars[s], 2 * rows * row_bytes);
+    float* stage = ring + s * 2 * T::TE;
+    for (int i = rank + csize * lane; i < 2 * rows; i += 32 * csize) {
+      const bool is_v = i >= rows;
+      const int r = is_v ? i - rows : i;
+      const long long row = j * BK + r;
+      bulk_copy(stage + (is_v ? T::TE : 0) + r * T::LD,
+                is_v ? vb + row * a.st[7] : kb + row * a.st[4], row_bytes, &bars[s], mask);
     }
   }
 }
 
-// --- dQ: q2 and dO tiles of BQ rows resident, K and V tiles of BK streamed
-template <int DP, int BQ, int BK>
+template <int DP, int BK>
+__global__ void __launch_bounds__(THREADS + 32, 1) flash_resident_f32_kernel(const Args a) {
+  using T = ResF32<DP, BK>;
+  using C = Cols<DP>;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_P);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);  // full, then empty
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N;
+  // set-up: the ring zeroed (bulk copies write only columns [0, d) of rows
+  // before N), the barriers initialised (full: one arrival, this block's
+  // expect_tx; empty: the cluster's consumer warps) and the q tile loaded
+  // by the consumers; then a cluster sync, after which any block may copy
+  // into any other's ring and arrive on its barriers
+  for (int i = threadIdx.x; i < int(T::STAGES * T::STAGE / 16); i += THREADS + 32)
+    smem4[T::OFF_KV / 16 + i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&bars[s], 1);
+      mbar_init(&bars[T::STAGES + s], cluster_blocks() * (THREADS / 32));
+    }
+  if (threadIdx.x < THREADS) load_tile<DP, T::BQ>(sQ, a, 0, bh, q0, a.scale_log2);
+  fence_barrier_init();
+  cluster_sync();
+
+  if (threadIdx.x >= THREADS) {
+    produce<DP, BK>(ring, bars, a, bh);
+  } else {
+    const int tx = threadIdx.x % CT, ty = threadIdx.x / CT, lane = threadIdx.x % 32;
+    float o[T::TM][C::N], m[T::TM], l[T::TM];
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < C::N; ++c) o[i][c] = 0.f;
+    }
+    const int tiles = (n + BK - 1) / BK;
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % T::STAGES;
+      mbar_wait(&bars[s], (j / T::STAGES) & 1);
+      const float* sK = ring + s * 2 * T::TE;
+      float* sPj = sP + (j & 1) * T::BQ * T::LDP;  // P of tile j - 2 is read: the barrier below
+      float sc[T::TM][T::TN] = {};
+      abt<T::TM, T::TN>(sc, sQ, T::LD, sK, T::LD, a.D, ty, tx);
+      softmax_tile<T::TM, T::TN, C::N>(sc, sPj, T::LDP, m, l, o, j * BK, n, ty, tx);
+      // the consumers' barrier: P is whole
+      asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+      ab<T::TM, DP, BK>(o, sPj, T::LDP, sK + T::TE, T::LD, ty, tx);
+      // this warp is done with the stage: one arrival on its empty barrier
+      // in every block of the cluster
+      __syncwarp();
+      if (lane < (int)cluster_blocks()) mbar_arrive_remote(&bars[T::STAGES + s], lane);
+    }
+    store_rows<T::TM, DP>(a.out[0], a, bh, q0, o, l, ty, tx);
+    store_lse<T::TM>(a, bh, q0, m, l, ty, tx);
+  }
+  cluster_sync();  // no block leaves while a peer may still copy into it
+}
+
+// --- K4, pipelined: pass 1 the row max over chunks of BC keys, pass 2 P
+// against the final max
+
+// the key chunks instantiated at each padded head dim; ops/flash_attention.py
+// PIPELINED_BLOCKS_F32 lists the same
+constexpr bool pipelined_f32_instantiated(int dp, int bc) { return bc < 128 || dp <= 80; }
+
+// shared memory of the pipelined kernel: q (bq rows), `stages` stages of a
+// chunk of K (bc rows) or K and V of `sub` keys, and P (bq x sub)
+constexpr size_t pipe_bytes(int dp, int bq, int bc, int sub, int stages) {
+  return (size_t(bq) * (dp + 4) + size_t(stages) * (bc > 2 * sub ? bc : 2 * sub) * (dp + 4) +
+          size_t(bq) * (sub + 4)) * 4;
+}
+
+template <int DP, int BC>
+struct PipeF32 {
+  static constexpr int BQ = DP == 512 ? 32 : 64, TM = BQ / RT, LD = DP + 4;
+  // keys of a pass-2 step: the chunk, or half of it where its K and V do
+  // not fit beside q
+  static constexpr int SUB = pipe_bytes(DP, BQ, BC, BC, 1) <= kSmemPerBlock ? BC : BC / 2;
+  static constexpr int STAGES = pipe_bytes(DP, BQ, BC, SUB, 2) <= kSmemPerBlock ? 2 : 1;
+  static constexpr int TN1 = BC / CT, TN2 = SUB / CT, LDP = SUB + 4;
+  static constexpr int STAGE = (BC > 2 * SUB ? BC : 2 * SUB) * LD;  // floats of a stage
+  static constexpr size_t OFF_KV = size_t(BQ) * LD * 4;
+  static constexpr size_t OFF_P = OFF_KV + size_t(STAGES) * STAGE * 4;
+  static constexpr size_t SMEM = pipe_bytes(DP, BQ, BC, SUB, STAGES);
+  static_assert(BQ % RT == 0 && SUB % CT == 0 && SMEM <= kSmemPerBlock, "pipelined tile");
+};
+
+template <int DP, int BC>
+__global__ void __launch_bounds__(THREADS) flash_pipelined_f32_kernel(const Args a) {
+  using T = PipeF32<DP, BC>;
+  using C = Cols<DP>;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_P);
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N;
+  const int tx = threadIdx.x % CT, ty = threadIdx.x / CT;
+  const int chunks = (n + BC - 1) / BC, subs = (n + T::SUB - 1) / T::SUB;
+  const int steps = chunks + subs;  // pass 1 over chunks, pass 2 over SUB-key steps
+
+  // step i's keys into stage i % STAGES: a chunk of K in pass 1, K and V
+  // of SUB keys in pass 2
+  auto issue = [&](int i) {
+    float* stage = ring + (i % T::STAGES) * T::STAGE;
+    if (i < chunks) {
+      copy_tile<DP, BC>(stage, a, 1, bh, i * BC);
+    } else {
+      copy_tile<DP, T::SUB>(stage, a, 1, bh, (i - chunks) * T::SUB);
+      copy_tile<DP, T::SUB>(stage + T::SUB * T::LD, a, 2, bh, (i - chunks) * T::SUB);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  load_tile<DP, T::BQ>(sQ, a, 0, bh, q0, a.scale_log2);
+
+  float o[T::TM][C::N], m[T::TM], l[T::TM];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::N; ++c) o[i][c] = 0.f;
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait_all();
+    // step i's keys are visible to every thread, and every thread is done
+    // with step i - 1's stage and P
+    __syncthreads();
+    if (T::STAGES > 1 && i + 1 < steps) issue(i + 1);
+    const float* stage = ring + (i % T::STAGES) * T::STAGE;
+    if (i < chunks) {
+      const int k0 = i * BC;
+      float s[T::TM][T::TN1] = {};
+      abt<T::TM, T::TN1>(s, sQ, T::LD, stage, T::LD, a.D, ty, tx);
+#pragma unroll
+      for (int r = 0; r < T::TM; ++r)
+#pragma unroll
+        for (int j = 0; j < T::TN1; ++j)
+          if (k0 + tx + CT * j < n) m[r] = fmaxf(m[r], s[r][j]);
+      if (i == chunks - 1)  // pass 1 is done: the final row max
+#pragma unroll
+        for (int r = 0; r < T::TM; ++r) m[r] = half_warp_max(m[r]);
+    } else {
+      const int k0 = (i - chunks) * T::SUB;
+      float s[T::TM][T::TN2] = {};
+      abt<T::TM, T::TN2>(s, sQ, T::LD, stage, T::LD, a.D, ty, tx);
+#pragma unroll
+      for (int r = 0; r < T::TM; ++r)
+#pragma unroll
+        for (int j = 0; j < T::TN2; ++j) {
+          const float p = k0 + tx + CT * j < n ? exp2f(s[r][j] - m[r]) : 0.f;
+          sP[(ty + RT * r) * T::LDP + tx + CT * j] = p;
+          l[r] += p;
+        }
+      __syncthreads();  // P is whole
+      ab<T::TM, DP, T::SUB>(o, sP, T::LDP, stage + T::SUB * T::LD, T::LD, ty, tx);
+    }
+    if (T::STAGES == 1 && i + 1 < steps) {
+      __syncthreads();  // every thread is done with the one stage
+      issue(i + 1);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < T::TM; ++r) l[r] = half_warp_sum(l[r]);
+  store_rows<T::TM, DP>(a.out[0], a, bh, q0, o, l, ty, tx);
+  store_lse<T::TM>(a, bh, q0, m, l, ty, tx);
+}
+
+// --- the backward: 3xTF32 tensor-core products beside S on FFMA
+
+// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero:
+// the bits of cvt.rna.tf32.f32 for finite x, in one integer add and one
+// mask, which issue faster than the conversion
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi + lo: hi = tf32(x) and lo = x - hi (exact) as it stands; the
+// tensor cores read a tf32 operand's top 19 bits, so lo is truncated to 11
+// significant bits there: hi + lo keeps x to 2^-21 of |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b for one m16n8k8 tile: a 16x8 tf32 (row), b 8x8 tf32 (col), c
+// 16x8 fp32. Lane (g, t) = (lane/4, lane%4) holds a0..a3 = A[g][t],
+// A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g]; c0..c3 =
+// C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b in 3xTF32, (ah + al)(bh + bl) less al bl: ah bh into `big`, the
+// small terms into `small` (two chains of dependent mma, not one)
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(small, al, bh[0], bh[1]);
+  mma_tf32(small, ah, bl[0], bl[1]);
+  mma_tf32(big, ah, bh[0], bh[1]);
+}
+
+// S = A B^T over head-dim columns [0, kdim) in the C layout above: s[nt][e]
+// = sum_c A[g + 8(e/2)][c] B[8nt + 2t + e%2][c], for 16 rows of A and 8 NT
+// rows of B (row-major fp32, pitch LD), each element one fmaf chain over c
+// = 0, 1, ... from 0: abt's order, so these are the forward's scores bit
+// for bit. The 4 B rows a load reads (2t) fall in distinct bank groups.
+template <int NT, int LD>
+__device__ __forceinline__ void scores_c(float (&s)[NT][4], const float* A, const float* B,
+                                         int kdim) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  const float* a0 = A + g * LD;
+  const float* b = B + 2 * t * LD;
+#pragma unroll 2
+  for (int c = 0; c < kdim; c += 4) {
+    const float4 x0 = ld4(a0 + c), x1 = ld4(a0 + 8 * LD + c);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float4 y0 = ld4(b + 8 * nt * LD + c), y1 = ld4(b + (8 * nt + 1) * LD + c);
+      fma4(s[nt][0], x0, y0);
+      fma4(s[nt][1], x0, y1);
+      fma4(s[nt][2], x1, y0);
+      fma4(s[nt][3], x1, y1);
+    }
+  }
+}
+
+// The tensor cores add into an fp32 accumulator with truncation, so a long
+// chain of mma.sync drifts by up to an ulp of the running sum a step (rel
+// L2 3e-5 over the 512 k8 steps of N = 4096 on an H100). Each product below
+// therefore sums at most kChain k8 steps into a zeroed partial, which is
+// then added to the result in fp32 (rounded to nearest).
+constexpr int kChain = 8;
+
+// c[nt] += A B^T in 3xTF32 over head-dim columns [0, kdim) (k8 steps; kdim
+// % 8 == 0): 16 rows of A and 8 NT rows of B (row-major fp32, pitch LD),
+// the result in the C layout of scores_c
+template <int NT, int LD>
+__device__ __forceinline__ void abt_tf32(float (&c)[NT][4], const float* A, const float* B,
+                                         int kdim) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* a = A + g * LD + t;
+  const float* b = B + g * LD + t;
+  for (int k0 = 0; k0 < kdim; k0 += 8 * kChain) {
+    float part[NT][4] = {}, small[NT][4] = {};
+    const int k1 = min(kdim, k0 + 8 * kChain);
+#pragma unroll 2
+    for (int k = k0; k < k1; k += 8) {
+      uint32_t ah[4], al[4];
+      split_tf32(a[k], ah[0], al[0]);
+      split_tf32(a[8 * LD + k], ah[1], al[1]);
+      split_tf32(a[k + 4], ah[2], al[2]);
+      split_tf32(a[8 * LD + k + 4], ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bh[2], bl[2];
+        split_tf32(b[8 * nt * LD + k], bh[0], bl[0]);
+        split_tf32(b[8 * nt * LD + k + 4], bh[1], bl[1]);
+        mma_3xtf32(part[nt], small[nt], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nt][e] += part[nt][e] + small[nt][e];
+  }
+}
+
+// o[j] += P B in 3xTF32: P (16 x 8 KT) in the C layout (p[ks][e] = P[g +
+// 8(e/2)][8ks + 2t + e%2]), B row-major (8 KT rows, pitch LD), columns c0 +
+// 8j of the NO n8 tiles below d. A k8 step's slot t takes key 2t and slot
+// t + 4 key 2t + 1, so the C fragment is the A fragment as it stands; the 4
+// B rows a load reads (2t, 2t+1) fall in distinct bank groups.
+template <int KT, int NO, int LD>
+__device__ __forceinline__ void ab_tf32(float (&o)[NO][4], const float (&p)[KT][4],
+                                        const float* B, int c0, int d) {
+  static_assert(KT <= kChain, "one partial a tile");
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float part[NO][4] = {}, small[NO][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks) {
+    uint32_t ah[4], al[4];
+    split_tf32(p[ks][0], ah[0], al[0]);  // row g, key 2t
+    split_tf32(p[ks][2], ah[1], al[1]);  // row g + 8, key 2t
+    split_tf32(p[ks][1], ah[2], al[2]);  // row g, key 2t + 1
+    split_tf32(p[ks][3], ah[3], al[3]);  // row g + 8, key 2t + 1
+    const float* r = B + (8 * ks + 2 * t) * LD + c0 + g;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      if (c0 + 8 * j >= d) break;
+      uint32_t bh[2], bl[2];
+      split_tf32(r[8 * j], bh[0], bl[0]);
+      split_tf32(r[LD + 8 * j], bh[1], bl[1]);
+      mma_3xtf32(part[j], small[j], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] += part[j][e] + small[j][e];
+}
+
+// a 16 x 8 NT C-layout tile into shared memory from X (pitch LDX), and back
+template <int NT, int LDX>
+__device__ __forceinline__ void store_c(float* X, const float (&s)[NT][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    *reinterpret_cast<float2*>(X + g * LDX + 8 * nt + 2 * t) = make_float2(s[nt][0], s[nt][1]);
+    *reinterpret_cast<float2*>(X + (g + 8) * LDX + 8 * nt + 2 * t) =
+        make_float2(s[nt][2], s[nt][3]);
+  }
+}
+
+template <int NT, int LDX>
+__device__ __forceinline__ void load_c(float (&s)[NT][4], const float* X) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float2 x = *reinterpret_cast<const float2*>(X + g * LDX + 8 * nt + 2 * t);
+    const float2 y = *reinterpret_cast<const float2*>(X + (g + 8) * LDX + 8 * nt + 2 * t);
+    s[nt][0] = x.x, s[nt][1] = x.y, s[nt][2] = y.x, s[nt][3] = y.y;
+  }
+}
+
+// rows [r0, r0 + 16) of a (B, N, H, D) contiguous output from a C-layout
+// accumulator of NO n8 tiles at columns c0 + 8j, each value divided by div;
+// rows >= N and columns >= D are not written
+template <int NO>
+__device__ __forceinline__ void store_c_rows(float* out, const Args& a, int bh, int r0, int c0,
+                                             const float (&acc)[NO][4], float div) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int n = a.N, d = a.D, b = bh / a.H, hh = bh % a.H;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= n) continue;
+    float* dst = out + ((long long)(b * n + row) * a.H + hh) * d + c0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      if (c0 + 8 * j >= d) break;
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(acc[j][2 * h] / div, acc[j][2 * h + 1] / div);
+    }
+  }
+}
+
+template <int NO>
+__device__ __forceinline__ void zero(float (&x)[NO][4]) {
+#pragma unroll
+  for (int j = 0; j < NO; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+}
+
+// --- dQ: q2 and dO tiles of BQ rows resident, K and V tiles of BK
+// streamed through a ring of STAGES; S, dP and dQ on FFMA in the plain
+// version's order (abt, then ab: each element one fmaf chain in key order)
+template <int DP, int BQ, int BK, int STAGES>
 struct Dq {
   static constexpr int TM = BQ / RT, TN = BK / CT, LD = DP + 4, LDP = BK + 4;
-  static constexpr size_t SMEM =
-      (2 * size_t(BQ) * LD + 2 * size_t(BK) * LD + size_t(BQ) * LDP) * 4;
+  static constexpr int TE = BK * LD;  // floats of a K or V tile
+  static constexpr size_t OFF_KV = 2 * size_t(BQ) * LD * 4;
+  static constexpr size_t OFF_S = OFF_KV + STAGES * 2 * size_t(TE) * 4;
+  static constexpr size_t SMEM = OFF_S + size_t(BQ) * LDP * 4;
   static_assert(BQ % RT == 0 && BK % CT == 0 && SMEM <= kSmemPerBlock, "dQ tile");
 };
 
-template <int DP, int BQ, int BK>
+template <int DP, int BQ, int BK, int STAGES>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(const Args a) {
-  using T = Dq<DP, BQ, BK>;
+  using T = Dq<DP, BQ, BK, STAGES>;
   using C = Cols<DP>;
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + BQ * T::LD;  // dO
-  float* sK = sO + BQ * T::LD;
-  float* sV = sK + BK * T::LD;
-  float* sS = sV + BK * T::LD;  // dS
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);  // q2
+  float* sO = sQ + BQ * T::LD;                 // dO
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
+  float* sS = reinterpret_cast<float*>(smem + T::OFF_S);  // dS
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ, n = a.N;
   const int tx = threadIdx.x % CT, ty = threadIdx.x / CT;
-  load_tile<DP, BQ>(sQ, a, 0, bh, q0, a.scale_log2);
-  load_tile<DP, BQ>(sO, a, 3, bh, q0, 1.f);
+  const int tiles = (n + BK - 1) / BK;
+  auto issue = [&](int j) {
+    float* stage = ring + (j % STAGES) * 2 * T::TE;
+    copy_tile<DP, BK>(stage, a, 1, bh, j * BK);
+    copy_tile<DP, BK>(stage + T::TE, a, 2, bh, j * BK);
+    cp_async_commit();
+  };
+  issue(0);
+  copy_tile<DP, BQ>(sQ, a, 0, bh, q0);
+  copy_tile<DP, BQ>(sO, a, 3, bh, q0);
+  cp_async_commit();
+  cp_async_wait_all();
+  scale_tile<DP, BQ>(sQ, a.scale_log2);  // q2: the forward's, bit for bit
   float lse[T::TM], dd[T::TM], acc[T::TM][C::N];
 #pragma unroll
   for (int i = 0; i < T::TM; ++i) {
@@ -363,23 +883,30 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(const Args a)
 #pragma unroll
     for (int c = 0; c < C::N; ++c) acc[i][c] = 0.f;
   }
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    load_tile<DP, BK>(sK, a, 1, bh, k0, 1.f);
-    load_tile<DP, BK>(sV, a, 2, bh, k0, 1.f);
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait_all();
+    // tile j (and at j = 0 the q2 and dO tiles) is visible to every thread,
+    // and every thread is done with tile j - 1's stage and dS
     __syncthreads();
+    if (STAGES > 1 && j + 1 < tiles) issue(j + 1);
+    const float* sK = ring + (j % STAGES) * 2 * T::TE;
+    const int k0 = j * BK;
     float s[T::TM][T::TN] = {}, dp[T::TM][T::TN] = {};
     abt<T::TM, T::TN>(s, sQ, T::LD, sK, T::LD, a.D, ty, tx);
-    abt<T::TM, T::TN>(dp, sO, T::LD, sV, T::LD, a.D, ty, tx);
+    abt<T::TM, T::TN>(dp, sO, T::LD, sK + T::TE, T::LD, a.D, ty, tx);
 #pragma unroll
     for (int i = 0; i < T::TM; ++i)
 #pragma unroll
-      for (int j = 0; j < T::TN; ++j) {
-        const float p = k0 + tx + CT * j < n ? exp2f(s[i][j] - lse[i]) : 0.f;
-        sS[(ty + RT * i) * T::LDP + tx + CT * j] = p * (dp[i][j] - dd[i]) * a.scale;
+      for (int jj = 0; jj < T::TN; ++jj) {
+        const float p = k0 + tx + CT * jj < n ? exp2f(s[i][jj] - lse[i]) : 0.f;
+        sS[(ty + RT * i) * T::LDP + tx + CT * jj] = p * (dp[i][jj] - dd[i]) * a.scale;
       }
     __syncthreads();  // dS is whole
     ab<T::TM, DP, BK>(acc, sS, T::LDP, sK, T::LD, ty, tx);
-    __syncthreads();
+    if (STAGES == 1 && j + 1 < tiles) {
+      __syncthreads();  // every thread is done with the one stage
+      issue(j + 1);
+    }
   }
   float ones[T::TM];
 #pragma unroll
@@ -387,94 +914,206 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(const Args a)
   store_rows<T::TM, DP>(a.out[0], a, bh, q0, acc, ones, ty, tx);
 }
 
-// --- dK/dV: K and V tiles of BK rows resident, Q and dO tiles of BQ streamed
-template <int DP, int BK, int BQ>
+// --- dK/dV: K and V of 16 RG rows resident, q and dO tiles of BQ (with
+// their LSE and D) streamed through a ring of STAGES; warp w is row group
+// w / SPLIT and slice w % SPLIT: it scores queries [QW slice, + QW) of each
+// tile in the mma's C layout (scores_c) and holds dK's and dV's columns
+// [SLICE slice, + SLICE). With SPLIT 1, S^T, dP^T, P^T and dS^T never leave
+// the warp's registers; with SPLIT > 1, P^T and dS^T meet in shared memory
+template <int DP, int RG, int SPLIT, int BQ, int STAGES>
 struct Dkv {
-  static constexpr int TM = BK / RT, TN = BQ / CT, LD = DP + 4, LDP = BQ + 4;
-  static constexpr size_t SMEM = (2 * size_t(BK) * LD + 2 * size_t(BQ) * LD +
-                                  2 * size_t(BK) * LDP + 2 * size_t(BQ)) * 4;
-  static_assert(BK % RT == 0 && BQ % CT == 0 && SMEM <= kSmemPerBlock, "dK/dV tile");
+  static constexpr int THREADS = 32 * RG * SPLIT, BK = 16 * RG, LD = DP + 4;
+  static constexpr int QW = BQ / SPLIT, NTW = QW / 8, SLICE = DP / SPLIT, NO = SLICE / 8;
+  // dK's and dV's n8 tiles taken CW at a time, so that a product's two
+  // partials stay at 2 x 8 tiles (the d = 512 slice has 16)
+  static constexpr int NCH = NO > 8 && NO % 8 == 0 ? NO / 8 : 1, CW = NO / NCH;
+  static constexpr int LDX = BQ + 8;               // pitch of P^T and dS^T in shared memory
+  static constexpr int TE = BQ * LD;               // floats of a q2 or dO tile
+  static constexpr int STAGE = 2 * TE + 2 * BQ;    // q2, dO, LSE, D
+  static constexpr size_t OFF_RING = 2 * size_t(BK) * LD * 4;
+  static constexpr size_t OFF_X = OFF_RING + STAGES * size_t(STAGE) * 4;
+  static constexpr size_t SMEM = OFF_X + (SPLIT > 1 ? 2 * size_t(BK) * LDX * 4 : 0);
+  static_assert(QW % 8 == 0 && SLICE % 8 == 0 && SMEM <= kSmemPerBlock, "dK/dV tile");
 };
 
-template <int DP, int BK, int BQ>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(const Args a) {
-  using T = Dkv<DP, BK, BQ>;
-  using C = Cols<DP>;
+template <int DP, int RG, int SPLIT, int BQ, int STAGES>
+__global__ void __launch_bounds__(32 * RG * SPLIT) flash_bwd_dkv_f32_kernel(const Args a) {
+  using T = Dkv<DP, RG, SPLIT, BQ, STAGES>;
   extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + BK * T::LD;
-  float* sQ = sV + BK * T::LD;   // q2
-  float* sO = sQ + BQ * T::LD;   // dO
-  float* sP = sO + BQ * T::LD;   // P^T
-  float* sS = sP + BK * T::LDP;  // dS^T
-  float* sL = sS + BK * T::LDP;  // the q tile's LSE
-  float* sD = sL + BQ;           // and D
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK, n = a.N;
-  const int tx = threadIdx.x % CT, ty = threadIdx.x / CT;
-  load_tile<DP, BK>(sK, a, 1, bh, k0, 1.f);
-  load_tile<DP, BK>(sV, a, 2, bh, k0, 1.f);
-  float dk[T::TM][C::N], dv[T::TM][C::N];
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) dk[i][c] = dv[i][c] = 0.f;
-  for (int q0 = 0; q0 < n; q0 += BQ) {
-    load_tile<DP, BQ>(sQ, a, 0, bh, q0, a.scale_log2);  // q2
-    load_tile<DP, BQ>(sO, a, 3, bh, q0, 1.f);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      sL[r] = q0 + r < n ? a.lse[(long long)bh * n + q0 + r] : 0.f;
-      sD[r] = q0 + r < n ? a.dd[(long long)bh * n + q0 + r] : 0.f;
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + T::BK * T::LD;
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_RING);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_X);  // P^T and dS^T (SPLIT > 1)
+  float* sS = sP + T::BK * T::LDX;
+  const int bh = blockIdx.y, k0 = blockIdx.x * T::BK, n = a.N, d = a.D;
+  const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
+  const int rg = warp / SPLIT, sl = warp % SPLIT;
+  const int tiles = (n + BQ - 1) / BQ;
+  auto issue = [&](int j) {
+    float* stage = ring + (j % STAGES) * T::STAGE;
+    const int q0 = j * BQ;
+    copy_tile<DP, BQ, T::THREADS>(stage, a, 0, bh, q0);  // q, scaled into q2 on arrival
+    copy_tile<DP, BQ, T::THREADS>(stage + T::TE, a, 3, bh, q0);
+    for (int r = threadIdx.x; r < BQ; r += T::THREADS) {
+      const bool valid = q0 + r < n;
+      const long long at = (long long)bh * n + (valid ? q0 + r : 0);
+      cp_async4(stage + 2 * T::TE + r, a.lse + at, valid);
+      cp_async4(stage + 2 * T::TE + BQ + r, a.dd + at, valid);
     }
+    cp_async_commit();
+  };
+  copy_tile<DP, T::BK, T::THREADS>(sK, a, 1, bh, k0);
+  copy_tile<DP, T::BK, T::THREADS>(sV, a, 2, bh, k0);
+  issue(0);
+  float dk[T::NCH][T::CW][4], dv[T::NCH][T::CW][4];
+#pragma unroll
+  for (int ch = 0; ch < T::NCH; ++ch) zero(dk[ch]), zero(dv[ch]);
+  const float* kw = sK + rg * 16 * T::LD;
+  const float* vw = sV + rg * 16 * T::LD;
+  for (int j = 0; j < tiles; ++j) {
+    float* sQ = ring + (j % STAGES) * T::STAGE;  // q2
+    cp_async_wait_all();
+    scale_tile<DP, BQ, T::THREADS>(sQ, a.scale_log2);  // the chunks this thread copied
+    // tile j (and at j = 0 K and V) is visible to every thread, and every
+    // thread is done with tile j - 1's stage, P^T and dS^T
     __syncthreads();
-    float st[T::TM][T::TN] = {}, dpt[T::TM][T::TN] = {};
-    abt<T::TM, T::TN>(st, sK, T::LD, sQ, T::LD, a.D, ty, tx);
-    abt<T::TM, T::TN>(dpt, sV, T::LD, sO, T::LD, a.D, ty, tx);
+    if (STAGES > 1 && j + 1 < tiles) issue(j + 1);
+    const float* sO = sQ + T::TE;
+    const float* sL = sQ + 2 * T::TE;
+    const float* sD = sL + BQ;
+    const int qv = n - j * BQ - sl * T::QW;  // queries before N from this warp's first
+    float st[T::NTW][4], dpt[T::NTW][4], pt[T::NTW][4];
+    scores_c<T::NTW, T::LD>(st, kw, sQ + sl * T::QW * T::LD, d);  // S^T = K q2^T
+    zero(dpt);
+    abt_tf32<T::NTW, T::LD>(dpt, vw, sO + sl * T::QW * T::LD, d);  // dP^T = V dO^T
 #pragma unroll
-    for (int i = 0; i < T::TM; ++i)
+    for (int nt = 0; nt < T::NTW; ++nt)
 #pragma unroll
-      for (int j = 0; j < T::TN; ++j) {
-        const int qi = tx + CT * j;
-        const float p = q0 + qi < n ? exp2f(st[i][j] - sL[qi]) : 0.f;
-        sP[(ty + RT * i) * T::LDP + qi] = p;
-        sS[(ty + RT * i) * T::LDP + qi] = p * (dpt[i][j] - sD[qi]) * a.scale;
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * nt + 2 * t + e % 2, at = sl * T::QW + qi;
+        const float p = qi < qv ? exp2f(st[nt][e] - sL[at]) : 0.f;
+        pt[nt][e] = p;
+        st[nt][e] = p * (dpt[nt][e] - sD[at]) * a.scale;  // dS^T
       }
-    __syncthreads();  // P^T and dS^T are whole
-    ab<T::TM, DP, BQ>(dv, sP, T::LDP, sO, T::LD, ty, tx);
-    ab<T::TM, DP, BQ>(dk, sS, T::LDP, sQ, T::LD, ty, tx);  // dS^T q2
-    __syncthreads();
-  }
-  float ones[T::TM], q_scale[T::TM];
+    if constexpr (SPLIT == 1) {
 #pragma unroll
-  for (int i = 0; i < T::TM; ++i) ones[i] = 1.f, q_scale[i] = a.scale_log2;
-  store_rows<T::TM, DP>(a.out[0], a, bh, k0, dk, q_scale, ty, tx);
-  store_rows<T::TM, DP>(a.out[1], a, bh, k0, dv, ones, ty, tx);
+      for (int ch = 0; ch < T::NCH; ++ch) {
+        ab_tf32<T::NTW, T::CW, T::LD>(dv[ch], pt, sO, 8 * T::CW * ch, d);
+        ab_tf32<T::NTW, T::CW, T::LD>(dk[ch], st, sQ, 8 * T::CW * ch, d);
+      }
+    } else {
+      store_c<T::NTW, T::LDX>(sP + rg * 16 * T::LDX + sl * T::QW, pt);
+      store_c<T::NTW, T::LDX>(sS + rg * 16 * T::LDX + sl * T::QW, st);
+      __syncthreads();  // the row group's P^T and dS^T over the whole q tile
+      float x[BQ / 8][4];
+      load_c<BQ / 8, T::LDX>(x, sP + rg * 16 * T::LDX);
+#pragma unroll
+      for (int ch = 0; ch < T::NCH; ++ch)
+        ab_tf32<BQ / 8, T::CW, T::LD>(dv[ch], x, sO, sl * T::SLICE + 8 * T::CW * ch, d);
+      load_c<BQ / 8, T::LDX>(x, sS + rg * 16 * T::LDX);
+#pragma unroll
+      for (int ch = 0; ch < T::NCH; ++ch)
+        ab_tf32<BQ / 8, T::CW, T::LD>(dk[ch], x, sQ, sl * T::SLICE + 8 * T::CW * ch, d);
+    }
+    if (STAGES == 1 && j + 1 < tiles) {
+      __syncthreads();  // every thread is done with the one stage
+      issue(j + 1);
+    }
+  }
+  // dK = (dS^T q2) / (d^-1/2 log2 e): q2 is the forward's, bit for bit
+#pragma unroll
+  for (int ch = 0; ch < T::NCH; ++ch) {
+    const int c0 = sl * T::SLICE + 8 * T::CW * ch;
+    store_c_rows<T::CW>(a.out[0], a, bh, k0 + rg * 16, c0, dk[ch], a.scale_log2);
+    store_c_rows<T::CW>(a.out[1], a, bh, k0 + rg * 16, c0, dv[ch], 1.f);
+  }
 }
 
-// one launch of `kernel` (tile config T: one kernel each) over (row tiles
-// of `rows`, B*H) with T::SMEM bytes of dynamic shared memory
-template <typename T>
-cudaError_t launch(void (*kernel)(const Args), int rows, const Args& a, cudaStream_t stream) {
+// one launch of KERNEL over (tiles of `rows`, B*H) with `threads` threads
+// and `smem` bytes of dynamic shared memory
+template <auto KERNEL>
+cudaError_t launch(int rows, int threads, size_t smem, const Args& a, cudaStream_t stream) {
   // once per kernel (thread-safe static init): allow > 48 KB dynamic smem
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3((a.N + rows - 1) / rows, a.B * a.H), THREADS, T::SMEM, stream>>>(a);
+  KERNEL<<<dim3((a.N + rows - 1) / rows, a.B * a.H), threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int DP, int BQ, int BK>
 cudaError_t launch_fwd(const Args& a, cudaStream_t s) {
-  return launch<Fwd<DP, BQ, BK>>(flash_fwd_f32_kernel<DP, BQ, BK>, BQ, a, s);
+  return launch<flash_fwd_f32_kernel<DP, BQ, BK>>(BQ, THREADS, Fwd<DP, BQ, BK>::SMEM, a, s);
 }
 
-template <int DP, int BQ, int BK>
+template <int DP, int BQ, int BK, int STAGES>
 cudaError_t launch_dq(const Args& a, cudaStream_t s) {
-  return launch<Dq<DP, BQ, BK>>(flash_bwd_dq_f32_kernel<DP, BQ, BK>, BQ, a, s);
+  return launch<flash_bwd_dq_f32_kernel<DP, BQ, BK, STAGES>>(BQ, THREADS,
+                                                            Dq<DP, BQ, BK, STAGES>::SMEM, a, s);
 }
 
-template <int DP, int BK, int BQ>
+template <int DP, int RG, int SPLIT, int BQ, int STAGES>
 cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
-  return launch<Dkv<DP, BK, BQ>>(flash_bwd_dkv_f32_kernel<DP, BK, BQ>, BK, a, s);
+  using T = Dkv<DP, RG, SPLIT, BQ, STAGES>;
+  return launch<flash_bwd_dkv_f32_kernel<DP, RG, SPLIT, BQ, STAGES>>(T::BK, T::THREADS, T::SMEM,
+                                                                    a, s);
+}
+
+template <int DP, int BC>
+cudaError_t launch_pipelined(const Args& a, cudaStream_t s) {
+  using T = PipeF32<DP, BC>;
+  return launch<flash_pipelined_f32_kernel<DP, BC>>(T::BQ, THREADS, T::SMEM, a, s);
+}
+
+template <int DP, int BK>
+cudaError_t launch_resident(const Args& a, int cluster, cudaStream_t stream) {
+  using T = ResF32<DP, BK>;
+  void (*kern)(const Args) = flash_resident_f32_kernel<DP, BK>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int q_tiles = (a.N + T::BQ - 1) / T::BQ;
+  cudaLaunchAttribute dims[1];
+  dims[0].id = cudaLaunchAttributeClusterDimension;
+  dims[0].val.clusterDim.x = cluster;
+  dims[0].val.clusterDim.y = 1;
+  dims[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  // C neighbouring q tiles of one head a cluster; the last cluster's blocks
+  // past N take part in its copies
+  cfg.gridDim = dim3((q_tiles + cluster - 1) / cluster * cluster, a.B * a.H);
+  cfg.blockDim = dim3(THREADS + 32);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = dims;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// f(DP, BLOCK) as std::integral_constants at D's padded head dim
+// (ops/flash_attention.py SUPPORTED_HEAD_DIMS) and a key block of 32, 64 or
+// 128
+template <class F>
+cudaError_t by_tiles(int D, int block, F f) {
+  auto with_block = [&](auto dp) -> cudaError_t {
+    switch (block) {
+      case 32:  return f(dp, std::integral_constant<int, 32>{});
+      case 64:  return f(dp, std::integral_constant<int, 64>{});
+      case 128: return f(dp, std::integral_constant<int, 128>{});
+      default:  return cudaErrorInvalidValue;
+    }
+  };
+  switch ((D + 15) / 16 * 16) {
+    case 16:  return with_block(std::integral_constant<int, 16>{});
+    case 32:  return with_block(std::integral_constant<int, 32>{});
+    case 48:  return with_block(std::integral_constant<int, 48>{});
+    case 80:  return with_block(std::integral_constant<int, 80>{});
+    case 160: return with_block(std::integral_constant<int, 160>{});
+    case 512: return with_block(std::integral_constant<int, 512>{});
+    default:  return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, const void* dout,
@@ -496,10 +1135,10 @@ cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, cons
 
 }  // namespace
 
-// The forward: q, k, v fp32 (B, N, H, D), element strides (batch, seq,
-// head) of q, k, v in `st` and a unit head-dim stride; o fp32 (B, N, H, D)
-// contiguous; lse fp32 (B*H, N) or null; scale the q prescale d^-1/2 *
-// log2(e). Launches on `stream`; returns the cudaError_t of the launch.
+// The forward entries: q, k, v fp32 (B, N, H, D), element strides (batch,
+// seq, head) of q, k, v in `st` and a unit head-dim stride; o fp32 (B, N,
+// H, D) contiguous; lse fp32 (B*H, N) or null; scale the q prescale d^-1/2
+// * log2(e). Launch on `stream`; return the cudaError_t of the launch.
 // Padded head dims: ops/flash_attention.py SUPPORTED_HEAD_DIMS.
 extern "C" int pbe_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                  void* lse, int B, int N, int H, int D, const long long* st,
@@ -520,11 +1159,48 @@ extern "C" int pbe_flash_fwd_f32(const void* q, const void* k, const void* v, vo
   }
 }
 
+// K3: block_k the key block (resident_f32_instantiated); cluster the blocks
+// of a cluster (1, 2 or 4), each on its own q tile of the same head.
+extern "C" int pbe_flash_resident_f32(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int B, int N, int H, int D,
+                                      const long long* st, float scale, int block_k,
+                                      int cluster, void* stream) {
+  Args a;
+  cudaError_t err = make_args(&a, q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse, B, N,
+                              H, D, st, 9, scale, 0.f);
+  if (err != cudaSuccess) return (int)err;
+  if (cluster != 1 && cluster != 2 && cluster != 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)by_tiles(D, block_k, [&](auto dp, auto bk) -> cudaError_t {
+    constexpr int DP = decltype(dp)::value, BK = decltype(bk)::value;
+    if constexpr (resident_f32_instantiated(DP, BK)) return launch_resident<DP, BK>(a, cluster, s);
+    return cudaErrorInvalidValue;
+  });
+}
+
+// K4: block_c the key chunk (pipelined_f32_instantiated).
+extern "C" int pbe_flash_pipelined_f32(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int B, int N, int H, int D,
+                                       const long long* st, float scale, int block_c,
+                                       void* stream) {
+  Args a;
+  cudaError_t err = make_args(&a, q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse, B, N,
+                              H, D, st, 9, scale, 0.f);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)by_tiles(D, block_c, [&](auto dp, auto bc) -> cudaError_t {
+    constexpr int DP = decltype(dp)::value, BC = decltype(bc)::value;
+    if constexpr (pipelined_f32_instantiated(DP, BC)) return launch_pipelined<DP, BC>(a, s);
+    return cudaErrorInvalidValue;
+  });
+}
+
 // The backward: q, k, v, dout fp32 (B, N, H, D), element strides (batch,
 // seq, head) of q, k, v, dout in `st` and a unit head-dim stride; lse, dd
 // fp32 (B*H, N) contiguous; outputs fp32 (B, N, H, D) contiguous.
 // scale_log2 = d^-1/2 * log2(e), scale = d^-1/2. Padded head dims:
-// ops/flash_attention.py BWD_HEAD_DIMS.
+// ops/flash_attention.py BWD_HEAD_DIMS. The launch lines are <DP, row
+// groups of 16, warps a row group, streamed tile rows, ring stages>.
 extern "C" int pbe_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* dd,
                                     void* dq, int B, int N, int H, int D,
@@ -536,12 +1212,14 @@ extern "C" int pbe_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16 * 16) {
-    case 16:  return (int)launch_dq<16, 64, 64>(a, s);
-    case 32:  return (int)launch_dq<32, 64, 64>(a, s);
-    case 48:  return (int)launch_dq<48, 64, 64>(a, s);
-    case 80:  return (int)launch_dq<80, 64, 64>(a, s);
-    case 160: return (int)launch_dq<160, 32, 32>(a, s);
-    case 512: return (int)launch_dq<512, 16, 32>(a, s);
+    case 16:  return (int)launch_dq<16, 64, 64, 2>(a, s);
+    case 32:  return (int)launch_dq<32, 64, 64, 2>(a, s);
+    case 48:  return (int)launch_dq<48, 128, 64, 2>(a, s);
+    case 80:  return (int)launch_dq<80, 64, 64, 1>(a, s);
+    // N <= 128 (ds8): 64-row blocks would leave most SMs idle
+    case 160: return (int)(N <= 128 ? launch_dq<160, 32, 32, 1>(a, s)
+                                    : launch_dq<160, 64, 32, 2>(a, s));
+    case 512: return (int)launch_dq<512, 32, 16, 1>(a, s);
     default:  return (int)cudaErrorInvalidValue;
   }
 }
@@ -557,12 +1235,13 @@ extern "C" int pbe_flash_bwd_dkv_f32(const void* q, const void* k, const void* v
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16 * 16) {
-    case 16:  return (int)launch_dkv<16, 64, 32>(a, s);
-    case 32:  return (int)launch_dkv<32, 64, 32>(a, s);
-    case 48:  return (int)launch_dkv<48, 64, 32>(a, s);
-    case 80:  return (int)launch_dkv<80, 64, 32>(a, s);
-    case 160: return (int)launch_dkv<160, 32, 32>(a, s);
-    case 512: return (int)launch_dkv<512, 16, 32>(a, s);
+    case 16:  return (int)launch_dkv<16, 4, 1, 32, 2>(a, s);
+    case 32:  return (int)launch_dkv<32, 4, 1, 32, 2>(a, s);
+    case 48:  return (int)launch_dkv<48, 4, 1, 32, 2>(a, s);
+    case 80:  return (int)launch_dkv<80, 4, 1, 32, 2>(a, s);
+    case 160: return (int)(N <= 128 ? launch_dkv<160, 2, 2, 32, 2>(a, s)
+                                    : launch_dkv<160, 4, 2, 32, 2>(a, s));
+    case 512: return (int)launch_dkv<512, 1, 4, 32, 1>(a, s);
     default:  return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,6 +21,7 @@ import torch
 
 from pbe_tpu_torch.data.transforms import unnormalize, unnormalize_clip
 from pbe_tpu_torch.evaltools.fid import RunningStats, frechet_distance
+from pbe_tpu_torch.models.pbe import resolve_device
 
 
 def bboxes_from_masks(masks_edit: torch.Tensor) -> torch.Tensor:
@@ -99,13 +100,15 @@ def resize(images: torch.Tensor, size: int) -> torch.Tensor:
 
 class FIDTrioTracker:
     """Streaming FID over (real, fake) pairs for the global/local/ref views.
-    ``feature_fn`` takes (B,size,size,3) [0,1] tensors on ``device`` and
-    returns (B,D) features (numpy or a tensor)."""
+    ``feature_fn`` takes (B,size,size,3) [0,1] tensors on ``device`` (CUDA
+    unless the caller asks for another; raises without a card) and returns
+    (B,D) features (numpy or a tensor)."""
 
-    def __init__(self, feature_fn, size: int = 299, device: str | torch.device = "cpu"):
+    def __init__(self, feature_fn, size: int = 299,
+                 device: str | torch.device | None = None):
         self.feature_fn = feature_fn
         self.size = size
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.stats = {name: (RunningStats(), RunningStats())
                       for name in ("global", "local", "ref")}
 

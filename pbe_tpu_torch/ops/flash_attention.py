@@ -25,10 +25,11 @@ and the backward recomputes P from the same q2 and the LSE:
     dV = round(P.to(dtype)^T dO),  dK = round(dS.to(dtype)^T Q)   (dK/dV kernel)
 
 At fp32 (``--precision full``) every round_to_dtype and cast above does
-nothing, as in the Pallas kernels, which run in their operands' dtype: the
-models' forward and the backward pair then launch the fp32 kernels of
+nothing, as in the Pallas kernels, which run in their operands' dtype: all
+four forward variants and the backward pair then launch the fp32 kernels of
 ``csrc/flash_fp32.cu`` (one wrapper each, the entry picked by the operands'
-dtype). The resident and pipelined kernels take bf16 only.
+dtype). The resident and pipelined kernels' key blocks are instantiated per
+dtype (fp32 tiles are twice the bytes).
 
 The kernels in ``csrc/`` are built with nvcc at first use and bound with
 ctypes. Layout: (B, N, H, D) with
@@ -67,6 +68,13 @@ RESIDENT_BLOCK_Q = {**{dp: 64 for dp in (16, 32, 48, 80, 160)}, 512: 32}
 RESIDENT_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80)}, 160: (32, 64),
                    512: (32,)}
 PIPELINED_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80, 160)}, 512: (32, 64)}
+# ... and in csrc/flash_fp32.cu for fp32 operands: the resident kernel's
+# 128-key tiles from a padded head dim of 80 and the pipelined kernel's
+# 128-key chunks at 160 would leave one ring stage, so they are not built
+RESIDENT_BLOCKS_F32 = {**{dp: (32, 64, 128) for dp in (16, 32, 48)}, 80: (32, 64),
+                       160: (32, 64), 512: (32,)}
+PIPELINED_BLOCKS_F32 = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80)}, 160: (32, 64),
+                        512: (32, 64)}
 VARIANTS = ("auto", "rowblock", "streamed", "resident", "pipelined")
 CLUSTER_SIZES = (1, 2, 4)  # the resident kernel's blocks a cluster
 # streaming multiprocessors of an H100 SXM: the resident kernel's plan off
@@ -158,19 +166,29 @@ def layout_error(x: torch.Tensor) -> str | None:
     return None
 
 
-def key_block(variant: str, d: int, block: int | None = None) -> int:
+def block_table(variant: str, dtype: torch.dtype = torch.bfloat16) -> tuple[str, dict]:
+    """(name, table) of the key blocks the resident or pipelined kernel
+    instantiates for operands of ``dtype``: the fp32 tables for float32, the
+    bf16 ones for any other (the CPU runs the plain version at any dtype)."""
+    name = ("RESIDENT_BLOCKS" if variant == "resident" else "PIPELINED_BLOCKS") + (
+        "_F32" if dtype == torch.float32 else "")
+    return name, globals()[name]
+
+
+def key_block(variant: str, d: int, block: int | None = None,
+              dtype: torch.dtype = torch.bfloat16) -> int:
     """The key block the resident (block_k) or pipelined (block_c) kernel
-    runs at head dim d: ``block``, or by default 64 (32 from a padded head
-    dim of 160). Raises ValueError for a head dim or block it does not
-    instantiate."""
-    table = RESIDENT_BLOCKS if variant == "resident" else PIPELINED_BLOCKS
+    runs at head dim d on ``dtype`` operands: ``block``, or by default 64
+    (32 from a padded head dim of 160). Raises ValueError, naming the table,
+    for a head dim or block it does not instantiate."""
+    name, table = block_table(variant, dtype)
     dp = _round_up(d, 16)
     if dp not in table:
         raise ValueError(f"{variant}: head dim {d} unsupported (pads to one of {tuple(table)})")
     block = (64 if dp < 160 else 32) if block is None else block
     if block not in table[dp]:
         raise ValueError(f"{variant}: key block {block} is not instantiated at padded head "
-                         f"dim {dp} (one of {table[dp]})")
+                         f"dim {dp} for {_dtype_name(dtype)} ({name}: one of {table[dp]})")
     return block
 
 
@@ -280,10 +298,11 @@ class FlashForward(_Kernel):
     """A forward kernel: (q, k, v) -> O [, LSE]. ``variant`` None is the
     models' kernels (K1/K2): ``pbe_flash_fwd_bf16`` (csrc/flash_fwd.cu) for
     bf16 operands and ``pbe_flash_fwd_f32`` (csrc/flash_fp32.cu) for fp32;
-    "resident" ``pbe_flash_resident_bf16`` (K3) and "pipelined"
-    ``pbe_flash_pipelined_bf16`` (K4), csrc/flash_variants.cu, bf16 only,
-    take a key block ``block`` (block_k or block_c), and the resident kernel
-    a ``cluster`` size."""
+    "resident" (K3) and "pipelined" (K4) ``pbe_flash_{variant}_bf16``
+    (csrc/flash_variants.cu) for bf16 and ``pbe_flash_{variant}_f32``
+    (csrc/flash_fp32.cu) for fp32, which take a key block ``block``
+    (block_k or block_c; instantiated per dtype, :func:`block_table`), and
+    the resident kernel a ``cluster`` size."""
 
     def __init__(self, variant: str | None = None):
         self.variant = variant
@@ -291,9 +310,8 @@ class FlashForward(_Kernel):
         # [key block [, cluster size]]
         extra = {None: [], "resident": [_I32] * 2, "pipelined": [_I32]}[variant]
         entries = {torch.bfloat16: ("flash_variants" if variant else "flash_fwd",
-                                    f"pbe_flash_{variant or 'fwd'}_bf16")}
-        if variant is None:
-            entries[torch.float32] = ("flash_fp32", "pbe_flash_fwd_f32")
+                                    f"pbe_flash_{variant or 'fwd'}_bf16"),
+                   torch.float32: ("flash_fp32", f"pbe_flash_{variant or 'fwd'}_f32")}
         super().__init__(entries, [_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32]
                          + extra + [_PTR])
 
@@ -302,14 +320,14 @@ class FlashForward(_Kernel):
         self.lse_launches = 0
 
     def plan(self, shape: tuple, block: int | None = None, cluster: int | None = None,
-             sms: int = SMS) -> list[int]:
-        """The launch's extra arguments at (B, N, H, D) on a card of ``sms``
-        SMs: none, [key block] (pipelined) or [key block, cluster size]
-        (resident); raises ValueError where the kernel cannot take them, with
-        the reason."""
+             sms: int = SMS, dtype: torch.dtype = torch.bfloat16) -> list[int]:
+        """The launch's extra arguments at (B, N, H, D) for ``dtype``
+        operands on a card of ``sms`` SMs: none, [key block] (pipelined) or
+        [key block, cluster size] (resident); raises ValueError where the
+        kernel cannot take them, with the reason."""
         if self.variant is None:
             return []
-        block = key_block(self.variant, shape[3], block)
+        block = key_block(self.variant, shape[3], block, dtype)
         if self.variant != "resident":
             return [block]
         return [block, resident_cluster(tuple(shape), cluster, sms)]
@@ -318,11 +336,11 @@ class FlashForward(_Kernel):
                  return_lse: bool = False, block: int | None = None,
                  cluster: int | None = None):
         b, n, h, d = q.shape
-        sms = (torch.cuda.get_device_properties(q.device).multi_processor_count
-               if q.device.type == "cuda" else SMS)
-        extra = self.plan(q.shape, block, cluster, sms)
+        # the operands first: the dtype picks the entry and the block table
         dtype = _check_operands(f"{self.variant or 'flash'} kernel", SUPPORTED_HEAD_DIMS,
                                 tuple(self.entries), q=q, k=k, v=v)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        extra = self.plan(q.shape, block, cluster, sms, dtype)
         out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
         lse = (torch.empty((b * h, n), device=q.device, dtype=torch.float32)
                if return_lse else None)
@@ -397,7 +415,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel = {"resident": flash_fwd_resident, "pipelined": flash_fwd_pipelined}.get(variant)
     block = block_k if variant == "resident" else block_c
     if kernel is not None:
-        kernel.plan(q.shape, block)  # raises here on either device
+        kernel.plan(q.shape, block, dtype=q.dtype)  # raises here on either device
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, return_lse)
     if q.device.type != "cuda":

@@ -172,6 +172,17 @@ def _shared_feature_fn():
     return fn
 
 
+def test_fid_trio_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without a device the tracker takes CUDA, and raises where there is
+    none rather than fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcb.FIDTrioTracker(lambda x: x)
+    assert tcb.FIDTrioTracker(lambda x: x, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tcb.FIDTrioTracker(lambda x: x).device == torch.device("cuda")
+
+
 def test_fid_trio_matches_jax():
     g = np.random.default_rng(6)
     b, s = 4, 64
@@ -185,7 +196,7 @@ def test_fid_trio_matches_jax():
                for _ in range(2)]
     preds = [g.uniform(0, 1, (b, s, s, 3)).astype(np.float32) for _ in range(2)]
     fn = _shared_feature_fn()
-    got, want = tcb.FIDTrioTracker(fn), jcb.FIDTrioTracker(fn)
+    got, want = tcb.FIDTrioTracker(fn, device="cpu"), jcb.FIDTrioTracker(fn)
     for batch, p in zip(batches, preds):
         got.update(batch, p)
         want.update(batch, p)
