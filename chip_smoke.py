@@ -146,15 +146,15 @@ Evaluation and first-stage training (the tenth slice):
 --precision full, tiling and the safety checker (the eleventh slice):
  20. the fp32 kernels (csrc/flash_fp32.cu) against their plain versions at
      fp32: the forward at every edit shape and the VAE's, with and without
-     the LSE, at ragged N for every padded head dim, on peaked scores, on a
-     row max rising at every key tile and on packed q/k/v views; the dQ and
-     dK/dV kernels at the training shapes and (4, 1024, 1, 512), at ragged N
-     and on the same stress inputs, each launched twice and compared
-     bitwise; max|err| <= 2^-14 max|ref| and rel L2 <= 1e-5. Each timed
-     beside its plain version and SDPA at fp32 (its backend named), with its
-     bound (rows with "dtype": "float32"): the forward's at the fp32 FMA
-     rate, the dQ and dK/dV kernels' at fp32 accuracy (S on FMA, the other
-     products as 3xTF32 on the tensor cores), the all-FMA bound in the log.
+     the LSE, at ragged N for every padded head dim and every tile it picks
+     by size, on peaked scores, on a row max rising at every key tile and on
+     packed q/k/v views; the dQ and dK/dV kernels at the training shapes and
+     (4, 1024, 1, 512), at ragged N and on the same stress inputs; every
+     kernel launched twice and compared bitwise; max|err| <= 2^-14 max|ref|
+     and rel L2 <= 1e-5. Each timed beside its plain version and SDPA at
+     fp32 (its backend named), with its bound at fp32 accuracy (rows with
+     "dtype": "float32"; S on FMA, the other products, P V in the forward,
+     as 3xTF32 on the tensor cores), the all-FMA bound in the log.
      On the rising-max inputs, controls for the dQ check: dQ's distance
      from the plain version and from float64 when computed in other orders
      and with 3xTF32 products (logged, not checked).
@@ -272,10 +272,14 @@ OUT_L2_REL = 1e-2
 LSE_ATOL = 1e-3  # fp32 log2-domain statistics (~12), summed in another order
 # N that no q tile (256 rows at d=40, 128 at 80, 64 at 8-32 and 160, 32 at
 # 512) or key tile (128, 64 or 32) of flash_fwd divides, at every padded
-# head dim: 48, 80, 512, 16 (d=8 and 16), 32, 160
+# head dim: 48, 80, 512, 16 (d=8 and 16), 32, 160; and at each tile that
+# the fp32 forward picks by size, one ragged N: at d = 160 N <= 256 takes
+# 32-row q tiles and (1, 257, 2, 160) 64-row ones; at d = 512 fewer than
+# 132 64-row tiles in all take 32-row ones, and (3, 2753, 1, 512), 3 x 44
+# = 132 tiles with one row in the last, 64-row ones
 RAGGED_CHECKS = ((1, 100, 2, 40), (2, 333, 3, 80), (1, 77, 1, 512), (2, 130, 4, 8),
                  (2, 130, 4, 16), (1, 90, 2, 32), (1, 70, 2, 160), (1, 1000, 1, 512),
-                 (3, 47, 2, 48))
+                 (3, 47, 2, 48), (1, 257, 2, 160), (3, 2753, 1, 512))
 # the shapes at which phase 2 also feeds inputs that randn's nearly uniform
 # softmax cannot stand in for: the four head dims of the edit's path
 STRESS_SHAPES = ((2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (1, 4096, 1, 512))
@@ -447,6 +451,19 @@ def compare_flash(got, want, label: str) -> tuple[float, float]:
     return err, lerr
 
 
+def check_flash_f32(fa, q, k, v, label: str) -> tuple[float, float]:
+    """check_flash on fp32 operands, then a second launch on the same
+    inputs that must give the same bits of O and of the LSE (every output
+    tile has one owner and no atomics)."""
+    import torch
+
+    res = check_flash(fa, q, k, v, label)
+    (o1, l1), (o2, l2) = (fa.flash_fwd(q, k, v, return_lse=True) for _ in range(2))
+    if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
+        raise AssertionError(f"fp32 forward is not bitwise repeatable at {label}")
+    return res
+
+
 def rising_scores(shape, gen, dtype=None):
     """q and k (bf16 or ``dtype``, on the card) whose scores grow with the key's position:
     q[..., 0] = 1 and k[:, j, :, 0] = j * 0.02 / (d^-1/2 log2 e), so a score
@@ -509,22 +526,26 @@ def kernel_row(fa, name: str, shape, replaces: str, rand) -> dict:
     then timed beside the plain version and SDPA: one row of the kernels
     line (launches filled in by the main path's run). ``rand`` gives bf16
     or fp32 inputs; an fp32 row is the fp32 kernel's (csrc/flash_fp32.cu),
-    its products bound by the fp32 FMA rate."""
+    launched twice and compared bitwise, its bound at fp32 accuracy's rates
+    (bound_3xtf32: S on FMA, P V as 3xTF32; the all-FMA bound is logged)."""
     import torch
     import torch.nn.functional as F
 
     b, n, h, d = shape
     q, k, v = rand(shape), rand(shape), rand(shape)
     f32 = q.dtype == torch.float32
-    err, lerr = check_flash(fa, q, k, v, f"{name} {shape}")
+    err, lerr = (check_flash_f32 if f32 else check_flash)(fa, q, k, v, f"{name} {shape}")
     # the least time for this work: products at the bf16 tensor-core rate
     # (fp32: the FMA rate), exponentials at the special-function rate (both
-    # operations), or q, k, v read once and o written once at the HBM rate
+    # operations), or q, k, v read once and o written once at the HBM rate;
+    # at fp32 the row's bound is fp32 accuracy's (bound_3xtf32), these the log's
     t_mma = 4.0 * b * h * n * n * d / (FP32_FLOP_PER_S if f32 else BF16_FLOP_PER_S) * 1e3
     t_exp2 = 1.0 * b * h * n * n / EXP2_PER_S * 1e3
     t_bytes = 4.0 * b * n * h * d * q.element_size() / HBM_BYTES_PER_S * 1e3
     binding = max(("fma" if f32 else "mma", t_mma), ("exp2", t_exp2), ("bytes", t_bytes),
                   key=lambda x: x[1])
+    if f32:
+        t_fma, binding = t_mma, bound_3xtf32(4.0, b, n, h, d, 4.0 * b * n * h * d * 4)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     row = {"name": f"flash_fwd/{name}", "route": "cuda",
            "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu",
@@ -541,7 +562,8 @@ def kernel_row(fa, name: str, shape, replaces: str, rand) -> dict:
     log(f"[kernel] {name}: kernel {row['ms']:.4f} ms ({row['eager_ms']:.4f} launched "
         f"eagerly), plain {row['plain_ms']:.4f} ms, {row.get('library', 'sdpa')} "
         f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by {binding[0]} "
-        f"({'fma' if f32 else 'mma'} {t_mma:.4f}, exp2 {t_exp2:.4f}, bytes {t_bytes:.4f})")
+        + (f"(all-FMA bound {t_fma:.4f}, exp2 {t_exp2:.4f}, bytes {t_bytes:.4f})" if f32 else
+           f"(mma {t_mma:.4f}, exp2 {t_exp2:.4f}, bytes {t_bytes:.4f})"))
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
@@ -652,12 +674,12 @@ def bound(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float,
 
 
 def bound_3xtf32(flop_per_n2d: float, b: int, n: int, h: int, d: int, nbytes: float):
-    """(binding term, least ms) of an fp32 backward kernel at fp32 accuracy
-    on this card: S (2 FLOP a B*H*N^2*D) on fp32 FMA, as it must equal the
-    forward's, the other products (flop_per_n2d - 2) as 3xTF32 on the
-    tensor cores (three TF32 products each), B*H*N^2 exponentials and
-    nbytes of device memory traffic, each unit at its peak beside the
-    others."""
+    """(binding term, least ms) of an fp32 flash kernel at fp32 accuracy on
+    this card: S (2 FLOP a B*H*N^2*D) on fp32 FMA, as the forward's and the
+    backward's must be equal, the other products (flop_per_n2d - 2: P V in
+    the forward) as 3xTF32 on the tensor cores (three TF32 products each),
+    B*H*N^2 exponentials and nbytes of device memory traffic, each unit at
+    its peak beside the others."""
     bhn2d = b * h * n * n * d
     terms = (("fma", 2.0 * bhn2d / FP32_FLOP_PER_S * 1e3),
              ("tf32", 3.0 * (flop_per_n2d - 2.0) * bhn2d / TF32_FLOP_PER_S * 1e3),
@@ -693,7 +715,8 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
     q, k, v, do = (rand(shape) for _ in range(4))
     f32 = q.dtype == torch.float32
     errs = check_bwd(fa, q, k, v, do, f"{name} {shape}")
-    ferr, flerr = check_flash(fa, q, k, v, f"{name} fwd+lse {shape}")
+    ferr, flerr = (check_flash_f32 if f32 else check_flash)(fa, q, k, v,
+                                                           f"{name} fwd+lse {shape}")
     out, lse = fa.flash_fwd(q, k, v, return_lse=True)
     dd = fa.rowsum_do_o(do, out)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -741,6 +764,9 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
                      # of the two kernels' sum
                      "library_ms": sdpa_bwd_ms, "eager_ms": cuda_ms(launch, 20)})
     by, ms_bound = bound(4.0, b, n, h, d, 4 * bnhd + bhn, f32)
+    fma_bound["flash_fwd_lse"] = ms_bound
+    if f32:  # as the backward's: S on FMA, P V as 3xTF32
+        by, ms_bound = bound_3xtf32(4.0, b, n, h, d, 4 * bnhd + bhn)
     rows.append({"name": f"flash_fwd_lse/{name}_train", "route": "cuda",
                  "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu",
                  "replaces": fwd_replaces, **dtype,
@@ -764,7 +790,7 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
         f"{dkv_row['bound_ms']:.4f}{fma(dkv_row)}); pair {dq_row['ms'] + dkv_row['ms']:.4f} ms vs SDPA "
         f"backward {sdpa_bwd_ms:.4f} ms ({backend}); fwd+lse {f_row['ms']:.4f} ms (plain "
         f"{f_row['plain_ms']:.4f}, SDPA {f_row['library_ms']:.4f} {f_row['library']}, bound "
-        f"{f_row['bound_ms']:.4f})")
+        f"{f_row['bound_ms']:.4f}{fma(f_row)})")
     del q, k, v, do, out, lse, dd, qt, kt, vt, dot, o_sdpa
     torch.cuda.empty_cache()
     return rows
@@ -878,13 +904,14 @@ def phase_fp32_kernels() -> list[dict]:
     """Phase 20: the fp32 kernels (csrc/flash_fp32.cu) against their plain
     versions at fp32: the forward at every edit shape and the VAE's, with
     the LSE and without it (the same bits of O), at ragged N for every
-    padded head dim, on peaked scores, on a row max rising at every key tile
-    and on packed q/k/v views; the backward at the training shapes and
-    first-stage training's (4, 1024, 1, 512), at ragged N and on the same
-    stress inputs, each launched twice and compared bitwise; then each timed
-    (CUDA graphs) beside its plain version and SDPA at fp32 with its bound
-    at the fp32 FMA rate. Returns the rows of the kernels line (dtype
-    "float32"), their launches filled in by phase 21."""
+    padded head dim and every tile it picks by size, on peaked scores, on a
+    row max rising at every key tile and on packed q/k/v views; the
+    backward at the training shapes and first-stage training's (4, 1024, 1,
+    512), at ragged N and on the same stress inputs; every kernel launched
+    twice and compared bitwise; then each timed (CUDA graphs) beside its
+    plain version and SDPA at fp32 with its bound at fp32 accuracy's rates
+    (bound_3xtf32; the all-FMA bound in the log). Returns the rows of the
+    kernels line (dtype "float32"), their launches filled in by phase 21."""
     import torch
 
     from pbe_tpu_torch.ops import flash_attention as fa
@@ -894,18 +921,18 @@ def phase_fp32_kernels() -> list[dict]:
     t0 = time.perf_counter()
     for shape in RAGGED_CHECKS + tuple(s for _, s, _, _ in FLASH_SHAPES):
         q, k, v = rand(shape), rand(shape), rand(shape)
-        check_flash(fa, q, k, v, f"fp32 check {shape}")
+        check_flash_f32(fa, q, k, v, f"fp32 check {shape}")
         if not torch.equal(fa.flash_fwd(q, k, v), fa.flash_fwd(q, k, v, return_lse=True)[0]):
             raise AssertionError(f"fp32 forward: O without the LSE differs from O with it "
                                  f"at {shape}")
     for shape in STRESS_SHAPES:
         b, n, h, d = shape
         q, k, v = rand(shape), rand(shape), rand(shape)
-        check_flash(fa, q * 8, k * 8, v, f"fp32 peaked (q, k x8) {shape}")
+        check_flash_f32(fa, q * 8, k * 8, v, f"fp32 peaked (q, k x8) {shape}")
         qr, kr = rising_scores(shape, gen, torch.float32)
-        check_flash(fa, qr, kr, v, f"fp32 rising max {shape}")
+        check_flash_f32(fa, qr, kr, v, f"fp32 rising max {shape}")
         q, k, v = rand((b, n, 3, h, d)).unbind(2)
-        check_flash(fa, q, k, v, f"fp32 packed qkv views {shape} strides {q.stride()}")
+        check_flash_f32(fa, q, k, v, f"fp32 packed qkv views {shape} strides {q.stride()}")
         del q, k, v, qr, kr
         torch.cuda.empty_cache()
     for shape in BWD_CHECKS + VAE_BWD_CHECKS:

@@ -27,8 +27,50 @@
 // Every output tile has one owner: no atomics, and a repeated launch gives
 // the same bits.
 //
-// The forward kernels run on the SIMT cores' fp32 FMA (1xTF32 keeps ~3
-// decimal digits, too few for an fp32 result):
+// The forward (flash_fwd_f32_kernel at d <= 160, flash_fwd_wide_f32_kernel
+// at 512) keeps S on the SIMT cores' fp32 FMA and puts P V on the tensor
+// cores as 3xTF32:
+//   * S stays on FFMA, bit for bit the backward's: every score is one fmaf
+//     chain over the head dim from column 0 (score_step, in abt's and
+//     scores_c's order), so the fp32 dQ and dK/dV kernels recompute the
+//     forward's S exactly. A one-ulp shift of an exponent of a few hundred
+//     (peaked scores) moves P past phase 20's tolerance, so S is never
+//     re-associated or moved to the tensor cores (that would move the
+//     backward's S with it).
+//   * S is computed in the mma's C layout: a warp scores 16 MT rows x 8 NT
+//     keys, lane (g, t) rows g + 8h (+ 16 mt) and keys 2t, 2t + 1 (+ 8 nt).
+//     Per 4 head-dim columns a lane loads 2 MT + 2 NT float4 for 16 MT NT
+//     FMA; the pitch DP + 4 puts the 8 A rows of a load (and the 4 B rows)
+//     in distinct bank groups, one wavefront each.
+//   * P V runs as mma.sync.m16n8k8 tf32 with fp32 accumulators in 3xTF32
+//     (1xTF32 keeps ~3 decimal digits, too few for an fp32 result): each
+//     operand splits into hi = tf32(x) and lo = x - hi, and a product is lo
+//     hi + hi lo + hi hi. The tensor cores add with truncation, so each
+//     output tile sums at most kChain = 8 k8 steps into a zeroed partial
+//     (a key tile of <= 64 keys at d <= 160, one k8 step at 512), which
+//     then joins O in fp32. P's C fragment is the A fragment as it stands
+//     (a k8 step's slot t takes key 2t and slot t + 4 key 2t + 1), so with
+//     SPLIT 1 P never leaves the registers; row max and row sum are xor
+//     shuffles over the quad of lanes sharing a row.
+//   * Where O's head dim is split over SPLIT warps (d = 80, 160, 512: O and
+//     the partials would not fit one warp's registers), those warps score
+//     1/SPLIT of each key tile, their row maxima meet in shared memory (one
+//     group barrier a tile) and P goes there once; each warp multiplies
+//     the group's P into its slice of O.
+//   * The FMA and tensor-core work interleave in one instruction stream:
+//     at d <= 160 the P V of key tile j runs one k8 step every CPK column
+//     steps of tile j + 1's scores; at d = 512 each step of the ring holds
+//     tile j + 1's K chunk s (64 keys x 64 columns) and tile j's V chunk s
+//     (8 keys x 512 columns). m, l and O stay in registers.
+//   * Key tiles arrive by cp.async (compile-time chunks a thread: index
+//     arithmetic once, not per tile) into a ring: 3 stages at d <= 160
+//     (tile j's V, tile j + 1's K, tile j + 2 in flight), 2 at 512 (the
+//     next step in flight); one block barrier a tile (a step at 512).
+//     Keys past N get S = -inf in the last tile; rows past N are
+//     zero-filled and never stored.
+//   * Exponentials run on the SFU (ex2.approx.ftz): a P below 2^-126 of its
+//     row's maximum flushes to 0.
+// K3, K4 and the dQ kernel run all their products on the SIMT cores' FMA:
 //   * Tiles are fp32 in shared memory, row-major with a pitch of DP + 4
 //     floats, read as float4. 256 threads: thread t = 16 ty + tx owns rows
 //     ty + 16 i of every tile it computes and columns tx + 16 j (scores) or
@@ -38,16 +80,11 @@
 //   * abt: a product A B^T of two row-major tiles (S = q2 K^T); per 4
 //     columns of the head dim a thread loads TM + TN float4 and does 4 TM
 //     TN FMA, each score one fmaf chain over the head dim from column 0.
-//     The pitch DP + 4 (an odd multiple of 4 floats over 32 banks) makes 8
-//     neighbouring rows' float4 hit 8 distinct bank groups. ab: a score
-//     tile times a row-major operand (P V) into the register accumulator.
-//   * m, l and O stay in registers (online softmax); P goes through a (rows
-//     x BK) shared tile between the two products. Keys past N get S = -inf;
-//     rows past N are zero-filled and never stored.
-//   * K1/K2 (flash_fwd_f32_kernel): a q tile resident, key tiles by 16-byte
-//     cp.async, all of a tile in flight at once, three __syncthreads a tile.
-//   * K3 (flash_resident_f32_kernel): the same tiles and softmax step, but,
-//     as the bf16 K3 does, a thread-block cluster of C = 1, 2 or 4 blocks
+//     ab: a score tile times a row-major operand (P V) into the register
+//     accumulator. m, l and O stay in registers (online softmax,
+//     softmax_tile); P goes through a (rows x BK) shared tile between the
+//     two products.
+//   * K3 (flash_resident_f32_kernel): a thread-block cluster of C = 1, 2 or 4 blocks
 //     (neighbouring q tiles of one head) shares each key tile: a producer
 //     warp a block copies rows r, r + C, ... of the tile's K and V (rank r)
 //     by cp.async.bulk ... multicast::cluster into the same offset of every
@@ -99,21 +136,39 @@
 //     512, 8 n8 tiles at a time). At d = 512 a block is 16 keys: K and V
 //     take 66 KB, one stage of q2 and dO 132 KB, one block an SM.
 // Tiles (rows a block x streamed rows; ring stages), shared memory:
-//   forward  DP <= 80: 64 x 64;  160: 64 x 32;  512: 32 x 32  (202,752 B)
+//   forward  <DP, MT, RG, SPLIT, BK> / wide <MT, RG, SPLIT, CK, CW>; a
+//            warp scores 16 MT rows x BK / SPLIT keys; shared-memory
+//            wavefronts a clock when the FMA pipes run at their full rate
+//            (4 warp FFMA a clock an SM), S's loads alone / with P V's
+//            loads, P's trip through shared memory and the cp.async writes:
+//     d 8, 16     128 x 32, 3 stages, 4 warps    25,600 B  0.38 / 0.56-0.63
+//     d 24, 32    128 x 32, 3, 4                 46,080 B  0.38 / 0.56-0.58
+//     d 40, 48    128 x 32, 3, 4                 66,560 B  0.38 / 0.56-0.58
+//     d 72, 80    64 x 32, 3, 4 (SPLIT 2)       107,008 B  0.50 / 0.90-0.94
+//     d 152, 160  N <= 256: 32 x 32, 3, 8 (MT 1, SPLIT 4)  157,696 B  1.00 / 1.63
+//                 N > 256:  64 x 32, 3, 8 (SPLIT 4)        189,440 B  0.75 / 1.13
+//     d 504, 512  64 x 64 in 8 steps, 2, 8 (SPLIT 4)       219,392 B  0.50 / 0.79;
+//                 where 64-row tiles would number fewer than the SMs,
+//                 32 x 64, 2, 8 (SPLIT 8)                  144,128 B  0.75 / 1.20
+//            The tiles past one wavefront a clock won on the card where the
+//            grid, not the FMA rate, binds (ds4 and ds8, the VAE at batch 1
+//            and first-stage training): more warps an SM there beat fewer
+//            loads a FMA. Wider score tiles at d >= 160 spill (O and its
+//            partials take 8 MT NO registers).
 //   dQ       DP <= 32: 64 x 64, 2;  48: 128 x 64, 2;  80: 64 x 64, 1;
 //            160: 64 x 32, 2 (N <= 128: 32 x 32, 1);  512: 32 x 16, 1
 //            (200,704 B)
 //   dK/dV    DP <= 80: 64 x 32, 2 (4 warps);  160: 64 x 32, 2 (8 warps;
 //            N <= 128: 32 x 32, 2, 4 warps);  512: 16 x 32, 1 (4 warps;
 //            203,520 B)
-// Bound on an H100 SXM: the forward does 4 BH N^2 d FLOP on fp32 FMA
-// (132 SMs x 128 lanes x 2 x 1.98 GHz = 66.9 TFLOP/s; K1 at (2, 4096, 8,
-// 40): 42.9 GFLOP, 0.64 ms). At fp32 accuracy the backward's S (2 BH N^2
-// d FLOP) stays on FMA and the rest can run as 3xTF32 (495 TFLOP/s of
-// TF32): the dQ kernel's 4 BH N^2 d as 12, the dK/dV kernel's 6 as 18; at
-// (4, 4096, 8, 40) 0.64 ms for dQ (its S binds) and 0.78 ms for dK/dV,
-// the bounds chip_smoke.py states (the dQ kernel's all-FMA 1.93 ms). Phases 20
-// and 11 hold each kernel against its plain version and time it beside
+// Bound on an H100 SXM at fp32 accuracy: S (2 BH N^2 d FLOP) on fp32 FMA
+// (132 SMs x 128 lanes x 2 x 1.98 GHz = 66.9 TFLOP/s), the other products
+// as 3xTF32 (495 TFLOP/s of TF32) beside it: the forward's P V (2 BH N^2 d)
+// as 6, the dQ kernel's 4 BH N^2 d as 12, the dK/dV kernel's 6 as 18. S
+// binds the forward (K1 at (2, 4096, 8, 40): 0.32 ms; all on FMA 0.64 ms)
+// and the dQ kernel (0.64 ms at (4, 4096, 8, 40); all-FMA 1.93 ms); dK/dV
+// 0.78 ms there. chip_smoke.py states these bounds (bound_3xtf32); phases
+// 20 and 11 hold each kernel against its plain version and time it beside
 // its bound.
 
 #include <cuda_runtime.h>
@@ -127,6 +182,7 @@
 namespace {
 
 constexpr size_t kSmemPerBlock = 232448;  // bytes of shared memory a block can use
+constexpr int kSms = 132;                 // SMs of an H100 SXM
 constexpr int CT = 16;                    // threads across a tile's columns (a half-warp)
 constexpr int THREADS = 256;
 constexpr int RT = THREADS / CT;          // threads across a tile's rows
@@ -371,49 +427,6 @@ __device__ __forceinline__ void store_lse(const Args& a, int bh, int r0, const f
   }
 }
 
-// --- the forward: q tile of BQ rows resident, key tiles of BK streamed
-template <int DP, int BQ, int BK>
-struct Fwd {
-  static constexpr int TM = BQ / RT, TN = BK / CT, LD = DP + 4, LDP = BK + 4;
-  static constexpr size_t SMEM = (size_t(BQ) * LD + 2 * size_t(BK) * LD + size_t(BQ) * LDP) * 4;
-  static_assert(BQ % RT == 0 && BK % CT == 0 && SMEM <= kSmemPerBlock, "forward tile");
-};
-
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Args a) {
-  using T = Fwd<DP, BQ, BK>;
-  using C = Cols<DP>;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BQ * T::LD;
-  float* sV = sK + BK * T::LD;
-  float* sP = sV + BK * T::LD;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ, n = a.N;
-  const int tx = threadIdx.x % CT, ty = threadIdx.x / CT;
-  load_tile<DP, BQ>(sQ, a, 0, bh, q0, a.scale_log2);
-  float o[T::TM][C::N], m[T::TM], l[T::TM];
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) o[i][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    load_tile<DP, BK>(sK, a, 1, bh, k0, 1.f);
-    load_tile<DP, BK>(sV, a, 2, bh, k0, 1.f);
-    __syncthreads();
-    float s[T::TM][T::TN] = {};
-    abt<T::TM, T::TN>(s, sQ, T::LD, sK, T::LD, a.D, ty, tx);
-    softmax_tile<T::TM, T::TN, C::N>(s, sP, T::LDP, m, l, o, k0, n, ty, tx);
-    __syncthreads();  // P is whole
-    ab<T::TM, DP, BK>(o, sP, T::LDP, sV, T::LD, ty, tx);
-    __syncthreads();  // K, V and P are free for the next tile
-  }
-  store_rows<T::TM, DP>(a.out[0], a, bh, q0, o, l, ty, tx);
-  store_lse<T::TM>(a, bh, q0, m, l, ty, tx);
-}
-
 // --- K3, resident: the forward's tiles and softmax step over key tiles of
 // BK that the blocks of a cluster share
 
@@ -644,7 +657,8 @@ __global__ void __launch_bounds__(THREADS) flash_pipelined_f32_kernel(const Args
   store_lse<T::TM>(a, bh, q0, m, l, ty, tx);
 }
 
-// --- the backward: 3xTF32 tensor-core products beside S on FFMA
+// --- the forward and the backward: 3xTF32 tensor-core products beside S
+// on FFMA
 
 // x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero:
 // the bits of cvt.rna.tf32.f32 for finite x, in one integer add and one
@@ -834,6 +848,552 @@ template <int NO>
 __device__ __forceinline__ void zero(float (&x)[NO][4]) {
 #pragma unroll
   for (int j = 0; j < NO; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+}
+
+// --- the forward (K1/K2): S on FFMA in the mma's C layout, P V as 3xTF32
+// mma.sync interleaved with it, m, l and O in registers, key tiles by a
+// cp.async ring
+
+// S += A B^T over columns [c, c + 4) for the warp's 16 MT rows of A (pitch
+// LDA) and 8 NT rows of B (pitch LDB), in the C layout: s[mt][nt][e] =
+// S[16 mt + g + 8(e/2)][8 nt + 2t + e%2]; A and B point at rows g and 2t of
+// the warp's first. Called on columns 0, 4, 8, ... in turn (A and B may
+// move to the next chunk of columns in between), each score is one fmaf
+// chain in column order from 0 (abt's and scores_c's), so these are the
+// fp32 backward's scores bit for bit. A lane loads 2 MT + 2 NT float4 (the
+// 8 A rows of a load fall in distinct bank groups: one wavefront; the 4 B
+// rows: half of one) for 16 MT NT FMA.
+template <int MT, int NT, int LDA, int LDB>
+__device__ __forceinline__ void score_step(float (&s)[MT][NT][4], const float* a, const float* b,
+                                           int c) {
+  float4 x[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    x[mt][0] = ld4(a + 16 * mt * LDA + c);
+    x[mt][1] = ld4(a + (16 * mt + 8) * LDA + c);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float4 y0 = ld4(b + 8 * nt * LDB + c), y1 = ld4(b + (8 * nt + 1) * LDB + c);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      fma4(s[mt][nt][0], x[mt][0], y0);
+      fma4(s[mt][nt][1], x[mt][0], y1);
+      fma4(s[mt][nt][2], x[mt][1], y0);
+      fma4(s[mt][nt][3], x[mt][1], y1);
+    }
+  }
+}
+
+// keys at or past kv (counted from the tile's first key: those past N) to
+// -inf, then the row maxima mx[mt][h] of rows 16 mt + g + 8h over the keys
+// and the quad of lanes that share the row
+template <int MT, int NT>
+__device__ __forceinline__ void tile_max(float (&s)[MT][NT][4], float (&mx)[MT][2], int kv) {
+  const int t = threadIdx.x % 4;
+  if (kv < 8 * NT) {  // the last tile only
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * nt + 2 * t + e % 2 >= kv) s[mt][nt][e] = -INFINITY;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) x = fmaxf(x, s[mt][nt][e]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      mx[mt][h] = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    }
+}
+
+// 2^x by the SFU (ex2.approx.ftz: relative error ~2^-22, and a result
+// below 2^-126, a P that small beside its row's maximum of 1, flushes to 0)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One online-softmax step on a C-layout tile: m to max(m, mx) (finite: the
+// tile holds a key before N), l and o rescaled by exp2(m_old - m_new), P =
+// exp2(S - m) in place and this lane's share of its row sums added to l
+// (the quad's shares are summed once, at the end)
+template <int MT, int NT, int NO>
+__device__ __forceinline__ void softmax_c(float (&s)[MT][NT][4], const float (&mx)[MT][2],
+                                          float (&m)[MT][2], float (&l)[MT][2],
+                                          float (&o)[MT][NO][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[mt][h], mx[mt][h]);
+      const float alpha = exp2_sfu(m[mt][h] - mn);  // 0 at the first tile
+      m[mt][h] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[mt][nt][e] = exp2_sfu(s[mt][nt][e] - mn);
+          sum += s[mt][nt][e];
+        }
+      l[mt][h] = l[mt][h] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) o[mt][j][2 * h] *= alpha, o[mt][j][2 * h + 1] *= alpha;
+    }
+}
+
+// P's fragments from registers: the C-layout tile s of the warp's own keys
+template <int MT, int NT>
+struct FragRegs {
+  const float (&s)[MT][NT][4];
+  __device__ __forceinline__ void operator()(int ks, float (&p)[MT][4]) const {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[mt][e] = s[mt][ks][e];
+  }
+};
+
+// P's fragments from a row-major tile in shared memory (pitch LDX, from the
+// warp's first row and the first key of the product)
+template <int MT, int LDX>
+struct FragSmem {
+  const float* x;
+  __device__ __forceinline__ void operator()(int ks, float (&p)[MT][4]) const {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* r = x + (16 * mt + g) * LDX + 8 * ks + 2 * t;
+      const float2 u = *reinterpret_cast<const float2*>(r);
+      const float2 w = *reinterpret_cast<const float2*>(r + 8 * LDX);
+      p[mt][0] = u.x, p[mt][1] = u.y, p[mt][2] = w.x, p[mt][3] = w.y;
+    }
+  }
+};
+
+// the warp's C-layout P into a row-major tile X (pitch LDX, from the warp's
+// first row and key); with LDX % 32 == 8 the 16 lanes of a float2 store
+// phase hit 32 distinct banks
+template <int MT, int NT, int LDX>
+__device__ __forceinline__ void store_p(float* X, const float (&s)[MT][NT][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* r = X + (16 * mt + g) * LDX + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(r) = make_float2(s[mt][nt][0], s[mt][nt][1]);
+      *reinterpret_cast<float2*>(r + 8 * LDX) = make_float2(s[mt][nt][2], s[mt][nt][3]);
+    }
+}
+
+// the SPLIT warps of row group rg meet at named barrier 1 + rg (0 is
+// __syncthreads)
+template <int SPLIT>
+__device__ __forceinline__ void group_sync(int rg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "n"(32 * SPLIT) : "memory");
+}
+
+// a row statistic of the group's rows r0 + 16 mt + g + 8h through X (SPLIT
+// x BQ floats): put_rows writes this warp's (slice sl), and after a group
+// barrier get_rows combines the SPLIT slices in slice order, by max or by +
+template <int MT, int BQ>
+__device__ __forceinline__ void put_rows(float* X, int sl, int r0, const float (&x)[MT][2]) {
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  if (lane % 4 == 0)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) X[sl * BQ + r0 + 16 * mt + g + 8 * h] = x[mt][h];
+}
+
+template <int MT, int BQ, int SPLIT, bool MAX>
+__device__ __forceinline__ void get_rows(float (&x)[MT][2], const float* X, int r0) {
+  const int g = threadIdx.x % 32 / 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 16 * mt + g + 8 * h;
+      float y = X[r];
+#pragma unroll
+      for (int s = 1; s < SPLIT; ++s) y = MAX ? fmaxf(y, X[s * BQ + r]) : y + X[s * BQ + r];
+      x[mt][h] = y;
+    }
+}
+
+// rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of a head's (N, D)
+// slice (row 0 at src, row stride rs) into a (ROWS x LDD) tile by 16-byte
+// cp.async copies of the NT threads, not waited for; rows >= n and columns
+// >= d are zero-filled. The chunks a thread copies are fixed at compile time
+// (copy_tile's runtime loop spends more on its indices than on the copies)
+template <int ROWS, int COLS, int LDD, int NT>
+__device__ __forceinline__ void copy_chunks(float* dst, const float* src, long long rs, int r0,
+                                            int c0, int n, int d) {
+  constexpr int CH = COLS / 4, TOTAL = ROWS * CH;
+#pragma unroll
+  for (int k = 0; k < (TOTAL + NT - 1) / NT; ++k) {
+    const int idx = threadIdx.x + k * NT;
+    if (TOTAL % NT != 0 && idx >= TOTAL) break;
+    const int r = idx / CH, c = idx % CH * 4;
+    const bool valid = r0 + r < n && c0 + c < d;
+    cp_async16(dst + r * LDD + c, valid ? src + (long long)(r0 + r) * rs + c0 + c : src, valid);
+  }
+}
+
+// The end of the forward for the warp's rows r0 + 16 mt + g + 8h of the
+// block's q tile: l summed over the quad (and, with SPLIT > 1, over the
+// group's slices through X), O / l into columns c0 + 8j + 2t below d of the
+// contiguous (B, N, H, D) output, and the LSE m + log2(l) where asked for
+template <int MT, int NO, int BQ, int SPLIT>
+__device__ __forceinline__ void finish_rows(const Args& a, int bh, int q0, int r0, int sl, int rg,
+                                            int c0, const float (&o)[MT][NO][4],
+                                            const float (&m)[MT][2], float (&l)[MT][2],
+                                            float* X) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int n = a.N, d = a.D, b = bh / a.H, hh = bh % a.H;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 1);
+      l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], 2);
+    }
+  if constexpr (SPLIT > 1) {
+    put_rows<MT, BQ>(X, sl, r0, l);
+    group_sync<SPLIT>(rg);
+    get_rows<MT, BQ, SPLIT, false>(l, X, r0);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + r0 + 16 * mt + g + 8 * h;
+      if (row >= n) continue;
+      float* dst = a.out[0] + ((long long)(b * n + row) * a.H + hh) * d + c0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        if (c0 + 8 * j >= d) break;
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[mt][j][2 * h] / l[mt][h], o[mt][j][2 * h + 1] / l[mt][h]);
+      }
+      if (a.lse_out != nullptr && sl == 0 && t == 0)
+        a.lse_out[(long long)bh * n + row] = m[mt][h] + log2f(l[mt][h]);
+    }
+}
+
+// P's fragment p of one k8 step (C layout: p[mt][e] is row 16 mt + g +
+// 8(e/2), key 2t + e%2) as the A fragments hi = tf32(p), lo = p - hi; slot
+// t takes key 2t and slot t + 4 key 2t + 1 (ab_tf32's slots)
+template <int MT>
+__device__ __forceinline__ void split_p(const float (&p)[MT][4], uint32_t (&ah)[MT][4],
+                                        uint32_t (&al)[MT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    split_tf32(p[mt][0], ah[mt][0], al[mt][0]);  // row g, key 2t
+    split_tf32(p[mt][2], ah[mt][1], al[mt][1]);  // row g + 8, key 2t
+    split_tf32(p[mt][1], ah[mt][2], al[mt][2]);  // row g, key 2t + 1
+    split_tf32(p[mt][3], ah[mt][3], al[mt][3]);  // row g + 8, key 2t + 1
+  }
+}
+
+// part[mt][j] += P V for one k8 step in 3xTF32, hi hi and the small terms
+// in one partial (registers): P's split fragments, V row-major (pitch LD)
+// from the step's first key, columns c0 + 8j of every n8 tile j < NO (V's
+// columns past D are zero-filled, so a tile past D adds zeros). A partial
+// sums at most kChain steps (3 kChain truncating adds) before it joins O
+// in fp32.
+template <int MT, int NO, int LD>
+__device__ __forceinline__ void pv_mma(float (&part)[MT][NO][4], const uint32_t (&ah)[MT][4],
+                                       const uint32_t (&al)[MT][4], const float* V, int c0) {
+  const int lane = threadIdx.x % 32;
+  const float* r = V + 2 * (lane % 4) * LD + c0 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    uint32_t bh[2], bl[2];
+    split_tf32(r[8 * j], bh[0], bl[0]);
+    split_tf32(r[LD + 8 * j], bh[1], bl[1]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_3xtf32(part[mt][j], part[mt][j], ah[mt], al[mt], bh, bl);
+  }
+}
+
+// every cp.async group of this thread but the last committed one has landed
+__device__ __forceinline__ void cp_async_wait_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The forward at a padded head dim DP <= 160 and head dim D (DP or DP - 8,
+// instantiated, so that the column loop of the scores has a fixed count): a
+// block holds RG row groups of 16 MT query rows. SPLIT warps score a
+// group's rows, each over KW = BK / SPLIT keys of every BK-key tile, and
+// each holds O's columns [SLICE sl, + SLICE) of OW (D; DP where SPLIT > 1,
+// so that a slice is whole n8 tiles: V's columns past D are zeros). With
+// SPLIT 1, P stays in the warp's registers; with SPLIT > 1 the group's row
+// maxima meet in shared memory (one group barrier a tile) and P goes there
+// (two buffers). Software-pipelined: the P V of tile j, KT = BK / 8 k8 steps
+// on the tensor cores, is interleaved with the DP / 4 column steps of tile
+// j + 1's scores on FMA (one k8 step every CPK column steps), so that the
+// mma chains' latency lies under FMA work of the same warp. K and V tiles
+// arrive by cp.async in a 3-stage ring (tile j's V, tile j + 1's K, tile j
+// + 2 in flight), one block barrier a tile.
+template <int DP, int D, int MT, int RG, int SPLIT, int BK>
+struct FwdF32 {
+  static constexpr int THREADS = 32 * RG * SPLIT, BQ = 16 * MT * RG, LD = DP + 4;
+  static constexpr int KW = BK / SPLIT, NT = KW / 8, KT = BK / 8, LDX = BK + 8;
+  static constexpr int SLICE = (SPLIT == 1 ? D : DP) / SPLIT, NO = SLICE / 8;
+  static constexpr int CS = D / 4, CPK = CS / KT > 1 ? CS / KT : 1;
+  static constexpr int STAGE = 2 * BK * LD;  // floats of a K and a V tile
+  static constexpr size_t OFF_KV = size_t(BQ) * LD * 4;
+  static constexpr size_t OFF_X = OFF_KV + 3 * size_t(STAGE) * 4;
+  static constexpr size_t SMEM =
+      OFF_X + (SPLIT > 1 ? (2 * size_t(BQ) * LDX + SPLIT * BQ) * 4 : 0);
+  static_assert(KW % 8 == 0 && SLICE % 8 == 0 && D % 8 == 0 && D <= DP && KT <= kChain &&
+                    SMEM <= kSmemPerBlock,
+                "forward tile");
+};
+
+template <int DP, int D, int MT, int RG, int SPLIT, int BK>
+__global__ void __launch_bounds__(32 * RG * SPLIT) flash_fwd_f32_kernel(const Args a) {
+  using T = FwdF32<DP, D, MT, RG, SPLIT, BK>;
+  using S = float[MT][T::NT][4];
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);  // q2
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_X);  // SPLIT > 1: P of tiles j, j + 1
+  float* sX = sP + 2 * T::BQ * T::LDX;                     // and the row statistics
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N, d = D;
+  const int warp = threadIdx.x / 32, rg = warp / SPLIT, sl = warp % SPLIT;
+  const int r0 = rg * 16 * MT;  // the group's first row in the q tile
+  const int tiles = (n + BK - 1) / BK;
+  const float* kg = head(a, 1, bh);
+  const float* vg = head(a, 2, bh);
+  // tile j into stage j % 3 (K, then V), one cp.async group (empty past the
+  // last tile)
+  auto issue = [&](int j) {
+    if (j < tiles) {
+      float* stage = ring + (j % 3) * T::STAGE;
+      copy_chunks<BK, DP, T::LD, T::THREADS>(stage, kg, a.st[4], j * BK, 0, n, d);
+      copy_chunks<BK, DP, T::LD, T::THREADS>(stage + BK * T::LD, vg, a.st[7], j * BK, 0, n, d);
+    }
+    cp_async_commit();
+  };
+  const int lane = threadIdx.x % 32;
+  const float* qw = sQ + (r0 + lane / 4) * T::LD;  // score_step's rows
+  const int kb = (sl * T::KW + 2 * (lane % 4)) * T::LD;
+  float o[MT][T::NO][4], m[MT][2], l[MT][2];
+  S s0, s1;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    zero(o[mt]);
+    zero(s0[mt]);
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  // tile jn's P from its scores s: the row maxima (with SPLIT > 1 over the
+  // group, through sX), the softmax step, and with SPLIT > 1 P into buffer
+  // jn % 2, published by the next block barrier
+  auto softmax_tile_c = [&](S& s, int jn) {
+    float mx[MT][2];
+    tile_max<MT, T::NT>(s, mx, n - jn * BK - sl * T::KW);
+    if constexpr (SPLIT > 1) {
+      put_rows<MT, T::BQ>(sX, sl, r0, mx);
+      group_sync<SPLIT>(rg);
+      get_rows<MT, T::BQ, SPLIT, true>(mx, sX, r0);
+    }
+    softmax_c<MT, T::NT, T::NO>(s, mx, m, l, o);
+    if constexpr (SPLIT > 1)
+      store_p<MT, T::NT, T::LDX>(sP + ((jn % 2) * T::BQ + r0) * T::LDX + sl * T::KW, s);
+  };
+  // tile j: its P V (P in registers sp, or in shared memory) interleaved
+  // with tile j + 1's scores into sn, then tile j + 1's softmax step
+  auto tile = [&](int j, S& sp, S& sn) {
+    cp_async_wait_all();
+    // tile j + 1 (and with SPLIT > 1 tile j's P) is visible to every
+    // thread, and every thread is done with tile j - 1's stage
+    __syncthreads();
+    issue(j + 2);
+    const float* sV = ring + (j % 3) * T::STAGE + BK * T::LD;
+    const float* kn = ring + ((j + 1) % 3) * T::STAGE + kb;
+    const bool next = j + 1 < tiles;
+    float part[MT][T::NO][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) zero(sn[mt]), zero(part[mt]);
+    auto pv = [&](int ks) {
+      float f[MT][4];
+      if constexpr (SPLIT == 1)
+        FragRegs<MT, T::NT>{sp}(ks, f);
+      else
+        FragSmem<MT, T::LDX>{sP + ((j % 2) * T::BQ + r0) * T::LDX}(ks, f);
+      uint32_t ah[MT][4], al[MT][4];
+      split_p<MT>(f, ah, al);
+      pv_mma<MT, T::NO, T::LD>(part, ah, al, sV + 8 * ks * T::LD, sl * T::SLICE);
+    };
+    if (next) {  // one branch a tile: the unrolled steps below are one block
+#pragma unroll
+      for (int cs = 0; cs < T::CS; ++cs) {
+        if (cs % T::CPK == 0 && cs / T::CPK < T::KT) pv(cs / T::CPK);
+        score_step<MT, T::NT, T::LD, T::LD>(sn, qw, kn, 4 * cs);
+      }
+#pragma unroll
+      for (int ks = (T::CS + T::CPK - 1) / T::CPK; ks < T::KT; ++ks) pv(ks);
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < T::KT; ++ks) pv(ks);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jo = 0; jo < T::NO; ++jo)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][jo][e] += part[mt][jo][e];
+    if (next) softmax_tile_c(sn, j + 1);
+  };
+
+  copy_chunks<T::BQ, DP, T::LD, T::THREADS>(sQ, head(a, 0, bh), a.st[1], q0, 0, n, d);
+  issue(0);  // one group: q and tile 0
+  issue(1);
+  cp_async_wait_but_last();
+  // q2: scale_tile scales the chunks this thread copied (copy_chunks' order)
+  scale_tile<DP, T::BQ, T::THREADS>(sQ, a.scale_log2);
+  __syncthreads();  // q2 and tile 0 are visible to every thread
+#pragma unroll 2
+  for (int c = 0; c < D; c += 4) score_step<MT, T::NT, T::LD, T::LD>(s0, qw, ring + kb, c);
+  softmax_tile_c(s0, 0);
+  // the score arrays take turns, so that P is never copied
+  for (int j = 0; j < tiles; j += 2) {
+    tile(j, s0, s1);
+    if (j + 1 < tiles) tile(j + 1, s1, s0);
+  }
+  finish_rows<MT, T::NO, T::BQ, SPLIT>(a, bh, q0, r0, sl, rg, sl * T::SLICE, o, m, l, sX);
+}
+
+// The forward at d = 512 (K2, the VAE's single head): a q tile of BQ rows
+// (132 KB at 64) leaves room for two ring stages of 34 KB. A key tile of
+// 64 keys takes KC = 512 / CK steps; step s of tile j's iteration holds
+// tile j + 1's K chunk s (64 keys x CK columns: the scores' fmaf chains go
+// on from chunk to chunk in column order) and tile j's V chunk s (its 8
+// keys of k8 step s x all columns), so that each warp's instruction stream
+// interleaves its FMA scores of tile j + 1 with its 3xTF32 P V of tile j,
+// one block barrier a step, the next step's chunks in flight. After tile
+// j + 1's last chunk the group's row maxima meet in shared memory (the
+// group barrier also frees P of tile j) and its P goes there; each warp
+// holds O's SLICE columns of its group's rows, and its P V partials span
+// one k8 step.
+template <int MT, int RG, int SPLIT, int CK, int CW>
+struct FwdWideF32 {
+  static constexpr int DP = 512, LD = DP + 4, THREADS = 32 * RG * SPLIT, BQ = 16 * MT * RG;
+  static constexpr int BK = 8 * DP / CK, KW = BK / SPLIT, NT = KW / 8, LDX = BK + 8;
+  static constexpr int SLICE = DP / SPLIT, NO = SLICE / 8, KC = DP / CK, LDK = CK + 4;
+  static constexpr int STAGE = BK * LDK + 8 * LD;  // floats: a K chunk, then a V chunk
+  static constexpr size_t OFF_RING = size_t(BQ) * LD * 4;
+  static constexpr size_t OFF_X = OFF_RING + 2 * size_t(STAGE) * 4;
+  static constexpr size_t SMEM = OFF_X + (size_t(BQ) * LDX + SPLIT * BQ) * 4;
+  static_assert(KW % 8 == 0 && SLICE % 8 == 0 && NO % CW == 0 && BK / 8 <= kChain &&
+                    SMEM <= kSmemPerBlock,
+                "d = 512 forward tile");
+};
+
+template <int MT, int RG, int SPLIT, int CK, int CW>
+__global__ void __launch_bounds__(32 * RG * SPLIT, 1) flash_fwd_wide_f32_kernel(const Args a) {
+  using T = FwdWideF32<MT, RG, SPLIT, CK, CW>;
+  constexpr int BK = T::BK, KC = T::KC;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);  // q2
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_RING);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_X);
+  float* sX = sP + T::BQ * T::LDX;  // the row statistics
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N, d = a.D;
+  const int warp = threadIdx.x / 32, rg = warp / SPLIT, sl = warp % SPLIT;
+  const int r0 = rg * 16 * MT;
+  const int tiles = (n + BK - 1) / BK, steps = (tiles + 1) * KC;
+  const float* kg = head(a, 1, bh);
+  const float* vg = head(a, 2, bh);
+  // step i: K chunk i % KC of tile i / KC and V chunk i % KC of the tile
+  // before, where they exist, into stage i % 2
+  auto issue = [&](int i) {
+    float* stage = ring + (i % 2) * T::STAGE;
+    const int jk = i / KC, st = i % KC;
+    if (jk < tiles)
+      copy_chunks<BK, CK, T::LDK, T::THREADS>(stage, kg, a.st[4], jk * BK, st * CK, n, d);
+    if (jk > 0)
+      copy_chunks<8, T::DP, T::LD, T::THREADS>(stage + BK * T::LDK, vg, a.st[7],
+                                                (jk - 1) * BK + 8 * st, 0, n, d);
+    cp_async_commit();
+  };
+  copy_chunks<T::BQ, T::DP, T::LD, T::THREADS>(sQ, head(a, 0, bh), a.st[1], q0, 0, n, d);
+  issue(0);
+  cp_async_wait_all();
+  scale_tile<T::DP, T::BQ, T::THREADS>(sQ, a.scale_log2);  // q2, as at d <= 160
+  const int lane = threadIdx.x % 32;
+  const float* qw = sQ + (r0 + lane / 4) * T::LD;  // score_step's rows
+  const int kb = (sl * T::KW + 2 * (lane % 4)) * T::LDK;
+  float o[MT][T::NO][4], m[MT][2], l[MT][2], s[MT][T::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    zero(o[mt]);
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait_all();
+    // step i's chunks (at i = 0 q2 too; at a tile's first step its P) are
+    // visible to every thread, and every thread is done with step i - 1's
+    // stage
+    __syncthreads();
+    if (i + 1 < steps) issue(i + 1);
+    const float* stage = ring + (i % 2) * T::STAGE;
+    const int jk = i / KC, st = i % KC;
+    if (jk > 0) {  // tile jk - 1's k8 step st, CW n8 tiles of partials at a time
+      float f[MT][4];
+      FragSmem<MT, T::LDX>{sP + r0 * T::LDX}(st, f);
+      uint32_t ah[MT][4], al[MT][4];
+      split_p<MT>(f, ah, al);
+#pragma unroll
+      for (int j0 = 0; j0 < T::NO; j0 += CW) {
+        float part[MT][CW][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) zero(part[mt]);
+        pv_mma<MT, CW, T::LD>(part, ah, al, stage + BK * T::LDK, sl * T::SLICE + 8 * j0);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int jj = 0; jj < CW; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[mt][j0 + jj][e] += part[mt][jj][e];
+      }
+    }
+    if (jk < tiles) {  // tile jk's scores over the chunk's columns
+      if (st == 0)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) zero(s[mt]);
+      const int c0 = st * CK, cols = min(CK, d - c0);
+#pragma unroll 2
+      for (int c = 0; c < cols; c += 4)
+        score_step<MT, T::NT, T::LD, T::LDK>(s, qw + c0, stage + kb, c);
+      if (st == KC - 1) {
+        float mx[MT][2];
+        tile_max<MT, T::NT>(s, mx, n - jk * BK - sl * T::KW);
+        put_rows<MT, T::BQ>(sX, sl, r0, mx);
+        group_sync<SPLIT>(rg);  // the group is done with tile jk - 1's P too
+        get_rows<MT, T::BQ, SPLIT, true>(mx, sX, r0);
+        softmax_c<MT, T::NT, T::NO>(s, mx, m, l, o);
+        store_p<MT, T::NT, T::LDX>(sP + r0 * T::LDX + sl * T::KW, s);
+      }
+    }
+  }
+  finish_rows<MT, T::NO, T::BQ, SPLIT>(a, bh, q0, r0, sl, rg, sl * T::SLICE, o, m, l, sX);
 }
 
 // --- dQ: q2 and dO tiles of BQ rows resident, K and V tiles of BK
@@ -1042,9 +1602,22 @@ cudaError_t launch(int rows, int threads, size_t smem, const Args& a, cudaStream
   return cudaGetLastError();
 }
 
-template <int DP, int BQ, int BK>
+// D % 8 == 0 (make_args), so D is DP or DP - 8
+template <int DP, int MT, int RG, int SPLIT, int BK>
 cudaError_t launch_fwd(const Args& a, cudaStream_t s) {
-  return launch<flash_fwd_f32_kernel<DP, BQ, BK>>(BQ, THREADS, Fwd<DP, BQ, BK>::SMEM, a, s);
+  using T = FwdF32<DP, DP, MT, RG, SPLIT, BK>;
+  using T8 = FwdF32<DP, DP - 8, MT, RG, SPLIT, BK>;
+  return a.D == DP ? launch<flash_fwd_f32_kernel<DP, DP, MT, RG, SPLIT, BK>>(T::BQ, T::THREADS,
+                                                                            T::SMEM, a, s)
+                   : launch<flash_fwd_f32_kernel<DP, DP - 8, MT, RG, SPLIT, BK>>(
+                         T8::BQ, T8::THREADS, T8::SMEM, a, s);
+}
+
+template <int MT, int RG, int SPLIT, int CK, int CW>
+cudaError_t launch_fwd_wide(const Args& a, cudaStream_t s) {
+  using T = FwdWideF32<MT, RG, SPLIT, CK, CW>;
+  return launch<flash_fwd_wide_f32_kernel<MT, RG, SPLIT, CK, CW>>(T::BQ, T::THREADS, T::SMEM, a,
+                                                                   s);
 }
 
 template <int DP, int BQ, int BK, int STAGES>
@@ -1148,13 +1721,20 @@ extern "C" int pbe_flash_fwd_f32(const void* q, const void* k, const void* v, vo
                               H, D, st, 9, scale, 0.f);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // <DP, MT, RG, SPLIT, BK> (FwdF32) and <MT, RG, SPLIT, CK, CW>
+  // (FwdWideF32). Smaller q tiles where larger ones leave SMs idle: at d =
+  // 160 32 rows for N <= 256 (ds4, ds8), else 64; at d = 512 32 rows where
+  // 64-row tiles would be fewer than the SMs, else 64
   switch ((D + 15) / 16 * 16) {
-    case 16:  return (int)launch_fwd<16, 64, 64>(a, s);
-    case 32:  return (int)launch_fwd<32, 64, 64>(a, s);
-    case 48:  return (int)launch_fwd<48, 64, 64>(a, s);
-    case 80:  return (int)launch_fwd<80, 64, 64>(a, s);
-    case 160: return (int)launch_fwd<160, 64, 32>(a, s);
-    case 512: return (int)launch_fwd<512, 32, 32>(a, s);
+    case 16:  return (int)launch_fwd<16, 2, 4, 1, 32>(a, s);
+    case 32:  return (int)launch_fwd<32, 2, 4, 1, 32>(a, s);
+    case 48:  return (int)launch_fwd<48, 2, 4, 1, 32>(a, s);
+    case 80:  return (int)launch_fwd<80, 2, 2, 2, 32>(a, s);
+    case 160: return (int)(N <= 256 ? launch_fwd<160, 1, 2, 4, 32>(a, s)
+                                    : launch_fwd<160, 2, 2, 4, 32>(a, s));
+    case 512: return (int)((long long)B * H * ((N + 63) / 64) < kSms
+                               ? launch_fwd_wide<2, 1, 8, 64, 2>(a, s)
+                               : launch_fwd_wide<2, 2, 4, 64, 2>(a, s));
     default:  return (int)cudaErrorInvalidValue;
   }
 }

@@ -132,14 +132,16 @@ def variant_source(spec: str, source: str = "flash_fwd") -> str:
 
 def ptxas_report(log: str) -> str:
     """One line per instantiation of the flash kernels (forward, its
-    resident and pipelined variants, backward, and their fp32 five) in a
+    resident and pipelined variants, backward, and their fp32 kernels: the
+    forward at d <= 160 and at 512, resident, pipelined, dQ, dK/dV) in a
     -Xptxas -v log: its template arguments, registers and spill bytes."""
     lines = log.splitlines()
     report = []
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '_Z\w*?"
                       r"(flash_(?:fwd|fwd_wide|resident|resident_wide|pipelined|pipelined_wide"
-                      r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|bwd_dq_f32|bwd_dkv_f32"
+                      r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|fwd_wide_f32|bwd_dq_f32"
+                      r"|bwd_dkv_f32"
                       r"|resident_f32|pipelined_f32)"
                       r"_kernel)(I\w+?EE)?", line)
         if m and i + 3 < len(lines):

@@ -7,17 +7,23 @@ held against the Pallas kernels at fp32 by
 tests/test_torch_flash_attention.py, tests/test_torch_flash_variants.py
 (every variant, the resident one at d = 512 too) and
 tests/test_torch_flash_backward.py; the CUDA kernels against their plain
-versions on the card by chip_smoke.py (phases 20 and 11)."""
+versions on the card by chip_smoke.py (phases 20 and 11). The fp32
+forward's P V runs as 3xTF32 on the tensor cores: an emulation of it in
+torch holds it to the plain version at chip_smoke.py's fp32 tolerances,
+where 1xTF32 fails them."""
 import re
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pbe_tpu_torch.ops import cuda_build
 from pbe_tpu_torch.ops import flash_attention as fa
 from pbe_tpu_torch.scripts import inference
+from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
 
 CSRC = Path(fa.__file__).resolve().parent.parent / "csrc"
 WRAPPERS = {"fwd": fa.flash_fwd, "dq": fa.flash_bwd_dq, "dkv": fa.flash_bwd_dkv,
@@ -153,3 +159,140 @@ def test_precision_full_runs_fp32_on_the_card_with_tf32_off(monkeypatch, capsys,
     assert torch.backends.cudnn.allow_tf32 is not tf32_off
     assert ("TF32 off" in capsys.readouterr().out) is tf32_off
 
+
+
+@pytest.fixture
+def _few_threads():
+    """Six test workers share the CPU: two intra-op threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def _tf32(x):
+    """csrc/flash_fp32.cu's to_tf32: round to 10 mantissa bits, ties away
+    from zero, by one integer add and a mask."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _top19(x):
+    """The 19 bits of an fp32 register that the tensor cores read as tf32."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mma(acc, a, b):
+    """acc + a b for one k8 step of mma.sync.m16n8k8: the products summed
+    (float64 stands in for the exact sum) and added into the fp32
+    accumulator with truncation toward zero."""
+    exact = acc.double() + a.double() @ b.double()
+    f = exact.float()
+    return torch.where(f.double().abs() > exact.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _flash_tf32(q, k, v, terms: int, bk: int = 64):
+    """The fp32 forward kernel's arithmetic in torch: S and the online
+    softmax in fp32 over key tiles of bk keys, and each tile's P V as k8
+    steps of mma.sync into one zeroed partial (bk / 8 = kChain steps) that
+    then joins O in fp32. Operands split as hi = to_tf32(x), lo = x - hi;
+    terms 3 is 3xTF32 (lo hi + hi lo + hi hi), terms 1 is 1xTF32 (hi hi)."""
+    s2 = fa._heads(fa.prescale(q)) @ fa._heads(k).transpose(-1, -2)
+    vh = fa._heads(v)
+    m = torch.full(s2.shape[:-1] + (1,), -torch.inf)
+    l, o = torch.zeros_like(m), torch.zeros(s2.shape[:-1] + vh.shape[-1:])
+    for k0 in range(0, s2.shape[-1], bk):
+        mn = torch.maximum(m, s2[..., k0:k0 + bk].amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - mn), torch.exp2(s2[..., k0:k0 + bk] - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        part = torch.zeros_like(o)
+        for ks in range(0, p.shape[-1], 8):
+            a, b = p[..., ks:ks + 8], vh[..., k0 + ks:k0 + ks + 8, :]
+            ah, bh = _tf32(a), _tf32(b)
+            if terms == 3:
+                part = _mma(part, _top19(a - ah), bh)
+                part = _mma(part, ah, _top19(b - bh))
+            part = _mma(part, ah, bh)
+        o, m = o * alpha + part, mn
+    return (o / l).permute(0, 2, 1, 3)
+
+
+def _stress_inputs(kind: str, shape, seed: int = 20):
+    """chip_smoke.py phase 20's forward inputs on the CPU: randn, peaked
+    scores (q and k x8) and a row max that rises by 0.02 a key in the exp2
+    domain (rising_scores)."""
+    g = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(g.standard_normal(shape).astype(np.float32)) for _ in range(3))
+    if kind == "peaked":
+        return q * 8, k * 8, v
+    if kind == "rising":
+        n, d = shape[1], shape[3]
+        q, k = 0.1 * q, 0.1 * k
+        q[..., 0] = 1.0
+        step = 0.02 / (d ** -0.5 * fa.LOG2E)
+        k[..., 0] = (torch.arange(n, dtype=torch.float32) * step)[None, :, None]
+    return q, k, v
+
+
+def _rel_errors(got, want):
+    diff = got - want
+    return ((diff.abs().max() / want.abs().max()).item(),
+            (diff.norm() / want.norm()).item())
+
+
+@pytest.mark.parametrize("kind", ["randn", "peaked", "rising"])
+@pytest.mark.parametrize("shape", [(1, 256, 2, 40), (1, 128, 1, 160), (1, 128, 1, 512)],
+                         ids=["d40", "d160", "d512"])
+def test_3xtf32_pv_meets_the_fp32_tolerances_where_1xtf32_fails(shape, kind, _few_threads):
+    """The fp32 forward's P V as 3xTF32 tensor-core products lands within
+    phase 20's F32_MAX_REL / F32_L2_REL of flash_attention_plain; the same
+    products at 1xTF32 do not, which is why P V takes three of them."""
+    q, k, v = _stress_inputs(kind, shape)
+    want = fa.flash_attention_plain(q, k, v)
+    max3, l2_3 = _rel_errors(_flash_tf32(q, k, v, 3), want)
+    max1, l2_1 = _rel_errors(_flash_tf32(q, k, v, 1), want)
+    assert max3 <= chip_smoke.F32_MAX_REL and l2_3 <= chip_smoke.F32_L2_REL, (max3, l2_3)
+    assert max1 > chip_smoke.F32_MAX_REL or l2_1 > chip_smoke.F32_L2_REL, (max1, l2_1)
+
+
+@pytest.mark.parametrize("shape,ms", [((2, 4096, 8, 40), 0.3210), ((4, 4096, 1, 512), 1.0272)],
+                         ids=["edit_ds1", "train_vae"])
+def test_fp32_forward_bound_is_s_on_fma_beside_3xtf32_pv(shape, ms):
+    """The fp32 forward rows' bound at fp32 accuracy: S (2 B H N^2 d FLOP)
+    on fp32 FMA binds, beside P V as three TF32 products; q, k, v read and
+    O written once."""
+    b, n, h, d = shape
+    by, got = chip_smoke.bound_3xtf32(4.0, b, n, h, d, 4.0 * b * n * h * d * 4)
+    assert by == "fma" and round(got, 4) == ms
+
+
+def test_ptxas_report_names_every_fp32_forward_instantiation():
+    """sweep_flash_tiles.ptxas_report (chip_smoke.py phase 1's register and
+    spill lines) names each forward kernel that pbe_flash_fwd_f32
+    dispatches to, with its template arguments, from a -Xptxas -v log: at
+    d <= 160 launch_fwd<DP, ...> instantiates the head dims DP and DP - 8."""
+    src = (CSRC / "flash_fp32.cu").read_text()
+    entry = src[src.index('extern "C" int pbe_flash_fwd_f32'):]
+    entry = entry[:entry.index("\n}\n")]
+    launches = re.findall(r"launch_fwd(_wide)?<([\d, ]+)>", entry)
+    assert {int(args.split(",")[0]) for wide, args in launches if not wide} == {16, 32, 48, 80,
+                                                                               160}
+    assert any(wide for wide, _ in launches)
+    kernels = []
+    for wide, args in launches:
+        nums = [int(x) for x in args.split(",")]
+        if wide:
+            kernels.append(("flash_fwd_wide_f32_kernel", nums))
+        else:
+            kernels += [("flash_fwd_f32_kernel", [nums[0], d, *nums[1:]])
+                        for d in (nums[0], nums[0] - 8)]
+    log, want = [], []
+    for name, nums in kernels:
+        mangled = "".join(f"Li{x}E" for x in nums)
+        log += [f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(name)}{name}"
+                f"I{mangled}EEvNS_4ArgsE' for 'sm_90a'",
+                "ptxas info    : Function properties for x",
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                "ptxas info    : Used 200 registers, used 1 barriers"]
+        want.append(f"  {name}<{', '.join(map(str, nums))}>: 0 bytes stack frame")
+    report = ptxas_report("\n".join(log)).splitlines()
+    assert [line[:len(w)] for line, w in zip(report, want)] == want and len(report) == len(want)
