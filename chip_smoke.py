@@ -325,9 +325,12 @@ VAE_BWD_CHECKS = ((1, 77, 1, 512), (1, 1000, 1, 512), (1, 20, 1, 512))
 # K3 and K4 beyond the benchmark's shapes: ds8, N that no tile divides, head
 # dims 16 and 512; K3 runs each at clusters of 1, 2 and 4, so a cluster's
 # last q tiles lie wholly past N ((1,100,2,40): 2 q tiles of 64, (1,77,1,512):
-# 3 of 32, (2,333,3,80): 6 of 64)
+# 3 of 32, (2,333,3,80): 6 of 64); then N one row past a q tile of the fp32
+# kernels (128 rows at d <= 80, 64 at block_k 128 and at 512, 32 at 160) at
+# the head dims DP - 8 of 48, 160 and 512
 VARIANT_CHECKS = ((2, 64, 8, 160), (1, 100, 2, 40), (2, 333, 3, 80), (1, 70, 2, 160),
-                  (2, 130, 4, 16), (1, 1000, 2, 80), (1, 4000, 2, 40), (1, 77, 1, 512))
+                  (2, 130, 4, 16), (1, 1000, 2, 80), (1, 4000, 2, 40), (1, 77, 1, 512),
+                  (1, 129, 2, 48), (2, 33, 2, 152), (1, 65, 1, 504))
 
 
 # phase 20, the fp32 kernels (csrc/flash_fp32.cu) against their plain
@@ -1092,13 +1095,18 @@ def phase_variants_f32() -> list[dict]:
     flash_attention_plain at fp32 (F32_MAX_REL, F32_L2_REL, the LSE too) at
     VARIANT_CHECKS and the benchmark's shapes, at every fp32 key block and
     every cluster size of K3, on randn, peaked (q, k x8) and rising-max
-    scores; each flash_forward(variant=...) call on fp32 operands launching
-    its fp32 kernel once and no other kernel (counted by dtype); then each
-    kernel timed (a CUDA graph of 20 calls) beside the plain version, SDPA
-    at fp32 and its bound at the fp32 FMA rate. A row's launches ("dtype":
-    "float32") are its kernel's fp32 launches by the flash_forward calls at
-    its shape, every count set to 0 just before them; no path of the edit or
-    of training runs K3 or K4 (phase 21 counts them there)."""
+    scores, each launch repeated and compared bitwise; each
+    flash_forward(variant=...) call on fp32 operands launching its fp32
+    kernel once and no other kernel (counted by dtype); then each kernel
+    timed (a CUDA graph of 20 calls) beside the plain version, SDPA at fp32,
+    the fp32 forward (K1/K2) at the same shape and the function's bound at
+    fp32 accuracy's rates (bound_3xtf32: S on FMA beside P V as 3xTF32, for
+    K3 and K4 alike; the all-FMA bound in the log, and for K4 the floors of
+    its algorithm, which computes S twice: 4*B*H*N^2*D on FMA beside P V,
+    and 6*B*H*N^2*D all on FMA). A row's launches ("dtype": "float32") are its kernel's fp32
+    launches by the flash_forward calls at its shape, every count set to 0
+    just before them; no path of the edit or of training runs K3 or K4
+    (phase 21 counts them there)."""
     import torch
     import torch.nn.functional as F
 
@@ -1112,6 +1120,15 @@ def phase_variants_f32() -> list[dict]:
     fwd_kernels = {"flash_fwd": fa.flash_fwd, **{f"flash_fwd_{v}": k for v, k in kernels.items()}}
     t0 = time.perf_counter()
 
+    def check_one(kern, q, k, v, want, label, **kw):
+        """one launch against the plain version, then a second launch that
+        must give the same bits of O and of the LSE"""
+        got = kern(q, k, v, return_lse=True, **kw)
+        again = kern(q, k, v, return_lse=True, **kw)
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"{label}: two launches differ")
+        return compare_flash(got, want, label)
+
     def check_all(q, k, v, label):
         """every fp32 launch of K3 and K4 on (q, k, v) -> {variant: (max
         err, max lse err)}"""
@@ -1120,10 +1137,10 @@ def phase_variants_f32() -> list[dict]:
         errs = {}
         for variant, kern in kernels.items():
             clusters = fa.CLUSTER_SIZES if variant == "resident" else (None,)
-            e = [compare_flash(kern(q, k, v, return_lse=True, block=blk,
-                                    **({"cluster": c} if c else {})), want,
-                               f"fp32 {variant} {label} {tuple(q.shape)} block {blk}"
-                               + (f" cluster {c}" if c else ""))
+            e = [check_one(kern, q, k, v, want,
+                           f"fp32 {variant} {label} {tuple(q.shape)} block {blk}"
+                           + (f" cluster {c}" if c else ""),
+                           block=blk, **({"cluster": c} if c else {}))
                  for blk in fa.block_table(variant, f32)[1][dp] for c in clusters]
             errs[variant] = (max(x for x, _ in e), max(y for _, y in e))
         return errs
@@ -1164,7 +1181,11 @@ def phase_variants_f32() -> list[dict]:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         backend = sdpa_backend(qt, kt, vt)
-        by, ms_bound = bound(4.0, b, n, h, d, 4 * b * n * h * d * 4, f32=True)
+        fwd_ms = graph_ms(lambda: fa.flash_fwd(q, k, v), 20)
+        nbytes = 4 * b * n * h * d * 4
+        _, fma_ms = bound(4.0, b, n, h, d, nbytes, f32=True)
+        # the function's bound: S on FMA beside P V as 3xTF32
+        by, ms_bound = bound_3xtf32(4.0, b, n, h, d, nbytes)
         for variant, kern in kernels.items():
             row = {"name": f"flash_fwd_{variant}/f32_{name}", "route": "cuda",
                    "source": "pbe_tpu_torch/csrc/flash_fp32.cu",
@@ -1175,22 +1196,25 @@ def phase_variants_f32() -> list[dict]:
                    "ms": graph_ms(lambda: kern(q, k, v), 20), "plain_ms": plain_ms,
                    "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
                    "library": f"sdpa ({backend})", "library_ms": sdpa_ms,
-                   "block": fa.key_block(variant, d, dtype=f32)}
+                   "block": fa.key_block(variant, d, dtype=f32), "fwd_f32_ms": fwd_ms}
             if variant == "resident":
-                row["cluster"] = fa.resident_cluster(
-                    shape, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+                row["cluster"] = fa.flash_fwd_resident.plan(
+                    shape, sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                    dtype=f32)[1]
                 row["cluster_ms"] = {c: graph_ms(lambda: kern(q, k, v, cluster=c), 20)
                                      for c in fa.CLUSTER_SIZES}
                 extra = (f", cluster {row['cluster']}; at C = 1/2/4: "
                          + " / ".join(f"{t:.4f}" for t in row["cluster_ms"].values()))
             else:
-                # S twice: 6*BH*N^2*D FLOP at the FMA rate, a floor the run
-                # computes (the row holds measured times only)
-                extra = (f", product floor "
-                         f"{6.0 * b * h * n * n * d / FP32_FLOP_PER_S * 1e3:.4f}")
+                # K4's algorithm computes S twice: 4*BH*N^2*D FLOP on FMA
+                # (P V as 3xTF32 beside it takes less), and 6 all on FMA
+                s_twice, all_fma = (x * b * h * n * n * d / FP32_FLOP_PER_S * 1e3
+                                    for x in (4.0, 6.0))
+                extra = f", S-twice floor {s_twice:.4f}, all-FMA floor {all_fma:.4f}"
             log(f"[variants-f32] {variant} {name} {shape} (block {row['block']}{extra}): "
                 f"{row['ms']:.4f} ms (graph), plain {plain_ms:.4f}, SDPA {sdpa_ms:.4f} "
-                f"({backend}), bound {ms_bound:.4f} by {by}")
+                f"({backend}), fp32 flash_fwd {fwd_ms:.4f}, bound {ms_bound:.4f} by {by} "
+                f"(all-FMA bound {fma_ms:.4f})")
             rows.append(row)
         del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()

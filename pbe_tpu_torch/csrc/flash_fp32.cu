@@ -70,35 +70,50 @@
 //     zero-filled and never stored.
 //   * Exponentials run on the SFU (ex2.approx.ftz): a P below 2^-126 of its
 //     row's maximum flushes to 0.
-// K3, K4 and the dQ kernel run all their products on the SIMT cores' FMA:
+// K3 and K4 run on the forward's core: S by score_step (abt's order, the
+// mma's C layout), P V as 3xTF32 mma.sync.m16n8k8 with partials of at most
+// kChain k8 steps (pv_mma; a key tile of 128 joins two), tile j's P V
+// interleaved in each warp with tile j + 1's scores (pv_and_scores), m, l
+// and O in registers, exp2 on the SFU; P stays in registers with SPLIT 1
+// and crosses shared memory once where SPLIT warps share a row group:
+//   * K3 (flash_resident_f32_kernel): the online softmax over key tiles of
+//     block_k, m, l and O rescaled once a tile. A thread-block cluster of C
+//     = 1, 2 or 4 blocks (neighbouring q tiles of one head) shares each key
+//     tile: each block's producer warp copies rows r, r + C, ... (rank r)
+//     by cp.async.bulk ... multicast::cluster, one copy a row, into every
+//     block's ring; full and empty mbarriers a slot, the empty ones
+//     released by remote arrives of the cluster's C x 8 consumer warps. At
+//     d <= 160 K and V take two slots each (tile j's V and tile j + 1's K
+//     are read while tile j + 1's V and tile j + 2's K land); at 512 the
+//     wide forward's two stages (tile j + 1's K chunk and tile j's V chunk
+//     a step). With SPLIT > 1, two group barriers a tile (named barriers 1
+//     + rg; the producer joins none): the row maxima meet, then P is whole.
+//     The producer's warpgroup hands its registers to the consumers
+//     (setmaxnreg, kProducerWarps). The ring is zeroed once, so rows past N
+//     hold zeros or an earlier tile's finite values (P is 0 there). A tensor
+//     copy of each block's share of a tile (cp.async.bulk.tensor, a box of
+//     DP + 4 columns, so the pitch stays and the columns past D come
+//     zero-filled) was tried on an H100: it ran ds1 faster at C = 1 but
+//     slower at C = 2, the plan's size there, so the rows stay.
+//   * K4 (flash_pipelined_f32_kernel): pass 1 the row max over chunks of
+//     block_c (scores and a running max, no exp2), pass 2 P = exp2(S -
+//     m_final) with no rescale, l and P V, chunk j's P V interleaved with
+//     chunk j + 1's scores. S is one code path, so pass 2's scores are pass
+//     1's bit for bit and every P is <= 1. cp.async with compile-time chunk
+//     indices (copy_chunks), one block barrier a chunk (a step at 512): pass
+//     1 streams K alone through four slots, three in flight (at 512 four K
+//     chunks in the space of pass 2's two stages); pass 2 two K and two V
+//     slots (at 512 the wide forward's two stages).
+// The dQ kernel runs all its products on the SIMT cores' FMA:
 //   * Tiles are fp32 in shared memory, row-major with a pitch of DP + 4
 //     floats, read as float4. 256 threads: thread t = 16 ty + tx owns rows
 //     ty + 16 i of every tile it computes and columns tx + 16 j (scores) or
-//     VW tx + 16 VW j + e (head dim, VW = 4/2/1 by padded head dim), so
-//     the 16 lanes sharing a row are one half-warp: row max and row sum
-//     are 4 xor shuffles, and every lane ends with the same bits.
+//     VW tx + 16 VW j + e (head dim, VW = 4/2/1 by padded head dim).
 //   * abt: a product A B^T of two row-major tiles (S = q2 K^T); per 4
 //     columns of the head dim a thread loads TM + TN float4 and does 4 TM
 //     TN FMA, each score one fmaf chain over the head dim from column 0.
-//     ab: a score tile times a row-major operand (P V) into the register
-//     accumulator. m, l and O stay in registers (online softmax,
-//     softmax_tile); P goes through a (rows x BK) shared tile between the
-//     two products.
-//   * K3 (flash_resident_f32_kernel): a thread-block cluster of C = 1, 2 or 4 blocks
-//     (neighbouring q tiles of one head) shares each key tile: a producer
-//     warp a block copies rows r, r + C, ... of the tile's K and V (rank r)
-//     by cp.async.bulk ... multicast::cluster into the same offset of every
-//     block's ring of up to 3 stages; full/empty mbarriers (empty released
-//     by remote arrives of the C x 8 consumer warps); P double-buffered with
-//     one named barrier of the 256 consumers a tile. The ring is zeroed
-//     once, so rows past N hold zeros or an earlier tile's finite values.
-//   * K4 (flash_pipelined_f32_kernel): pass 1 takes the row max over every
-//     chunk of block_c keys (K only, no exp2), pass 2 forms P = exp2(S -
-//     m_final) with no rescale and sums l and P V; chunks arrive by
-//     cp.async into a 2-stage ring (1 where two do not fit), the next in
-//     flight while this one is computed. At d = 512 with block_c 64, pass 2
-//     takes each chunk's K and V in two halves of 32 keys, as 64 rows of
-//     both do not fit beside q. It does the S product twice: 6 BH N^2 D.
+//     ab: a score tile times a row-major operand into the register
+//     accumulator.
 // The backward:
 //   * dQ (flash_bwd_dq_f32_kernel) keeps the plain version's order on FMA:
 //     q2 and dO of BQ rows resident, S and dP by abt, dS through shared
@@ -155,6 +170,24 @@
 //            and first-stage training): more warps an SM there beat fewer
 //            loads a FMA. Wider score tiles at d >= 160 spill (O and its
 //            partials take 8 MT NO registers).
+//   K3, K4   <DP, D, MT, RG, SPLIT, BK> (K3 at D = DP and DP - 8, K4 at D
+//            = DP with the head dim at run time); a block of 8 consumer
+//            warps (K3: and a producer warpgroup), a warp scoring 16 MT rows
+//            x BK / SPLIT keys; S's wavefronts a clock at the full FMA rate:
+//     K3 d <= 48   block_k 32/64: 128 x BK, 8 warps (MT 1)   20,544-79,936 B  0.62/0.56
+//                  128: 64 x 128 (SPLIT 2)              81,472-155,200 B  0.56
+//     K3 d 72, 80  128 x 32/64 (MT 2, SPLIT 2)          107,584/166,976 B  0.50/0.38
+//     K3 d 152, 160  32 x 32/64 (MT 1, SPLIT 4)         110,656/198,720 B  1.00/0.75
+//     K3 d 504, 512  64 x 32 in 4 steps, 2 (SPLIT 4)            210,208 B  0.75
+//     K4 d <= 80   block_c 32/64: 128 x BK (MT 2, SPLIT 2)  41,984-166,912 B  0.50/0.38
+//                  128: 64 x 128 (MT 1, SPLIT 2)        81,408-228,864 B  0.56
+//     K4 d 152, 160  32 x 32/64 (MT 1, SPLIT 4)         110,592/198,656 B  1.00/0.75
+//     K4 d 504, 512  64 x 32/64 in 4/8 steps (SPLIT 4)  210,944/221,184 B  0.75/0.50
+//            32-row warps (MT 2) halve the A loads; they won for K4 and for
+//            K3 at d = 80, and lost at K3's d <= 48 (PERF.md §6).
+//            The tables keep their key blocks: K3's 128-key tiles from d
+//            = 80 and K4's at 160 stay unbuilt (at 160 two K and two V
+//            slots of 128 rows alone take 336 KB; K3's at 80 would fit).
 //   dQ       DP <= 32: 64 x 64, 2;  48: 128 x 64, 2;  80: 64 x 64, 1;
 //            160: 64 x 32, 2 (N <= 128: 32 x 32, 1);  512: 32 x 16, 1
 //            (200,704 B)
@@ -167,9 +200,12 @@
 // as 6, the dQ kernel's 4 BH N^2 d as 12, the dK/dV kernel's 6 as 18. S
 // binds the forward (K1 at (2, 4096, 8, 40): 0.32 ms; all on FMA 0.64 ms)
 // and the dQ kernel (0.64 ms at (4, 4096, 8, 40); all-FMA 1.93 ms); dK/dV
-// 0.78 ms there. chip_smoke.py states these bounds (bound_3xtf32); phases
-// 20 and 11 hold each kernel against its plain version and time it beside
-// its bound.
+// 0.78 ms there. K3 and K4 compute the forward's function and have its
+// bound (0.32 ms at (2, 4096, 8, 40), 0.51 at (2, 4096, 1, 512)); K4's
+// algorithm computes S twice, a floor of 4 BH N^2 d on FMA (0.64 and 1.03
+// ms there). chip_smoke.py states these bounds (bound_3xtf32); phases 20
+// and 11 hold each kernel against its plain version and time it beside its
+// bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -250,18 +286,6 @@ __device__ __forceinline__ void fma4(float& acc, const float4& x, const float4& 
   acc = fmaf(x.w, y.w, acc);
 }
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 1; o < CT; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < CT; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // row 0 of head bh's (N, D) slice of operand i
 __device__ __forceinline__ const float* head(const Args& a, int i, int bh) {
   return a.in[i] + (long long)(bh / a.H) * a.st[3 * i] +
@@ -293,15 +317,6 @@ __device__ __forceinline__ void scale_tile(float* dst, float mul) {
     float4* v = reinterpret_cast<float4*>(dst + (idx / CH) * LD + (idx % CH) * 4);
     *v = make_float4(v->x * mul, v->y * mul, v->z * mul, v->w * mul);
   }
-}
-
-// copy_tile, waited for, times mul; the caller's next barrier publishes it
-template <int DP, int ROWS, int NT = THREADS>
-__device__ __forceinline__ void load_tile(float* dst, const Args& a, int i, int bh, int r0,
-                                          float mul) {
-  copy_tile<DP, ROWS, NT>(dst, a, i, bh, r0);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  if (mul != 1.f) scale_tile<DP, ROWS, NT>(dst, mul);
 }
 
 // 4 bytes from src into shared memory, or 0 where !valid
@@ -358,38 +373,6 @@ __device__ __forceinline__ void ab(float (&acc)[TM][Cols<DP>::N], const float* A
   }
 }
 
-// One online-softmax step over a TM x TN score tile of keys from k0 (n
-// keys in all): keys past n to -inf, the row max over the half-warp, l and
-// o rescaled by exp2(m_old - m_new), P = exp2(S - m) into sP (pitch ldp)
-// and its row sum added to l
-template <int TM, int TN, int NC>
-__device__ __forceinline__ void softmax_tile(float (&s)[TM][TN], float* sP, int ldp,
-                                             float (&m)[TM], float (&l)[TM], float (&o)[TM][NC],
-                                             int k0, int n, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      if (k0 + tx + CT * j >= n) s[i][j] = -INFINITY;  // keys past N
-      mx = fmaxf(mx, s[i][j]);
-    }
-    const float mn = fmaxf(m[i], half_warp_max(mx));  // finite: key k0 < N is in
-    const float alpha = exp2f(m[i] - mn);              // 0 at the first tile
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const float p = exp2f(s[i][j] - mn);
-      sP[(ty + RT * i) * ldp + tx + CT * j] = p;
-      sum += p;
-    }
-    l[i] = l[i] * alpha + half_warp_sum(sum);
-    m[i] = mn;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[i][c] *= alpha;
-  }
-}
-
 // rows [r0, r0 + RT TM) of a (B, N, H, D) contiguous output from the
 // thread's accumulator, each value divided by div[i] (l, or 1); rows >= N
 // and columns >= D are not written
@@ -413,248 +396,6 @@ __device__ __forceinline__ void store_rows(float* out, const Args& a, int bh, in
       stv<C::VW>(dst + C::col(tx, j), y);
     }
   }
-}
-
-// the forward's LSE m + log2(l) of rows [r0, r0 + RT TM), where asked for
-template <int TM>
-__device__ __forceinline__ void store_lse(const Args& a, int bh, int r0, const float (&m)[TM],
-                                          const float (&l)[TM], int ty, int tx) {
-  if (a.lse_out == nullptr || tx != 0) return;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = r0 + ty + RT * i;
-    if (row < a.N) a.lse_out[(long long)bh * a.N + row] = m[i] + log2f(l[i]);
-  }
-}
-
-// --- K3, resident: the forward's tiles and softmax step over key tiles of
-// BK that the blocks of a cluster share
-
-// the key blocks instantiated at each padded head dim; ops/flash_attention.py
-// RESIDENT_BLOCKS_F32 lists the same
-constexpr bool resident_f32_instantiated(int dp, int bk) {
-  return (bk < 128 || dp <= 48) && (dp < 512 || bk == 32);
-}
-
-template <int DP, int BK>
-struct ResF32 {
-  static constexpr int BQ = DP == 512 ? 32 : 64, TM = BQ / RT, TN = BK / CT;
-  static constexpr int LD = DP + 4, LDP = BK + 4, TE = BK * LD;  // TE: floats of a K or V tile
-  static constexpr size_t STAGE = 2 * size_t(TE) * 4;             // bytes of K and V
-  static constexpr size_t FIXED = (size_t(BQ) * LD + 2 * size_t(BQ) * LDP) * 4;  // q, P x 2
-  static constexpr int STAGES = FIXED + 3 * (STAGE + 16) <= kSmemPerBlock   ? 3
-                                : FIXED + 2 * (STAGE + 16) <= kSmemPerBlock ? 2
-                                                                            : 1;
-  static constexpr size_t OFF_KV = size_t(BQ) * LD * 4;
-  static constexpr size_t OFF_P = OFF_KV + STAGES * STAGE;
-  static constexpr size_t OFF_BAR = OFF_P + 2 * size_t(BQ) * LDP * 4;
-  static constexpr size_t SMEM = OFF_BAR + 2 * STAGES * 8;
-  static_assert(BQ % RT == 0 && BK % CT == 0 && SMEM <= kSmemPerBlock, "resident tile");
-};
-
-// The producer warp: key tiles [0, tiles) of head bh's K and V into stage j
-// % STAGES of every block's ring (K at 2 stage TE, V at + TE). This block
-// (rank r of C) copies rows r, r + C, ... of the tile's K, then of its V,
-// one bulk copy a row multicast to all C blocks; each block's full barrier
-// expects the whole tile's bytes. A stage is refilled once this block's
-// empty barrier has had every consumer warp of the cluster.
-template <int DP, int BK>
-__device__ __forceinline__ void produce(float* ring, uint64_t* bars, const Args& a, int bh) {
-  using T = ResF32<DP, BK>;
-  constexpr int STAGES = T::STAGES;
-  const int lane = threadIdx.x % 32, n = a.N;
-  const int rank = (int)cluster_rank(), csize = (int)cluster_blocks();
-  const uint16_t mask = csize == 1 ? 0 : (uint16_t)((1u << csize) - 1);
-  const float* kb = head(a, 1, bh);
-  const float* vb = head(a, 2, bh);
-  const uint32_t row_bytes = a.D * 4;  // a multiple of 32: d % 8 == 0
-  const int tiles = (n + BK - 1) / BK;
-  for (int j = 0; j < tiles; ++j) {
-    const int s = j % STAGES, rows = min(BK, n - j * BK);
-    if (j >= STAGES) mbar_wait(&bars[STAGES + s], (j / STAGES - 1) & 1);
-    if (lane == 0) mbar_expect_tx(&bars[s], 2 * rows * row_bytes);
-    float* stage = ring + s * 2 * T::TE;
-    for (int i = rank + csize * lane; i < 2 * rows; i += 32 * csize) {
-      const bool is_v = i >= rows;
-      const int r = is_v ? i - rows : i;
-      const long long row = j * BK + r;
-      bulk_copy(stage + (is_v ? T::TE : 0) + r * T::LD,
-                is_v ? vb + row * a.st[7] : kb + row * a.st[4], row_bytes, &bars[s], mask);
-    }
-  }
-}
-
-template <int DP, int BK>
-__global__ void __launch_bounds__(THREADS + 32, 1) flash_resident_f32_kernel(const Args a) {
-  using T = ResF32<DP, BK>;
-  using C = Cols<DP>;
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
-  float* sP = reinterpret_cast<float*>(smem + T::OFF_P);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);  // full, then empty
-  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N;
-  // set-up: the ring zeroed (bulk copies write only columns [0, d) of rows
-  // before N), the barriers initialised (full: one arrival, this block's
-  // expect_tx; empty: the cluster's consumer warps) and the q tile loaded
-  // by the consumers; then a cluster sync, after which any block may copy
-  // into any other's ring and arrive on its barriers
-  for (int i = threadIdx.x; i < int(T::STAGES * T::STAGE / 16); i += THREADS + 32)
-    smem4[T::OFF_KV / 16 + i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (threadIdx.x == 0)
-    for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&bars[s], 1);
-      mbar_init(&bars[T::STAGES + s], cluster_blocks() * (THREADS / 32));
-    }
-  if (threadIdx.x < THREADS) load_tile<DP, T::BQ>(sQ, a, 0, bh, q0, a.scale_log2);
-  fence_barrier_init();
-  cluster_sync();
-
-  if (threadIdx.x >= THREADS) {
-    produce<DP, BK>(ring, bars, a, bh);
-  } else {
-    const int tx = threadIdx.x % CT, ty = threadIdx.x / CT, lane = threadIdx.x % 32;
-    float o[T::TM][C::N], m[T::TM], l[T::TM];
-#pragma unroll
-    for (int i = 0; i < T::TM; ++i) {
-      m[i] = -INFINITY;
-      l[i] = 0.f;
-#pragma unroll
-      for (int c = 0; c < C::N; ++c) o[i][c] = 0.f;
-    }
-    const int tiles = (n + BK - 1) / BK;
-    for (int j = 0; j < tiles; ++j) {
-      const int s = j % T::STAGES;
-      mbar_wait(&bars[s], (j / T::STAGES) & 1);
-      const float* sK = ring + s * 2 * T::TE;
-      float* sPj = sP + (j & 1) * T::BQ * T::LDP;  // P of tile j - 2 is read: the barrier below
-      float sc[T::TM][T::TN] = {};
-      abt<T::TM, T::TN>(sc, sQ, T::LD, sK, T::LD, a.D, ty, tx);
-      softmax_tile<T::TM, T::TN, C::N>(sc, sPj, T::LDP, m, l, o, j * BK, n, ty, tx);
-      // the consumers' barrier: P is whole
-      asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
-      ab<T::TM, DP, BK>(o, sPj, T::LDP, sK + T::TE, T::LD, ty, tx);
-      // this warp is done with the stage: one arrival on its empty barrier
-      // in every block of the cluster
-      __syncwarp();
-      if (lane < (int)cluster_blocks()) mbar_arrive_remote(&bars[T::STAGES + s], lane);
-    }
-    store_rows<T::TM, DP>(a.out[0], a, bh, q0, o, l, ty, tx);
-    store_lse<T::TM>(a, bh, q0, m, l, ty, tx);
-  }
-  cluster_sync();  // no block leaves while a peer may still copy into it
-}
-
-// --- K4, pipelined: pass 1 the row max over chunks of BC keys, pass 2 P
-// against the final max
-
-// the key chunks instantiated at each padded head dim; ops/flash_attention.py
-// PIPELINED_BLOCKS_F32 lists the same
-constexpr bool pipelined_f32_instantiated(int dp, int bc) { return bc < 128 || dp <= 80; }
-
-// shared memory of the pipelined kernel: q (bq rows), `stages` stages of a
-// chunk of K (bc rows) or K and V of `sub` keys, and P (bq x sub)
-constexpr size_t pipe_bytes(int dp, int bq, int bc, int sub, int stages) {
-  return (size_t(bq) * (dp + 4) + size_t(stages) * (bc > 2 * sub ? bc : 2 * sub) * (dp + 4) +
-          size_t(bq) * (sub + 4)) * 4;
-}
-
-template <int DP, int BC>
-struct PipeF32 {
-  static constexpr int BQ = DP == 512 ? 32 : 64, TM = BQ / RT, LD = DP + 4;
-  // keys of a pass-2 step: the chunk, or half of it where its K and V do
-  // not fit beside q
-  static constexpr int SUB = pipe_bytes(DP, BQ, BC, BC, 1) <= kSmemPerBlock ? BC : BC / 2;
-  static constexpr int STAGES = pipe_bytes(DP, BQ, BC, SUB, 2) <= kSmemPerBlock ? 2 : 1;
-  static constexpr int TN1 = BC / CT, TN2 = SUB / CT, LDP = SUB + 4;
-  static constexpr int STAGE = (BC > 2 * SUB ? BC : 2 * SUB) * LD;  // floats of a stage
-  static constexpr size_t OFF_KV = size_t(BQ) * LD * 4;
-  static constexpr size_t OFF_P = OFF_KV + size_t(STAGES) * STAGE * 4;
-  static constexpr size_t SMEM = pipe_bytes(DP, BQ, BC, SUB, STAGES);
-  static_assert(BQ % RT == 0 && SUB % CT == 0 && SMEM <= kSmemPerBlock, "pipelined tile");
-};
-
-template <int DP, int BC>
-__global__ void __launch_bounds__(THREADS) flash_pipelined_f32_kernel(const Args a) {
-  using T = PipeF32<DP, BC>;
-  using C = Cols<DP>;
-  extern __shared__ float4 smem4[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
-  float* sP = reinterpret_cast<float*>(smem + T::OFF_P);
-  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N;
-  const int tx = threadIdx.x % CT, ty = threadIdx.x / CT;
-  const int chunks = (n + BC - 1) / BC, subs = (n + T::SUB - 1) / T::SUB;
-  const int steps = chunks + subs;  // pass 1 over chunks, pass 2 over SUB-key steps
-
-  // step i's keys into stage i % STAGES: a chunk of K in pass 1, K and V
-  // of SUB keys in pass 2
-  auto issue = [&](int i) {
-    float* stage = ring + (i % T::STAGES) * T::STAGE;
-    if (i < chunks) {
-      copy_tile<DP, BC>(stage, a, 1, bh, i * BC);
-    } else {
-      copy_tile<DP, T::SUB>(stage, a, 1, bh, (i - chunks) * T::SUB);
-      copy_tile<DP, T::SUB>(stage + T::SUB * T::LD, a, 2, bh, (i - chunks) * T::SUB);
-    }
-    cp_async_commit();
-  };
-  issue(0);
-  load_tile<DP, T::BQ>(sQ, a, 0, bh, q0, a.scale_log2);
-
-  float o[T::TM][C::N], m[T::TM], l[T::TM];
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::N; ++c) o[i][c] = 0.f;
-  }
-  for (int i = 0; i < steps; ++i) {
-    cp_async_wait_all();
-    // step i's keys are visible to every thread, and every thread is done
-    // with step i - 1's stage and P
-    __syncthreads();
-    if (T::STAGES > 1 && i + 1 < steps) issue(i + 1);
-    const float* stage = ring + (i % T::STAGES) * T::STAGE;
-    if (i < chunks) {
-      const int k0 = i * BC;
-      float s[T::TM][T::TN1] = {};
-      abt<T::TM, T::TN1>(s, sQ, T::LD, stage, T::LD, a.D, ty, tx);
-#pragma unroll
-      for (int r = 0; r < T::TM; ++r)
-#pragma unroll
-        for (int j = 0; j < T::TN1; ++j)
-          if (k0 + tx + CT * j < n) m[r] = fmaxf(m[r], s[r][j]);
-      if (i == chunks - 1)  // pass 1 is done: the final row max
-#pragma unroll
-        for (int r = 0; r < T::TM; ++r) m[r] = half_warp_max(m[r]);
-    } else {
-      const int k0 = (i - chunks) * T::SUB;
-      float s[T::TM][T::TN2] = {};
-      abt<T::TM, T::TN2>(s, sQ, T::LD, stage, T::LD, a.D, ty, tx);
-#pragma unroll
-      for (int r = 0; r < T::TM; ++r)
-#pragma unroll
-        for (int j = 0; j < T::TN2; ++j) {
-          const float p = k0 + tx + CT * j < n ? exp2f(s[r][j] - m[r]) : 0.f;
-          sP[(ty + RT * r) * T::LDP + tx + CT * j] = p;
-          l[r] += p;
-        }
-      __syncthreads();  // P is whole
-      ab<T::TM, DP, T::SUB>(o, sP, T::LDP, stage + T::SUB * T::LD, T::LD, ty, tx);
-    }
-    if (T::STAGES == 1 && i + 1 < steps) {
-      __syncthreads();  // every thread is done with the one stage
-      issue(i + 1);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < T::TM; ++r) l[r] = half_warp_sum(l[r]);
-  store_rows<T::TM, DP>(a.out[0], a, bh, q0, o, l, ty, tx);
-  store_lse<T::TM>(a, bh, q0, m, l, ty, tx);
 }
 
 // --- the forward and the backward: 3xTF32 tensor-core products beside S
@@ -1396,6 +1137,712 @@ __global__ void __launch_bounds__(32 * RG * SPLIT, 1) flash_fwd_wide_f32_kernel(
   finish_rows<MT, T::NO, T::BQ, SPLIT>(a, bh, q0, r0, sl, rg, sl * T::SLICE, o, m, l, sX);
 }
 
+// --- K3 and K4 on the forward's core: S by score_step (abt's order, the
+// mma's C layout) on FFMA, P V as 3xTF32 mma.sync interleaved with the next
+// key tile's scores, m, l and O in registers
+
+// every cp.async group of this thread but the last N committed ones has
+// landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the key blocks instantiated at each padded head dim; ops/flash_attention.py
+// RESIDENT_BLOCKS_F32 and PIPELINED_BLOCKS_F32 list the same
+constexpr bool resident_f32_instantiated(int dp, int bk) {
+  return (bk < 128 || dp <= 48) && (dp < 512 || bk == 32);
+}
+constexpr bool pipelined_f32_instantiated(int dp, int bc) { return bc < 128 || dp <= 80; }
+
+// (MT, RG, SPLIT) of K3's (RES) and K4's tiles at d <= 160, 8 warps a
+// block: with key blocks of 32 and 64 below d = 160, K4 and K3 at d = 80
+// pair 32-row warps (MT 2, SPLIT 2: half the A loads a FMA); otherwise
+// 16-row warps, one a row group where it holds O's whole row (d <= 48, key
+// tiles <= 64), else SPLIT a group, each over 1/SPLIT of the key tile and
+// of O's columns. K3 at d <= 48 ran faster on 16-row warps on an H100.
+// ops/flash_attention.py variant_tile_f32 holds the same rule: K3's q tiles
+// plan its clusters.
+template <int DP, int BK, bool RES>
+struct VarTile {
+  static constexpr bool WIDE_MT = (!RES || DP == 80) && DP <= 80 && BK < 128;
+  static constexpr int MT = WIDE_MT ? 2 : 1;
+  static constexpr int SPLIT = WIDE_MT ? 2 : DP <= 48 ? (BK == 128 ? 2 : 1) : DP == 80 ? 2 : 4;
+  static constexpr int RG = 8 / SPLIT;
+};
+
+// K3's producer is one warp of a warpgroup of kProducerWarps whose other
+// warps idle, so that the warpgroup can hand its registers to the 8
+// consumer warps: launched at 168 registers a thread (12 warps an SM), the
+// producer's warpgroup drops to kProducerRegs and the consumers rise to
+// kConsumerRegs (setmaxnreg, sm_90a). A lone producer warp would leave 9
+// warps, 3 of them on one SM sub-partition's 16K registers: 168 a thread
+// for good, and the consumers spilled.
+constexpr int kProducerWarps = 4, kProducerRegs = 40, kConsumerRegs = 232;
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
+// K3 and K4 at a padded head dim DP <= 160 and head dims d up to D (DP or
+// DP - 8; d % 8 == 0, so d is D or, where D = DP, DP - 8: the last two
+// column steps of the scores run where d = D): a block of RG row groups of
+// 16 MT query rows, as FwdF32, over key tiles
+// (K4: chunks) of BK keys; KT = BK / 8 k8 steps of P V a tile, one partial
+// of at most kChain steps joining O at a time. K and V take two slots each
+// (K slots 0, 1, then V slots 0, 1): tile j's V and tile j + 1's K are read
+// together while tile j + 1's V and tile j + 2's K land (K4's pass 1 runs K
+// alone through all four). With SPLIT > 1, P
+// goes through one (BQ x LDX) tile and the row statistics through sX. K3
+// adds its mbarriers (full K, V; empty K, V) at OFF_BAR.
+template <int DP_, int D_, int MT_, int RG_, int SPLIT_, int BK_>
+struct VarF32 {
+  static constexpr int DP = DP_, D = D_, MT = MT_, RG = RG_, SPLIT = SPLIT_, BK = BK_;
+  static constexpr int WARPS = RG * SPLIT, BQ = 16 * MT * RG, LD = DP + 4;
+  static constexpr int KW = BK / SPLIT, NT = KW / 8, KT = BK / 8, LDX = BK + 8;
+  static constexpr int SLICE = (SPLIT == 1 ? D : DP) / SPLIT, NO = SLICE / 8;
+  static constexpr int CS = D / 4, CPK = CS / KT > 1 ? CS / KT : 1;
+  static constexpr int TILE = BK * LD;  // floats of a slot
+  static constexpr size_t OFF_KV = size_t(BQ) * LD * 4;
+  static constexpr size_t OFF_P = OFF_KV + 4 * size_t(TILE) * 4;
+  static constexpr size_t OFF_BAR =
+      OFF_P + (SPLIT > 1 ? (size_t(BQ) * LDX + size_t(SPLIT) * BQ) * 4 : 0);
+  static constexpr size_t SMEM = OFF_BAR + 8 * 8;  // K4: OFF_BAR
+  static_assert(KW % 8 == 0 && SLICE % 8 == 0 && D % 8 == 0 && D <= DP && SMEM <= kSmemPerBlock,
+                "K3/K4 tile");
+};
+
+// o += P V of key tile j (KT k8 steps: V from V slot j % 2 of the ring, P
+// from the registers sp with SPLIT 1, else from the group's rows xP of
+// shared memory; O's columns sl SLICE + 8j), a zeroed partial of at most
+// kChain steps joining o in fp32 at a time; where `next`, interleaved with
+// tile j + 1's scores into sn (the warp's q2 rows at qw, its K rows kb into
+// K slot (j + 1) % 2), one k8 step every CPK of the D / 4 column steps
+// (with RUN_D, the head dim d at run time, the last two only where d = D),
+// so that the mma chains' latency lies under FMA work of the same warp (the
+// forward's tile step)
+template <class T, bool RUN_D>
+__device__ __forceinline__ void pv_and_scores(float (&o)[T::MT][T::NO][4],
+                                              float (&sn)[T::MT][T::NT][4],
+                                              const float (&sp)[T::MT][T::NT][4],
+                                              const float* ring, const float* xP, int sl,
+                                              const float* qw, int kb, int j, int d,
+                                              bool next) {
+  constexpr int MT = T::MT;
+  const float* sV = ring + (2 + j % 2) * T::TILE;
+  const float* kn = ring + ((j + 1) % 2) * T::TILE + kb;
+  float part[MT][T::NO][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) zero(sn[mt]), zero(part[mt]);
+  auto pv = [&](int ks) {
+    float f[MT][4];
+    if constexpr (T::SPLIT == 1)
+      FragRegs<MT, T::NT>{sp}(ks, f);
+    else
+      FragSmem<MT, T::LDX>{xP}(ks, f);
+    uint32_t ah[MT][4], al[MT][4];
+    split_p<MT>(f, ah, al);
+    pv_mma<MT, T::NO, T::LD>(part, ah, al, sV + 8 * ks * T::LD, sl * T::SLICE);
+    if (ks % kChain == kChain - 1 || ks == T::KT - 1) {  // the partial joins O
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int jo = 0; jo < T::NO; ++jo)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[mt][jo][e] += part[mt][jo][e], part[mt][jo][e] = 0.f;
+    }
+  };
+  if (next) {  // one branch a tile: the unrolled steps below are one block
+#pragma unroll
+    for (int cs = 0; cs < T::CS; ++cs) {
+      if (cs % T::CPK == 0 && cs / T::CPK < T::KT) pv(cs / T::CPK);
+      if (!RUN_D || cs < T::CS - 2 || d == T::D) score_step<MT, T::NT, T::LD, T::LD>(sn, qw, kn, 4 * cs);
+    }
+#pragma unroll
+    for (int ks = (T::CS + T::CPK - 1) / T::CPK; ks < T::KT; ++ks) pv(ks);
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < T::KT; ++ks) pv(ks);
+  }
+}
+
+// a whole tile's scores into s (zeroed here): K4's pass 1 and each kernel's
+// first tile
+template <class T>
+__device__ __forceinline__ void scores_tile(float (&s)[T::MT][T::NT][4], const float* qw,
+                                            const float* kn, int d) {
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt) zero(s[mt]);
+#pragma unroll 2
+  for (int c = 0; c < d; c += 4) score_step<T::MT, T::NT, T::LD, T::LD>(s, qw, kn, c);
+}
+
+// K4's pass 2 on a C-layout tile: keys at or past kv (those past N) to 0,
+// P = exp2(S - m) against the final row max m in place (no rescale) and
+// this lane's share of its row sums added to l
+template <int MT, int NT>
+__device__ __forceinline__ void p_final(float (&s)[MT][NT][4], const float (&m)[MT][2],
+                                        float (&l)[MT][2], int kv) {
+  const int t = threadIdx.x % 4;
+  if (kv < 8 * NT)  // the last tile only
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * nt + 2 * t + e % 2 >= kv) s[mt][nt][e] = -INFINITY;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[mt][nt][e] = exp2_sfu(s[mt][nt][e] - m[mt][h]);  // 0 at -inf
+          sum += s[mt][nt][e];
+        }
+      l[mt][h] += sum;
+    }
+}
+
+// K3's producer warp (d <= 160): K and V of key tiles [0, tiles) of head bh
+// into slot j % 2 of each ring (K slot s at ring + s TILE, V slot s at
+// ring + (2 + s) TILE) of every block of the cluster. This block (rank r of
+// C) copies rows r, r + C, ... of each tile, one bulk copy a row multicast
+// to the C blocks; each block's full barrier expects the whole tile's bytes.
+// A slot is refilled once this block's empty barrier has had every consumer
+// warp of the cluster.
+template <class T>
+__device__ __forceinline__ void produce_tiles(float* ring, uint64_t* bars, const Args& a, int bh,
+                                              int tiles) {
+  const int lane = threadIdx.x % 32, n = a.N;
+  const int rank = (int)cluster_rank(), csize = (int)cluster_blocks();
+  const uint16_t mask = csize == 1 ? 0 : (uint16_t)((1u << csize) - 1);
+  const uint32_t row_bytes = a.D * 4;  // a multiple of 32: d % 8 == 0
+  for (int j = 0; j < tiles; ++j) {
+    const int rows = min(T::BK, n - j * T::BK);
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {  // K, then V
+      const int slot = 2 * w + j % 2;
+      if (j >= 2) mbar_wait(&bars[4 + slot], (j / 2 - 1) & 1);
+      if (lane == 0) mbar_expect_tx(&bars[slot], rows * row_bytes);
+      const float* src = head(a, 1 + w, bh);
+      const long long rs = a.st[3 * w + 4];
+      float* dst = ring + slot * T::TILE;
+      for (int r = rank + csize * lane; r < rows; r += 32 * csize)
+        bulk_copy(dst + r * T::LD, src + (long long)(j * T::BK + r) * rs, row_bytes, &bars[slot],
+                  mask);
+    }
+  }
+}
+
+// this warp is done with a slot of the cluster's ring: one arrival on the
+// empty barrier `bar` in every block of the cluster
+__device__ __forceinline__ void release_slot(uint64_t* bar) {
+  __syncwarp();
+  const int lane = threadIdx.x % 32;
+  if (lane < (int)cluster_blocks()) mbar_arrive_remote(bar, lane);
+}
+
+// K3 at d <= 160: a cluster of C = 1, 2 or 4 blocks (neighbouring q tiles
+// of one head) shares each key tile, copied by the producer warps
+// (produce_tiles); the consumer warps run the forward's online softmax over
+// key tiles of BK, the rescale once a tile, with tile j's P V interleaved
+// with tile j + 1's scores (pv_and_scores). The ring is zeroed once, so the
+// rows past N of the last tile hold zeros or an earlier tile's finite
+// values (their P is 0).
+template <class T>
+__device__ __forceinline__ void resident_narrow(const Args& a) {
+  constexpr int MT = T::MT, BK = T::BK, CONSUMERS = 32 * T::WARPS;
+  using S = float[MT][T::NT][4];
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);  // q2
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_P);  // SPLIT > 1: P
+  float* sX = sP + T::BQ * T::LDX;                         // and the row statistics
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);  // full K, V; empty K, V
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N;
+  const int tiles = (n + BK - 1) / BK;
+  // set-up: the ring zeroed, the barriers initialised (full: one arrival,
+  // this block's expect_tx; empty: the cluster's consumer warps) and q2
+  // loaded by the consumers; then a cluster sync, after which any block may
+  // copy into any other's ring and arrive on its barriers
+  for (int i = threadIdx.x; i < T::TILE; i += CONSUMERS + 32 * kProducerWarps)  // TILE float4
+    smem4[T::OFF_KV / 16 + i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < 4; ++s) {
+      mbar_init(&bars[s], 1);
+      mbar_init(&bars[4 + s], cluster_blocks() * T::WARPS);
+    }
+  if (threadIdx.x < CONSUMERS) {
+    copy_chunks<T::BQ, T::DP, T::LD, CONSUMERS>(sQ, head(a, 0, bh), a.st[1], q0, 0, n, T::D);
+    cp_async_commit();
+    cp_async_wait_all();
+    scale_tile<T::DP, T::BQ, CONSUMERS>(sQ, a.scale_log2);  // the chunks this thread copied
+  }
+  fence_barrier_init();
+  cluster_sync();
+
+  if (threadIdx.x >= CONSUMERS) {
+    producer_regs();
+    if (threadIdx.x < CONSUMERS + 32) produce_tiles<T>(ring, bars, a, bh, tiles);
+  } else {
+    consumer_regs();
+    const int warp = threadIdx.x / 32, rg = warp / T::SPLIT, sl = warp % T::SPLIT;
+    const int r0 = rg * 16 * MT, lane = threadIdx.x % 32;
+    const float* qw = sQ + (r0 + lane / 4) * T::LD;  // score_step's rows
+    const int kb = (sl * T::KW + 2 * (lane % 4)) * T::LD;
+    float o[MT][T::NO][4], m[MT][2], l[MT][2];
+    S s0, s1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      zero(o[mt]);
+      m[mt][0] = m[mt][1] = -INFINITY;
+      l[mt][0] = l[mt][1] = 0.f;
+    }
+    // tile jn's online-softmax step on its scores s: the row maxima (with
+    // SPLIT > 1 over the group through sX), m, l and o rescaled once, P =
+    // exp2(S - m); with SPLIT > 1 P into sP, whole after a second group
+    // barrier (which also frees sX)
+    auto softmax = [&](S& s, int jn) {
+      float mx[MT][2];
+      tile_max<MT, T::NT>(s, mx, n - jn * BK - sl * T::KW);
+      if constexpr (T::SPLIT > 1) {
+        put_rows<MT, T::BQ>(sX, sl, r0, mx);
+        group_sync<T::SPLIT>(rg);  // the group is done with tile jn - 1's P too
+        get_rows<MT, T::BQ, T::SPLIT, true>(mx, sX, r0);
+      }
+      softmax_c<MT, T::NT, T::NO>(s, mx, m, l, o);
+      if constexpr (T::SPLIT > 1) {
+        store_p<MT, T::NT, T::LDX>(sP + r0 * T::LDX + sl * T::KW, s);
+        group_sync<T::SPLIT>(rg);
+      }
+    };
+    // tile j: its P V interleaved with tile j + 1's scores into sn, then
+    // tile j + 1's softmax step; each slot is released once read
+    auto tile = [&](int j, S& sp, S& sn) {
+      const bool next = j + 1 < tiles;
+      if (next) mbar_wait(&bars[(j + 1) % 2], ((j + 1) / 2) & 1);
+      mbar_wait(&bars[2 + j % 2], (j / 2) & 1);
+      pv_and_scores<T, false>(o, sn, sp, ring, sP + r0 * T::LDX, sl, qw, kb, j, T::D, next);
+      release_slot(&bars[6 + j % 2]);
+      if (next) {
+        release_slot(&bars[4 + (j + 1) % 2]);
+        softmax(sn, j + 1);
+      }
+    };
+    mbar_wait(&bars[0], 0);
+    scores_tile<T>(s0, qw, ring + kb, T::D);
+    release_slot(&bars[4]);
+    softmax(s0, 0);
+    // the score arrays take turns, so that P is never copied
+    for (int j = 0; j < tiles; j += 2) {
+      tile(j, s0, s1);
+      if (j + 1 < tiles) tile(j + 1, s1, s0);
+    }
+    finish_rows<MT, T::NO, T::BQ, T::SPLIT>(a, bh, q0, r0, sl, rg, sl * T::SLICE, o, m, l, sX);
+  }
+  cluster_sync();  // no block leaves while a peer may still copy into it or arrive on it
+}
+
+// K4 at d <= 160: pass 1 takes the row max over chunks of BK keys (scores
+// and a running max, no exp2), pass 2 forms P = exp2(S - m_final) with no
+// rescale and sums l and P V, chunk j's P V interleaved with chunk j + 1's
+// scores. Pass 2's scores are pass 1's bit for bit (one code path), so
+// every P is <= 1. Chunks arrive by cp.async (compile-time indices), one
+// block barrier a chunk: in pass 1 K chunks alone through all four slots
+// (three in flight), in pass 2 chunk j's K into K slot j % 2 and its V
+// into V slot j % 2.
+template <class T>
+__device__ __forceinline__ void pipelined_narrow(const Args& a) {
+  constexpr int MT = T::MT, BK = T::BK, NTH = 32 * T::WARPS;
+  using S = float[MT][T::NT][4];
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);  // q2
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_KV);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_P);  // SPLIT > 1: P
+  float* sX = sP + T::BQ * T::LDX;                         // and the row statistics
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N, d = a.D;
+  const int chunks = (n + BK - 1) / BK;
+  const float* kg = head(a, 1, bh);
+  const float* vg = head(a, 2, bh);
+  auto copy_k = [&](int j, int slot) {  // chunk j's K into slot `slot` (0-3)
+    if (j < chunks)
+      copy_chunks<BK, T::DP, T::LD, NTH>(ring + slot * T::TILE, kg, a.st[4], j * BK, 0, n,
+                                         d);
+  };
+  auto copy_v = [&](int j) {  // chunk j's V into V slot j % 2
+    if (j < chunks)
+      copy_chunks<BK, T::DP, T::LD, NTH>(ring + (2 + j % 2) * T::TILE, vg, a.st[7], j * BK, 0,
+                                         n, d);
+  };
+  copy_chunks<T::BQ, T::DP, T::LD, NTH>(sQ, head(a, 0, bh), a.st[1], q0, 0, n, d);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) copy_k(i, i), cp_async_commit();  // the first group holds q too
+  cp_async_wait_group<2>();
+  scale_tile<T::DP, T::BQ, NTH>(sQ, a.scale_log2);  // q2: the chunks this thread copied
+  const int warp = threadIdx.x / 32, rg = warp / T::SPLIT, sl = warp % T::SPLIT;
+  const int r0 = rg * 16 * MT, lane = threadIdx.x % 32;
+  const float* qw = sQ + (r0 + lane / 4) * T::LD;
+  const int kb = (sl * T::KW + 2 * (lane % 4)) * T::LD;
+  float o[MT][T::NO][4], m[MT][2], l[MT][2];
+  S s0, s1;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    zero(o[mt]);
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  // pass 1: the row max
+  for (int i = 0; i < chunks; ++i) {
+    cp_async_wait_group<2>();
+    // chunk i (at i = 0 q2 too) is visible to every thread, and every
+    // thread is done with chunk i - 1's slot
+    __syncthreads();
+    copy_k(i + 3, (i + 3) % 4);
+    cp_async_commit();
+    scores_tile<T>(s0, qw, ring + (i % 4) * T::TILE + kb, d);
+    float mx[MT][2];
+    tile_max<MT, T::NT>(s0, mx, n - i * BK - sl * T::KW);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) m[mt][0] = fmaxf(m[mt][0], mx[mt][0]),
+                                    m[mt][1] = fmaxf(m[mt][1], mx[mt][1]);
+  }
+  if constexpr (T::SPLIT > 1) {  // the final row max over the group
+    put_rows<MT, T::BQ>(sX, sl, r0, m);
+    group_sync<T::SPLIT>(rg);
+    get_rows<MT, T::BQ, T::SPLIT, true>(m, sX, r0);
+  }
+  // pass 2: chunk 0's P, then chunk j's P V with chunk j + 1's scores
+  auto pfinal = [&](S& s, int jn) {
+    p_final<MT, T::NT>(s, m, l, n - jn * BK - sl * T::KW);
+    if constexpr (T::SPLIT > 1) {
+      group_sync<T::SPLIT>(rg);  // the group is done with chunk jn - 1's P
+      store_p<MT, T::NT, T::LDX>(sP + r0 * T::LDX + sl * T::KW, s);
+    }
+  };
+  cp_async_wait_all();
+  __syncthreads();  // every thread is done with pass 1's slots (and the row statistics)
+  copy_k(0, 0);
+  copy_v(0);
+  cp_async_commit();
+  copy_k(1, 1);
+  cp_async_commit();
+  cp_async_wait_but_last();
+  __syncthreads();  // chunk 0's K and V are visible to every thread
+  scores_tile<T>(s0, qw, ring + kb, d);
+  pfinal(s0, 0);
+  auto tile = [&](int j, S& sp, S& sn) {
+    cp_async_wait_all();
+    // chunk j + 1's K and chunk j's V (and with SPLIT > 1 chunk j's P) are
+    // visible to every thread, and every thread is done with chunk j's K
+    // and chunk j - 1's V
+    __syncthreads();
+    copy_k(j + 2, j % 2);
+    copy_v(j + 1);
+    cp_async_commit();
+    const bool next = j + 1 < chunks;
+    pv_and_scores<T, true>(o, sn, sp, ring, sP + r0 * T::LDX, sl, qw, kb, j, d, next);
+    if (next) pfinal(sn, j + 1);
+  };
+  for (int j = 0; j < chunks; j += 2) {
+    tile(j, s0, s1);
+    if (j + 1 < chunks) tile(j + 1, s1, s0);
+  }
+  finish_rows<MT, T::NO, T::BQ, T::SPLIT>(a, bh, q0, r0, sl, rg, sl * T::SLICE, o, m, l, sX);
+}
+
+// K3 and K4 at d = 512 run on the wide forward's step (FwdWideF32 with BK =
+// 8 DP / CK: a key tile of BK keys takes KC = BK / 8 steps; step s of tile
+// j's iteration holds tile j + 1's K chunk s (BK keys x CK columns) and
+// tile j's V chunk s (8 keys x 512 columns)), 2 stages. K3's stages come
+// from the cluster's producer warps (full and empty mbarriers after the
+// forward's shared memory, a stage released by each warp once read); K4's
+// by cp.async, one block barrier a step, through pass 1 (K chunks only) and
+// pass 2.
+
+// the wide forward's tile at d = 512 with key tiles of BK (CK = 8 DP / BK
+// columns a K chunk, CW n8 tiles of partials at a time), K3's two full and
+// two empty mbarriers after its shared memory
+template <int MT_, int RG_, int SPLIT_, int BK_>
+struct WideVar : FwdWideF32<MT_, RG_, SPLIT_, 8 * 512 / BK_, 2> {
+  using F = FwdWideF32<MT_, RG_, SPLIT_, 8 * 512 / BK_, 2>;
+  static constexpr int MT = MT_, RG = RG_, SPLIT = SPLIT_, CK = 8 * 512 / BK_, CW = 2;
+  static constexpr size_t SMEM_RES = F::SMEM + 4 * 8;
+  // K4's pass 1 streams K chunks alone through P1_SLOTS slots of KCH
+  // floats in a ring region that also holds pass 2's two stages
+  static constexpr int KCH = F::BK * F::LDK, P1_SLOTS = 4;
+  static constexpr int RING = 2 * F::STAGE > P1_SLOTS * KCH ? 2 * F::STAGE : P1_SLOTS * KCH;
+  static constexpr size_t OFF_X4 = F::OFF_RING + size_t(RING) * 4;
+  static constexpr size_t SMEM4 = OFF_X4 + (size_t(F::BQ) * F::LDX + SPLIT * F::BQ) * 4;
+  static_assert(SMEM_RES <= kSmemPerBlock && SMEM4 <= kSmemPerBlock, "K3/K4 tile at d = 512");
+};
+
+// o += the k8 step st of P V at d = 512 (the wide forward's step): P's
+// fragment from the group's rows xP, V's 8 rows of the step at sV into O's
+// columns sl SLICE + 8j, CW n8 tiles of partials at a time, each joining o
+// in fp32
+template <class T>
+__device__ __forceinline__ void pv_step_wide(float (&o)[T::MT][T::NO][4], const float* xP,
+                                             const float* sV, int sl, int st) {
+  constexpr int MT = T::MT;
+  float f[MT][4];
+  FragSmem<MT, T::LDX>{xP}(st, f);
+  uint32_t ah[MT][4], al[MT][4];
+  split_p<MT>(f, ah, al);
+#pragma unroll
+  for (int j0 = 0; j0 < T::NO; j0 += T::CW) {
+    float part[MT][T::CW][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) zero(part[mt]);
+    pv_mma<MT, T::CW, T::LD>(part, ah, al, sV, sl * T::SLICE + 8 * j0);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jj = 0; jj < T::CW; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][j0 + jj][e] += part[mt][jj][e];
+  }
+}
+
+// a key tile's scores s at d = 512 over K chunk st's columns (zeroed at st
+// 0), from the warp's K rows kn of the chunk
+template <class T>
+__device__ __forceinline__ void scores_chunk(float (&s)[T::MT][T::NT][4], const float* qw,
+                                             const float* kn, int st, int d) {
+  if (st == 0)
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) zero(s[mt]);
+  const int c0 = st * T::CK, cols = min(T::CK, d - c0);
+#pragma unroll 2
+  for (int c = 0; c < cols; c += 4) score_step<T::MT, T::NT, T::LD, T::LDK>(s, qw + c0, kn, c);
+}
+
+// K3's producer warp at d = 512: step i's K chunk (tile i / KC, columns
+// [CK (i % KC), + CK)) and V chunk (8 keys of tile i / KC - 1) into stage
+// i % 2 of every block of the cluster, rows r, r + C, ... of the step by
+// this block (rank r)
+template <class T>
+__device__ __forceinline__ void produce_steps(float* ring, uint64_t* bars, const Args& a, int bh,
+                                              int tiles, int steps) {
+  constexpr int BK = T::BK, KC = T::KC, CK = T::CK;
+  const int lane = threadIdx.x % 32, n = a.N, d = a.D;
+  const int rank = (int)cluster_rank(), csize = (int)cluster_blocks();
+  const uint16_t mask = csize == 1 ? 0 : (uint16_t)((1u << csize) - 1);
+  const float* kg = head(a, 1, bh);
+  const float* vg = head(a, 2, bh);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % 2, jk = i / KC, st = i % KC;
+    if (i >= 2) mbar_wait(&bars[2 + s], (i / 2 - 1) & 1);
+    const int c0 = st * CK, v0 = (jk - 1) * BK + 8 * st;
+    const int krows = jk < tiles ? min(BK, n - jk * BK) : 0;
+    const int vrows = jk > 0 ? max(0, min(8, n - v0)) : 0;
+    const uint32_t kbytes = min(CK, d - c0) * 4, vbytes = d * 4;  // multiples of 32
+    if (lane == 0) mbar_expect_tx(&bars[s], krows * kbytes + vrows * vbytes);
+    float* stage = ring + s * T::STAGE;
+    for (int r = rank + csize * lane; r < krows + vrows; r += 32 * csize) {
+      if (r < krows)
+        bulk_copy(stage + r * T::LDK, kg + (long long)(jk * BK + r) * a.st[4] + c0, kbytes,
+                  &bars[s], mask);
+      else
+        bulk_copy(stage + BK * T::LDK + (r - krows) * T::LD,
+                  vg + (long long)(v0 + r - krows) * a.st[7], vbytes, &bars[s], mask);
+    }
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void resident_wide(const Args& a) {
+  constexpr int MT = T::MT, BK = T::BK, KC = T::KC;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);  // q2
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_RING);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_X);
+  float* sX = sP + T::BQ * T::LDX;  // the row statistics
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + T::SMEM);  // full 0, 1; empty 0, 1
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N, d = a.D;
+  const int tiles = (n + BK - 1) / BK, steps = (tiles + 1) * KC;
+  for (int i = threadIdx.x; i < T::STAGE / 2; i += T::THREADS + 32 * kProducerWarps)
+    smem4[T::OFF_RING / 16 + i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x == 0)
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars[s], 1);
+      mbar_init(&bars[2 + s], cluster_blocks() * (T::THREADS / 32));
+    }
+  if (threadIdx.x < T::THREADS) {
+    copy_chunks<T::BQ, T::DP, T::LD, T::THREADS>(sQ, head(a, 0, bh), a.st[1], q0, 0, n, d);
+    cp_async_commit();
+    cp_async_wait_all();
+    scale_tile<T::DP, T::BQ, T::THREADS>(sQ, a.scale_log2);
+  }
+  fence_barrier_init();
+  cluster_sync();
+
+  if (threadIdx.x >= T::THREADS) {
+    producer_regs();
+    if (threadIdx.x < T::THREADS + 32) produce_steps<T>(ring, bars, a, bh, tiles, steps);
+  } else {
+    consumer_regs();
+    const int warp = threadIdx.x / 32, rg = warp / T::SPLIT, sl = warp % T::SPLIT;
+    const int r0 = rg * 16 * MT, lane = threadIdx.x % 32;
+    const float* qw = sQ + (r0 + lane / 4) * T::LD;
+    const int kb = (sl * T::KW + 2 * (lane % 4)) * T::LDK;
+    float o[MT][T::NO][4], m[MT][2], l[MT][2], s[MT][T::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      zero(o[mt]);
+      m[mt][0] = m[mt][1] = -INFINITY;
+      l[mt][0] = l[mt][1] = 0.f;
+    }
+    for (int i = 0; i < steps; ++i) {
+      mbar_wait(&bars[i % 2], (i / 2) & 1);
+      const float* stage = ring + (i % 2) * T::STAGE;
+      const int jk = i / KC, st = i % KC;
+      if (jk > 0) pv_step_wide<T>(o, sP + r0 * T::LDX, stage + BK * T::LDK, sl, st);
+      if (jk < tiles) scores_chunk<T>(s, qw, stage + kb, st, d);
+      release_slot(&bars[2 + i % 2]);
+      if (jk < tiles && st == KC - 1) {  // tile jk's softmax step, P into sP
+        float mx[MT][2];
+        tile_max<MT, T::NT>(s, mx, n - jk * BK - sl * T::KW);
+        put_rows<MT, T::BQ>(sX, sl, r0, mx);
+        group_sync<T::SPLIT>(rg);  // the group is done with tile jk - 1's P too
+        get_rows<MT, T::BQ, T::SPLIT, true>(mx, sX, r0);
+        softmax_c<MT, T::NT, T::NO>(s, mx, m, l, o);
+        store_p<MT, T::NT, T::LDX>(sP + r0 * T::LDX + sl * T::KW, s);
+        group_sync<T::SPLIT>(rg);  // P is whole, and sX is free
+      }
+    }
+    finish_rows<MT, T::NO, T::BQ, T::SPLIT>(a, bh, q0, r0, sl, rg, sl * T::SLICE, o, m, l, sX);
+  }
+  cluster_sync();
+}
+
+template <class T>
+__device__ __forceinline__ void pipelined_wide(const Args& a) {
+  constexpr int MT = T::MT, BK = T::BK, KC = T::KC, CK = T::CK, P1S = T::P1_SLOTS;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float* sQ = reinterpret_cast<float*>(smem);  // q2
+  float* ring = reinterpret_cast<float*>(smem + T::OFF_RING);
+  float* sP = reinterpret_cast<float*>(smem + T::OFF_X4);
+  float* sX = sP + T::BQ * T::LDX;  // the row statistics
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, n = a.N, d = a.D;
+  const int chunks = (n + BK - 1) / BK, p1 = chunks * KC, steps = (chunks + 1) * KC;
+  const float* kg = head(a, 1, bh);
+  const float* vg = head(a, 2, bh);
+  // pass 1's step i: K chunk i % KC of chunk i / KC into slot i % P1S (one
+  // cp.async group, empty past the last step)
+  auto issue1 = [&](int i) {
+    if (i < p1)
+      copy_chunks<BK, CK, T::LDK, T::THREADS>(ring + (i % P1S) * T::KCH, kg, a.st[4],
+                                               i / KC * BK, i % KC * CK, n, d);
+    cp_async_commit();
+  };
+  // pass 2's step i into stage i % 2, as the forward's: K chunk i % KC of
+  // chunk i / KC and V chunk i % KC (8 keys) of the chunk before
+  auto issue2 = [&](int i) {
+    float* stage = ring + (i % 2) * T::STAGE;
+    const int jk = i / KC, st = i % KC;
+    if (jk < chunks)
+      copy_chunks<BK, CK, T::LDK, T::THREADS>(stage, kg, a.st[4], jk * BK, st * CK, n, d);
+    if (jk > 0)
+      copy_chunks<8, T::DP, T::LD, T::THREADS>(stage + BK * T::LDK, vg, a.st[7],
+                                                (jk - 1) * BK + 8 * st, 0, n, d);
+    cp_async_commit();
+  };
+  copy_chunks<T::BQ, T::DP, T::LD, T::THREADS>(sQ, head(a, 0, bh), a.st[1], q0, 0, n, d);
+#pragma unroll
+  for (int i = 0; i < P1S - 1; ++i) issue1(i);  // the first group holds q too
+  cp_async_wait_group<P1S - 2>();
+  scale_tile<T::DP, T::BQ, T::THREADS>(sQ, a.scale_log2);
+  const int warp = threadIdx.x / 32, rg = warp / T::SPLIT, sl = warp % T::SPLIT;
+  const int r0 = rg * 16 * MT, lane = threadIdx.x % 32;
+  const float* qw = sQ + (r0 + lane / 4) * T::LD;
+  const int kb = (sl * T::KW + 2 * (lane % 4)) * T::LDK;
+  float o[MT][T::NO][4], m[MT][2], l[MT][2], s[MT][T::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    zero(o[mt]);
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  // pass 1: the row max, P1S - 1 steps in flight
+  for (int i = 0; i < p1; ++i) {
+    cp_async_wait_group<P1S - 2>();
+    // step i (at i = 0 q2 too) is visible to every thread, and every thread
+    // is done with step i - 1's slot
+    __syncthreads();
+    issue1(i + P1S - 1);
+    const int jk = i / KC, st = i % KC;
+    scores_chunk<T>(s, qw, ring + (i % P1S) * T::KCH + kb, st, d);
+    if (st == KC - 1) {
+      float mx[MT][2];
+      tile_max<MT, T::NT>(s, mx, n - jk * BK - sl * T::KW);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) m[mt][0] = fmaxf(m[mt][0], mx[mt][0]),
+                                      m[mt][1] = fmaxf(m[mt][1], mx[mt][1]);
+    }
+  }
+  // the final row max over the group
+  put_rows<MT, T::BQ>(sX, sl, r0, m);
+  group_sync<T::SPLIT>(rg);
+  get_rows<MT, T::BQ, T::SPLIT, true>(m, sX, r0);
+  cp_async_wait_all();
+  __syncthreads();  // every thread is done with pass 1's slots and sX
+  issue2(0);
+  // pass 2: P against the final max, chunk jk - 1's P V with chunk jk's
+  // scores, one block barrier a step, the next step in flight
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait_all();
+    // step i's chunks (at a chunk's first step its P) are visible to every
+    // thread, and every thread is done with step i - 1's stage
+    __syncthreads();
+    if (i + 1 < steps) issue2(i + 1);
+    const float* stage = ring + (i % 2) * T::STAGE;
+    const int jk = i / KC, st = i % KC;
+    if (jk > 0) pv_step_wide<T>(o, sP + r0 * T::LDX, stage + BK * T::LDK, sl, st);
+    if (jk < chunks) {
+      scores_chunk<T>(s, qw, stage + kb, st, d);
+      if (st == KC - 1) {  // P against the final max into sP
+        p_final<MT, T::NT>(s, m, l, n - jk * BK - sl * T::KW);
+        group_sync<T::SPLIT>(rg);  // the group is done with chunk jk - 1's P
+        store_p<MT, T::NT, T::LDX>(sP + r0 * T::LDX + sl * T::KW, s);
+      }
+    }
+  }
+  finish_rows<MT, T::NO, T::BQ, T::SPLIT>(a, bh, q0, r0, sl, rg, sl * T::SLICE, o, m, l, sX);
+}
+
+// K3: <DP, D, MT, RG, SPLIT, BK> (VarF32 at DP <= 160; WideVar at 512,
+// where D = DP and the head dim is the runtime one), a producer warpgroup
+// beside 32 RG SPLIT consumer threads
+template <int DP, int D, int MT, int RG, int SPLIT, int BK>
+__global__ void __launch_bounds__(32 * (RG * SPLIT + kProducerWarps), 1)
+    flash_resident_f32_kernel(const Args a) {
+  if constexpr (DP == 512)
+    resident_wide<WideVar<MT, RG, SPLIT, BK>>(a);
+  else
+    resident_narrow<VarF32<DP, D, MT, RG, SPLIT, BK>>(a);
+}
+
+// K4: the same template arguments (its own VarTile choice), no producer
+template <int DP, int D, int MT, int RG, int SPLIT, int BK>
+__global__ void __launch_bounds__(32 * RG * SPLIT, 1) flash_pipelined_f32_kernel(const Args a) {
+  if constexpr (DP == 512)
+    pipelined_wide<WideVar<MT, RG, SPLIT, BK>>(a);
+  else
+    pipelined_narrow<VarF32<DP, D, MT, RG, SPLIT, BK>>(a);
+}
+
 // --- dQ: q2 and dO tiles of BQ rows resident, K and V tiles of BK
 // streamed through a ring of STAGES; S, dP and dQ on FFMA in the plain
 // version's order (abt, then ab: each element one fmaf chain in key order)
@@ -1633,36 +2080,67 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
                                                                     a, s);
 }
 
-template <int DP, int BC>
-cudaError_t launch_pipelined(const Args& a, cudaStream_t s) {
-  using T = PipeF32<DP, BC>;
-  return launch<flash_pipelined_f32_kernel<DP, BC>>(T::BQ, THREADS, T::SMEM, a, s);
-}
-
-template <int DP, int BK>
-cudaError_t launch_resident(const Args& a, int cluster, cudaStream_t stream) {
-  using T = ResF32<DP, BK>;
-  void (*kern)(const Args) = flash_resident_f32_kernel<DP, BK>;
+// one launch of K3's KERNEL in clusters of `cluster` blocks over (q tiles of
+// `rows`, B*H) with `threads` threads and `smem` bytes of dynamic shared
+// memory; C neighbouring q tiles of one head a cluster, the last cluster's
+// blocks past N taking part in its copies
+template <auto KERNEL>
+cudaError_t launch_cluster(int rows, int threads, size_t smem, int cluster, const Args& a,
+                           cudaStream_t stream) {
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
-  const int q_tiles = (a.N + T::BQ - 1) / T::BQ;
+  const int q_tiles = (a.N + rows - 1) / rows;
   cudaLaunchAttribute dims[1];
   dims[0].id = cudaLaunchAttributeClusterDimension;
   dims[0].val.clusterDim.x = cluster;
   dims[0].val.clusterDim.y = 1;
   dims[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  // C neighbouring q tiles of one head a cluster; the last cluster's blocks
-  // past N take part in its copies
   cfg.gridDim = dim3((q_tiles + cluster - 1) / cluster * cluster, a.B * a.H);
-  cfg.blockDim = dim3(THREADS + 32);
-  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = dims;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, KERNEL, a);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// K3 and K4 at a padded head dim DP and key block BK: VarTile's tile at DP
+// <= 160, WideVar<2, 2, 4, BK> at 512. K3 is built at D = DP and DP - 8
+// (as launch_fwd): with the head dim at run time it ran 3.4% slower at (2,
+// 4096, 8, 40) and block_k 64 on an H100 (9% at 32; PERF.md §6). K4 is
+// built at D = DP alone: it held within 1.7% there.
+template <int DP, int BK>
+cudaError_t launch_resident(const Args& a, int cluster, cudaStream_t s) {
+  if constexpr (DP == 512) {
+    using T = WideVar<2, 2, 4, BK>;
+    return launch_cluster<flash_resident_f32_kernel<DP, DP, 2, 2, 4, BK>>(
+        T::BQ, T::THREADS + 32 * kProducerWarps, T::SMEM_RES, cluster, a, s);
+  } else {
+    using W = VarTile<DP, BK, true>;
+    using T = VarF32<DP, DP, W::MT, W::RG, W::SPLIT, BK>;
+    return a.D == DP
+               ? launch_cluster<flash_resident_f32_kernel<DP, DP, W::MT, W::RG, W::SPLIT, BK>>(
+                     T::BQ, 32 * (T::WARPS + kProducerWarps), T::SMEM, cluster, a, s)
+               : launch_cluster<flash_resident_f32_kernel<DP, DP - 8, W::MT, W::RG, W::SPLIT, BK>>(
+                     T::BQ, 32 * (T::WARPS + kProducerWarps), T::SMEM, cluster, a, s);
+  }
+}
+
+template <int DP, int BK>
+cudaError_t launch_pipelined(const Args& a, cudaStream_t s) {
+  if constexpr (DP == 512) {
+    using T = WideVar<2, 2, 4, BK>;
+    return launch<flash_pipelined_f32_kernel<DP, DP, 2, 2, 4, BK>>(T::BQ, T::THREADS, T::SMEM4,
+                                                                   a, s);
+  } else {
+    using W = VarTile<DP, BK, false>;
+    using T = VarF32<DP, DP, W::MT, W::RG, W::SPLIT, BK>;
+    return launch<flash_pipelined_f32_kernel<DP, DP, W::MT, W::RG, W::SPLIT, BK>>(
+        T::BQ, 32 * T::WARPS, T::OFF_BAR, a, s);
+  }
 }
 
 // f(DP, BLOCK) as std::integral_constants at D's padded head dim

@@ -70,11 +70,35 @@ RESIDENT_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80)}, 160: (32, 6
 PIPELINED_BLOCKS = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80, 160)}, 512: (32, 64)}
 # ... and in csrc/flash_fp32.cu for fp32 operands: the resident kernel's
 # 128-key tiles from a padded head dim of 80 and the pipelined kernel's
-# 128-key chunks at 160 would leave one ring stage, so they are not built
+# 128-key chunks at 160 are not built (at 160 their two K and two V slots
+# alone would take 336 KB of shared memory)
 RESIDENT_BLOCKS_F32 = {**{dp: (32, 64, 128) for dp in (16, 32, 48)}, 80: (32, 64),
                        160: (32, 64), 512: (32,)}
 PIPELINED_BLOCKS_F32 = {**{dp: (32, 64, 128) for dp in (16, 32, 48, 80)}, 160: (32, 64),
                         512: (32, 64)}
+
+
+def variant_tile_f32(dp: int, block: int, resident: bool) -> tuple[int, int, int]:
+    """(MT, RG, SPLIT) of csrc/flash_fp32.cu's resident (K3) or pipelined
+    (K4) kernel at padded head dim ``dp`` and key block ``block``, as its
+    VarTile (WideVar<2, 2, 4, BK> at 512) picks them: 8 consumer warps in RG
+    row groups of 16 MT rows, SPLIT warps a group; 32-row warps in pairs for
+    K4 below d = 160 and K3 at d = 80 (key blocks below 128), else 16-row
+    warps, one a group where it holds O's whole row (d <= 48, key blocks
+    below 128)."""
+    if dp == 512:
+        return 2, 2, 4
+    if (not resident or dp == 80) and dp <= 80 and block < 128:
+        return 2, 4, 2
+    split = (2 if block == 128 else 1) if dp <= 48 else 2 if dp == 80 else 4
+    return 1, 8 // split, split
+
+
+# q tile of csrc/flash_fp32.cu's resident kernel by padded head dim and key
+# block (16 MT RG rows): its cluster plan at fp32 is over these tiles
+RESIDENT_BLOCK_Q_F32 = {dp: {bk: 16 * mt * rg for bk in blocks
+                             for mt, rg, _ in [variant_tile_f32(dp, bk, True)]}
+                        for dp, blocks in RESIDENT_BLOCKS_F32.items()}
 VARIANTS = ("auto", "rowblock", "streamed", "resident", "pipelined")
 CLUSTER_SIZES = (1, 2, 4)  # the resident kernel's blocks a cluster
 # streaming multiprocessors of an H100 SXM: the resident kernel's plan off
@@ -192,22 +216,31 @@ def key_block(variant: str, d: int, block: int | None = None,
     return block
 
 
-def resident_cluster(shape: tuple, cluster: int | None = None, sms: int = SMS) -> int:
+def resident_cluster(shape: tuple, cluster: int | None = None, sms: int = SMS,
+                     dtype: torch.dtype = torch.bfloat16, block: int | None = None) -> int:
     """Blocks of a thread-block cluster of the resident kernel at (B, N, H,
-    D), which share each key tile of one head: ``cluster``, or by default
-    from the head's q-tile count: 4 where a head has 4 q tiles or more and
-    all B*H heads' tiles fill the card's ``sms`` SMs 4 times over, else 2
-    where a head has 2 or more, else 1. (Fewer blocks than that and a
-    cluster of 4 waits on its slowest block, or a cluster has no 4 free SMs
-    in one GPC: on an H100, 2 ran ds2 and the VAE shape faster and 4 ran
-    ds1 faster, scripts/sweep_flash_tiles.py --variants.) Raises ValueError
-    for a size it does not take."""
+    D) on ``dtype`` operands with key tiles of ``block`` (default: the
+    kernel's), which share each key tile of one head: ``cluster``, or by
+    default from the head's q-tile count. bf16: 4 where a head has 4 q
+    tiles or more and all B*H heads' tiles fill the card's ``sms`` SMs 4
+    times over, else 2 where a head has 2 or more, else 1. (Fewer blocks
+    than that and a cluster of 4 waits on its slowest block, or a cluster
+    has no 4 free SMs in one GPC: on an H100, 2 ran ds2 and the VAE shape
+    faster and 4 ran ds1 faster, scripts/sweep_flash_tiles.py --variants.)
+    fp32: 1 at d = 512, else 2 where a head has 2 q tiles
+    (RESIDENT_BLOCK_Q_F32) or more, else 1 (a block's producer copies a key
+    tile row by row: below 512 two blocks sharing the rows ran faster, at
+    512, rows of 2 KB, one block alone did; chip_smoke.py phase 11's C =
+    1/2/4 times at the benchmark's shapes). Raises ValueError for a size it
+    does not take."""
     b, n, h, d = shape
     if cluster is None:
-        q_tiles = -(-n // RESIDENT_BLOCK_Q[_round_up(d, 16)])
-        if q_tiles >= 4 and b * h * q_tiles >= 4 * sms:
+        dp, f32 = _round_up(d, 16), dtype == torch.float32
+        q_tiles = -(-n // (RESIDENT_BLOCK_Q_F32[dp][key_block("resident", d, block, dtype)]
+                           if f32 else RESIDENT_BLOCK_Q[dp]))
+        if not f32 and q_tiles >= 4 and b * h * q_tiles >= 4 * sms:
             return 4
-        return 2 if q_tiles >= 2 else 1
+        return 2 if q_tiles >= 2 and not (f32 and dp == 512) else 1
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"resident: a cluster of {cluster} blocks (one of {CLUSTER_SIZES})")
     return cluster
@@ -330,7 +363,7 @@ class FlashForward(_Kernel):
         block = key_block(self.variant, shape[3], block, dtype)
         if self.variant != "resident":
             return [block]
-        return [block, resident_cluster(tuple(shape), cluster, sms)]
+        return [block, resident_cluster(tuple(shape), cluster, sms, dtype, block)]
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  return_lse: bool = False, block: int | None = None,

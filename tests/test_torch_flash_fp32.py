@@ -121,7 +121,33 @@ def test_fp32_block_tables_plan_and_refuse_by_dtype():
     # the benchmark's VAE shape at fp32: K4's 64-key chunks and K3's cluster
     vae = (2, 4096, 1, 512)
     assert fa.flash_fwd_pipelined.plan(vae, 64, dtype=f32) == [64]
-    assert fa.flash_fwd_resident.plan(vae, dtype=f32) == [32, 2]
+    assert fa.flash_fwd_resident.plan(vae, dtype=f32) == [32, 1]
+
+
+# the benchmark's shapes at fp32 (a key block of 64 below d = 160, else 32)
+# and one q tile or just past it: below d = 512, 2 blocks a cluster wherever
+# a head has 2 q tiles of RESIDENT_BLOCK_Q_F32, whatever the bf16 plan picks
+# (4 at ds1); at 512, 1
+@pytest.mark.parametrize("shape,plan", [
+    ((2, 4096, 8, 40), [64, 2]), ((2, 1024, 8, 80), [64, 2]), ((2, 256, 8, 160), [32, 2]),
+    ((2, 4096, 1, 512), [32, 1]), ((1, 128, 2, 40), [64, 1]), ((1, 129, 2, 40), [64, 2]),
+    ((1, 128, 2, 80), [64, 1]), ((2, 32, 8, 160), [32, 1]), ((1, 77, 1, 512), [32, 1])],
+    ids=["ds1", "ds2", "ds4", "vae", "one_tile_d40", "two_tiles_d40", "one_tile_d80",
+         "one_tile_d160", "two_tiles_d512"])
+def test_fp32_cluster_plan_reads_the_fp32_q_tile(shape, plan):
+    assert fa.flash_fwd_resident.plan(shape, dtype=torch.float32) == plan
+    assert fa.resident_cluster(shape, dtype=torch.float32) == plan[1]
+
+
+def test_fp32_cluster_plan_takes_an_explicit_size_and_block():
+    """An explicit cluster size is taken as it is; the q tile follows the
+    key block (64 rows at block_k 128 from d <= 48)."""
+    f32 = torch.float32
+    assert fa.flash_fwd_resident.plan((2, 4096, 8, 40), cluster=4, dtype=f32) == [64, 4]
+    assert fa.resident_cluster((1, 100, 1, 40), dtype=f32, block=128) == 2
+    assert fa.resident_cluster((1, 100, 1, 40), dtype=f32, block=64) == 1
+    with pytest.raises(ValueError, match="a cluster of 3 blocks"):
+        fa.resident_cluster((2, 4096, 8, 40), 3, dtype=f32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -190,29 +216,46 @@ def _mma(acc, a, b):
     return torch.where(f.double().abs() > exact.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def _flash_tf32(q, k, v, terms: int, bk: int = 64):
-    """The fp32 forward kernel's arithmetic in torch: S and the online
-    softmax in fp32 over key tiles of bk keys, and each tile's P V as k8
-    steps of mma.sync into one zeroed partial (bk / 8 = kChain steps) that
-    then joins O in fp32. Operands split as hi = to_tf32(x), lo = x - hi;
-    terms 3 is 3xTF32 (lo hi + hi lo + hi hi), terms 1 is 1xTF32 (hi hi)."""
-    s2 = fa._heads(fa.prescale(q)) @ fa._heads(k).transpose(-1, -2)
-    vh = fa._heads(v)
-    m = torch.full(s2.shape[:-1] + (1,), -torch.inf)
-    l, o = torch.zeros_like(m), torch.zeros(s2.shape[:-1] + vh.shape[-1:])
-    for k0 in range(0, s2.shape[-1], bk):
-        mn = torch.maximum(m, s2[..., k0:k0 + bk].amax(-1, keepdim=True))
-        alpha, p = torch.exp2(m - mn), torch.exp2(s2[..., k0:k0 + bk] - mn)
-        l = l * alpha + p.sum(-1, keepdim=True)
+def _pv_tf32(o, p, vh, k0, terms: int):
+    """o + p V[k0:] as the kernels' k8 steps of mma.sync: operands split as
+    hi = to_tf32(x), lo = x - hi (terms 3: lo hi + hi lo + hi hi; terms 1:
+    hi hi), each kChain = 8 steps summed into a zeroed partial that then
+    joins o in fp32."""
+    for c0 in range(0, p.shape[-1], 64):
         part = torch.zeros_like(o)
-        for ks in range(0, p.shape[-1], 8):
+        for ks in range(c0, min(c0 + 64, p.shape[-1]), 8):
             a, b = p[..., ks:ks + 8], vh[..., k0 + ks:k0 + ks + 8, :]
             ah, bh = _tf32(a), _tf32(b)
             if terms == 3:
                 part = _mma(part, _top19(a - ah), bh)
                 part = _mma(part, ah, _top19(b - bh))
             part = _mma(part, ah, bh)
-        o, m = o * alpha + part, mn
+        o = o + part
+    return o
+
+
+def _flash_tf32(q, k, v, terms: int, bk: int = 64, variant: str = "resident"):
+    """The fp32 kernels' arithmetic in torch, S in fp32 and P V by _pv_tf32
+    over key tiles of bk keys. "resident" (the forward's and K3's order):
+    the online softmax, m, l and O rescaled once a tile, then the tile's P
+    V. "pipelined" (K4's): pass 1 the final row max over every tile, pass 2
+    P = exp2(S - m) with no rescale, l and P V summed tile by tile."""
+    s2 = fa._heads(fa.prescale(q)) @ fa._heads(k).transpose(-1, -2)
+    vh = fa._heads(v)
+    m = torch.full(s2.shape[:-1] + (1,), -torch.inf)
+    if variant == "pipelined":
+        for k0 in range(0, s2.shape[-1], bk):
+            m = torch.maximum(m, s2[..., k0:k0 + bk].amax(-1, keepdim=True))
+    l, o = torch.zeros_like(m), torch.zeros(s2.shape[:-1] + vh.shape[-1:])
+    for k0 in range(0, s2.shape[-1], bk):
+        if variant == "pipelined":
+            p = torch.exp2(s2[..., k0:k0 + bk] - m)
+            l = l + p.sum(-1, keepdim=True)
+        else:
+            mn = torch.maximum(m, s2[..., k0:k0 + bk].amax(-1, keepdim=True))
+            alpha, p = torch.exp2(m - mn), torch.exp2(s2[..., k0:k0 + bk] - mn)
+            l, o, m = l * alpha + p.sum(-1, keepdim=True), o * alpha, mn
+        o = _pv_tf32(o, p, vh, k0, terms)
     return (o / l).permute(0, 2, 1, 3)
 
 
@@ -239,30 +282,118 @@ def _rel_errors(got, want):
             (diff.norm() / want.norm()).item())
 
 
+# the fp32 forward at its key tile of 64 (K1/K2), and K3 and K4 at key
+# blocks of 32 and 128 over N = 160 (a ragged last tile)
+PV_CASES = [pytest.param((1, 256, 2, 40), 64, "resident", id="d40"),
+            pytest.param((1, 128, 1, 160), 64, "resident", id="d160"),
+            pytest.param((1, 128, 1, 512), 64, "resident", id="d512"),
+            pytest.param((1, 160, 2, 40), 32, "resident", id="k3_b32"),
+            pytest.param((1, 160, 2, 40), 128, "resident", id="k3_b128"),
+            pytest.param((1, 160, 2, 40), 32, "pipelined", id="k4_b32"),
+            pytest.param((1, 160, 2, 40), 128, "pipelined", id="k4_b128")]
+
+
 @pytest.mark.parametrize("kind", ["randn", "peaked", "rising"])
-@pytest.mark.parametrize("shape", [(1, 256, 2, 40), (1, 128, 1, 160), (1, 128, 1, 512)],
-                         ids=["d40", "d160", "d512"])
-def test_3xtf32_pv_meets_the_fp32_tolerances_where_1xtf32_fails(shape, kind, _few_threads):
-    """The fp32 forward's P V as 3xTF32 tensor-core products lands within
-    phase 20's F32_MAX_REL / F32_L2_REL of flash_attention_plain; the same
-    products at 1xTF32 do not, which is why P V takes three of them."""
+@pytest.mark.parametrize("shape,bk,variant", PV_CASES)
+def test_3xtf32_pv_meets_the_fp32_tolerances_where_1xtf32_fails(shape, bk, variant, kind,
+                                                                 _few_threads):
+    """The fp32 kernels' P V as 3xTF32 tensor-core products, in the
+    forward's, K3's and K4's order, lands within phase 20's F32_MAX_REL /
+    F32_L2_REL of flash_attention_plain; the same products at 1xTF32 do
+    not, which is why P V takes three of them."""
     q, k, v = _stress_inputs(kind, shape)
     want = fa.flash_attention_plain(q, k, v)
-    max3, l2_3 = _rel_errors(_flash_tf32(q, k, v, 3), want)
-    max1, l2_1 = _rel_errors(_flash_tf32(q, k, v, 1), want)
+    max3, l2_3 = _rel_errors(_flash_tf32(q, k, v, 3, bk, variant), want)
+    max1, l2_1 = _rel_errors(_flash_tf32(q, k, v, 1, bk, variant), want)
     assert max3 <= chip_smoke.F32_MAX_REL and l2_3 <= chip_smoke.F32_L2_REL, (max3, l2_3)
     assert max1 > chip_smoke.F32_MAX_REL or l2_1 > chip_smoke.F32_L2_REL, (max1, l2_1)
 
 
-@pytest.mark.parametrize("shape,ms", [((2, 4096, 8, 40), 0.3210), ((4, 4096, 1, 512), 1.0272)],
-                         ids=["edit_ds1", "train_vae"])
+@pytest.mark.parametrize("variant,bk", [("resident", 128), ("pipelined", 32)])
+def test_3xtf32_variants_match_the_pallas_kernels_at_fp32(variant, bk, _few_threads):
+    """K3's and K4's 3xTF32 order against the JAX package's resident and
+    pipelined Pallas kernels at fp32 (interpret mode), with the key block
+    of the emulation, at chip_smoke.py's fp32 tolerances; the LSE too."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from pbe_tpu.ops import flash_attention as jfa
+
+    q, k, v = _stress_inputs("randn", (1, 256, 1, 40), seed=5)
+    jx = lambda x: jnp.asarray(x[:, :, 0].numpy())
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = jfa._flash_fwd_bhnd(
+            jx(q), jx(k), jx(v), block_q=128, block_k=bk if variant == "resident" else 128,
+            return_stats=True, variant=variant,
+            **({"block_c": bk} if variant == "pipelined" else {}))
+    want = torch.from_numpy(np.array(want))[:, :, None, :]
+    got = _flash_tf32(q, k, v, 3, bk, variant)
+    err_max, err_l2 = _rel_errors(got, want)
+    assert err_max <= chip_smoke.F32_MAX_REL and err_l2 <= chip_smoke.F32_L2_REL, (err_max,
+                                                                                  err_l2)
+    _, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    want_lse = torch.from_numpy(np.array(want_lse))[..., 0]
+    assert (lse - want_lse).abs().max() <= chip_smoke.F32_MAX_REL * want_lse.abs().max()
+
+
+@pytest.mark.parametrize("shape,ms", [((2, 4096, 8, 40), 0.3210), ((4, 4096, 1, 512), 1.0272),
+                                      ((2, 4096, 1, 512), 0.5136)],
+                         ids=["edit_ds1", "train_vae", "bench_vae"])
 def test_fp32_forward_bound_is_s_on_fma_beside_3xtf32_pv(shape, ms):
-    """The fp32 forward rows' bound at fp32 accuracy: S (2 B H N^2 d FLOP)
-    on fp32 FMA binds, beside P V as three TF32 products; q, k, v read and
-    O written once."""
+    """The bound at fp32 accuracy of the fp32 forward's rows and of phase
+    11's fp32 K3 and K4 rows, which compute the same function: S (2 B H N^2
+    d FLOP) on fp32 FMA binds, beside P V as three TF32 products; q, k, v
+    read and O written once. (K4's algorithm computes S twice; the row keeps
+    the function's bound and the log gives that floor.)"""
     b, n, h, d = shape
     by, got = chip_smoke.bound_3xtf32(4.0, b, n, h, d, 4.0 * b * n * h * d * 4)
     assert by == "fma" and round(got, 4) == ms
+
+
+def test_variant_tiles_match_the_source_and_the_fp32_cluster_plan():
+    """ops.flash_attention.variant_tile_f32 is the source's VarTile and
+    WideVar choice, and K3's q tiles in RESIDENT_BLOCK_Q_F32 are its 16 MT
+    RG rows: 128 at the benchmark's ds1 and ds2 (block 64), 32 at ds4, 64
+    at 512 and at block 128."""
+    src = (CSRC / "flash_fp32.cu").read_text()
+    assert ("  static constexpr bool WIDE_MT = (!RES || DP == 80) && DP <= 80 && BK < 128;\n"
+            "  static constexpr int MT = WIDE_MT ? 2 : 1;\n"
+            "  static constexpr int SPLIT = WIDE_MT ? 2 : DP <= 48 ? (BK == 128 ? 2 : 1) : "
+            "DP == 80 ? 2 : 4;\n  static constexpr int RG = 8 / SPLIT;") in src
+    assert src.count("using T = WideVar<2, 2, 4, BK>;") == 2
+    q_tile = fa.RESIDENT_BLOCK_Q_F32
+    assert (q_tile[48][64], q_tile[80][64], q_tile[160][32], q_tile[512][32],
+            q_tile[48][128]) == (128, 128, 32, 64, 64)
+    assert fa.variant_tile_f32(48, 64, False) == (2, 4, 2)  # K4 pairs 32-row warps
+
+
+def test_ptxas_report_names_every_fp32_variant_instantiation():
+    """ptxas_report names each resident and pipelined fp32 kernel that the
+    launchers dispatch to (<DP, D, MT, RG, SPLIT, BK>: the resident one at D
+    = DP and DP - 8 below 512, the pipelined one at D = DP with the head dim
+    at run time), for every key block of the fp32 tables."""
+    kernels = []
+    for name, table in (("flash_resident_f32_kernel", fa.RESIDENT_BLOCKS_F32),
+                        ("flash_pipelined_f32_kernel", fa.PIPELINED_BLOCKS_F32)):
+        for dp, blocks in table.items():
+            for bk in blocks:
+                resident = name.startswith("flash_resident")
+                tile = fa.variant_tile_f32(dp, bk, resident)
+                for d in ((dp, dp - 8) if resident and dp < 512 else (dp,)):
+                    kernels.append((name, [dp, d, *tile, bk]))
+    assert len(kernels) == (2 * sum(map(len, fa.RESIDENT_BLOCKS_F32.values())) - 1
+                            + sum(map(len, fa.PIPELINED_BLOCKS_F32.values())))
+    log, want = [], []
+    for name, nums in kernels:
+        mangled = "".join(f"Li{x}E" for x in nums)
+        log += [f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(name)}{name}"
+                f"I{mangled}EEvNS_4ArgsE' for 'sm_90a'",
+                "ptxas info    : Function properties for x",
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                "ptxas info    : Used 200 registers, used 1 barriers"]
+        want.append(f"  {name}<{', '.join(map(str, nums))}>: 0 bytes stack frame")
+    report = ptxas_report("\n".join(log)).splitlines()
+    assert [line[:len(w)] for line, w in zip(report, want)] == want and len(report) == len(want)
 
 
 def test_ptxas_report_names_every_fp32_forward_instantiation():
