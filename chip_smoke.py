@@ -128,11 +128,15 @@ Evaluation and first-stage training (the tenth slice):
      1e-9 of a CPU run of the same code, the bf16 CLIP B/32 embeddings
      within 2e-2 cosine of the fp32 CPU ones; each CLI's time.
  17. the backward kernels at the VAE's head dim 512 (csrc/flash_bwd.cu's
-     wide pair) against their plain versions at (4, 1024, 1, 512) (phase
-     18's shape) and (2, 4096, 1, 512), at N = 20, 77 and 1000 and on peaked
-     scores, each launched twice and compared bitwise; the forward with the
-     LSE at the same shapes; each timed (CUDA graphs) beside its plain
-     version and SDPA's (its backward alone), naming SDPA's backend.
+     wide pair on wgmma: clusters of 2 blocks that split the head dim, 64
+     rows a block, 32-row tiles by TMA) against their plain versions at
+     (4, 1024, 1, 512) (phase 18's shape) and (2, 4096, 1, 512), at N = 20,
+     77 and 1000, one row short of and past a 64-row block and a 32-row
+     tile (N = 33, 63, 65, 129), on peaked scores and on q/k/v as views of
+     one packed (B, N, 3, 1, 512) tensor, each launched twice and compared
+     bitwise; the forward with the LSE at the same shapes; each timed (CUDA
+     graphs) beside its plain version, SDPA's (its backward alone), naming
+     SDPA's backend, and the bound; the pair's launch geometry printed.
  18. the slice: make_vae_train_step on v1's first stage at full width
      (256^2, batch 4, bf16, flash, PatchDiscriminator(64, 3), the VGG16
      term, disc_start=0) for 8 steps with every kernel's launch count set
@@ -321,6 +325,9 @@ VAE_BWD_SHAPES = (("vae_256_b4", (4, 1024, 1, 512), 2), ("vae_512_b2", (2, 4096,
 VAE_STEP_FWD, VAE_STEP_FWD_LSE, VAE_STEP_BWD = 6, 2, 2
 # N below one tile (32 rows) of the d = 512 kernels and one that no tile divides
 VAE_BWD_CHECKS = ((1, 77, 1, 512), (1, 1000, 1, 512), (1, 20, 1, 512))
+# ... and N one row past a 32-row tile, one short of and one past a 64-row
+# block (the wgmma pair's cluster of 2 blocks a 64 rows), past two blocks
+VAE_BWD_EDGES = ((1, 33, 1, 512), (1, 63, 1, 512), (1, 65, 1, 512), (2, 129, 1, 512))
 
 # K3 and K4 beyond the benchmark's shapes: ds8, N that no tile divides, head
 # dims 16 and 512; K3 runs each at clusters of 1, 2 and 4, so a cluster's
@@ -869,12 +876,26 @@ def phase_vae_kernels() -> list[dict]:
         q, k, v, do = (rand(shape) for _ in range(4))
         check_bwd(fa, q, k, v, do, f"check {shape}")
         check_flash(fa, q, k, v, f"fwd+lse check {shape}")
+    for shape in VAE_BWD_EDGES:
+        check_bwd(fa, *(rand(shape) for _ in range(4)), f"block and tile edge {shape}")
     for _, shape, _ in VAE_BWD_SHAPES:
         q, k, v, do = (rand(shape) for _ in range(4))
         check_bwd(fa, q * 8, k * 8, v, do, f"peaked (q, k x8) {shape}")
         check_flash(fa, q * 8, k * 8, v, f"fwd+lse peaked (q, k x8) {shape}")
         del q, k, v, do
         torch.cuda.empty_cache()
+        plan = fa.wide_bwd_launch(shape)
+        log(f"[bwd] d = 512 pair at {shape}: grid {plan['grid']} blocks in clusters of "
+            f"{plan['cluster']} ({plan['rows']} rows and a head-dim half a block, "
+            f"{plan['tile']}-row tiles), {plan['threads']} threads, {plan['smem']} B of shared "
+            f"memory a block")
+    # q, k and v as the strided views of one packed (B, N, 3, 1, 512) tensor
+    b, n, h, d = VAE_BWD_SHAPES[0][1]
+    q, k, v = rand((b, n, 3, h, d)).unbind(2)
+    check_bwd(fa, q, k, v, rand((b, n, h, d)), f"packed qkv views {(b, n, h, d)} strides "
+              f"{q.stride()}")
+    del q, k, v
+    torch.cuda.empty_cache()
     rows = []
     for name, shape, per_step in VAE_BWD_SHAPES:
         rows += bwd_rows(fa, name, shape, per_step, VAE_STEP_FWD_LSE if per_step else 0, K2,

@@ -61,21 +61,49 @@
 //     reads (its q2 rows; its K and V rows) and write 16-byte rows.
 // Inputs are (B, N, H, D) with explicit strides: no transpose copy.
 //
-// At d = 512 (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel) the
-// accumulators of 16 whole rows would be 256 fp32 registers a thread for dQ
-// and 512 for dK + dV, so the head dim is split across warps, as the wide
-// forward splits O: 8 warps, 32 rows a block, tiles of 32 streamed through
-// 2 stages. Per tile, warp (rg, c) computes the 16x8 tiles of both scores
-// (S and dP, or S^T and dP^T) for row group rg and columns [8c, 8c+8) over
-// all 512 columns (abt_tile), turns them into P and dS in registers,
-// writes them as bf16 to a (32 x 40) shared tile, and after a barrier
-// multiplies its row group's 16x32 of them into its 128-column slice of
-// the accumulators (pv_product): 64 fp32 registers for dQ, 128 for dK and
-// dV. Two barriers a tile. The dK/dV kernel makes q2 in registers from the
-// unscaled Q tile that dK needs (bit for bit the forward's prescale), which
-// saves a third 33 KB tile a stage; shared memory 202,240 B (dQ) and
-// 205,312 B (dK/dV), one block an SM.
-//
+// At d = 512 (flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel: K5
+// and K6 at the VAE's head dim) the products run on wgmma, sm_90a's
+// warpgroup product, with operands in shared memory in the 128-byte swizzle
+// that the TMA tensor copies write (mma_sm90.cuh). wgmma takes 64 rows a
+// warpgroup, and 64 rows of fp32 accumulator at d = 512 are 128 KB for dQ
+// and 256 KB for dK and dV together, the register file of an SM. So the
+// head dim is split across a cluster of two blocks (recomputing the scores
+// per column half instead would cost 1.5x the products): block r of a pair
+// owns columns [256 r, 256 r + 256) of every operand and output for 64
+// rows (queries for dQ, keys for dK/dV), computes the scores' partials over
+// its half, and the pair adds its partials, exchanged through distributed
+// shared memory. 384 threads: a producer warpgroup (one thread issues every
+// tensor copy, its other 3 warps make dK/dV's q2; setmaxnreg 40) and two
+// consumer warpgroups (232 registers). Role 0 computes S (dK/dV: S^T), role
+// 1 dP (dP^T), each a 64 x 32 fp32 partial of 16 m64n32k16 steps, and
+// writes it to a slot that the other role reads and that 4 bulk copies (2
+// KB a warp) carry into the partner block, completing a barrier there by
+// their bytes.
+// Both roles then add the pair's partials (this block's first, in both
+// blocks alike: the pair agrees bit for bit), make P and dS in registers
+// and run their product with A from registers (the C layout of two n8
+// tiles is the A layout of a k16 step, as with mma.sync) and B the streamed
+// tile MN-major (a transposed descriptor: one swizzled tile is the K-major
+// B of the scores and the MN-major B of the product):
+//   dQ:    role r' adds dS K into 128 of the block's 256 columns
+//          (m64n128k16); q2 (made from q as it is loaded) and dO sit in
+//          registers (64 a thread), so the scores read only K and V from
+//          shared memory;
+//   dK/dV: role 0 dV += P^T dO, role 1 dK += dS^T Q (m64n256k16; with 128
+//          accumulators a thread, K and V stay in shared memory).
+// Tiles of 32 rows stream through a 3-stage ring (K and V; or Q and dO),
+// 32 KB of tensor copies a stage. dK/dV prescales each Q tile in place into
+// q2 for S^T (the producer's warps; bit for bit the forward's prescale) and
+// copies Q in again, unscaled, for dK once role 0 has read q2: that saves a
+// third 16 KB tile a stage. The exchange is pipelined by a tile: iteration
+// j pushes tile j's partial and finishes tile j - 1, whose partner partial
+// has been in flight since; slots are double-buffered by tile parity, and
+// the reader frees them with a relaxed arrival on the writer's barrier (a
+// release at cluster scope stalls the warp). Ragged N: the tensor copies
+// zero-fill rows past N, P is 0 for keys (dQ) or queries (dK/dV) past N,
+// and rows past N are not stored. Shared memory 231,328 B a block, one
+// block an SM: a pair of blocks for every 64 rows of each head.
+
 // Tiles: launch_dq<DP, WARPS, BK, HOLD, MINB> and launch_dkv<DP, WARPS, BQ,
 // HOLD, SPLIT, MINB> in the entries below; MINB blocks an SM caps ptxas at
 // 64K / (32 * WARPS * MINB) registers a thread, so that 16 warps share an
@@ -97,12 +125,14 @@
 //   dkv     48    8   32   yes   1     2    1024                50,688   128
 //   dkv     80    8   64   yes   1     1    256                113,664   242
 //   dkv    160    4   32   no    2     1    256 / 64            86,528   196
-//   dq     512    8   32   wide  -     1    (VAE) 128 / 256    202,240   186
-//   dkv    512    8   32   wide  -     1    (VAE) 128 / 256    205,312   245
-// (tile: key tile BK for dq, q tile BQ for dkv; the wide rows' grids at
-// (4, 1024, 1, 512) and (2, 4096, 1, 512).) The file builds in 9-11 s with
-// the d = 512 pair, beside flash_fwd.cu's 6-8 s (nvcc 12.9; chip_smoke.py
-// phase 1 prints both times and the ptxas report).
+//   dq     512   12   32   regs  2     1    (VAE) 128 / 256    231,328   168
+//   dkv    512   12   32   -     2     1    (VAE) 128 / 256    231,328   168
+// (tile: key tile BK for dq, q tile BQ for dkv. The wide rows: 4 producer
+// and 8 consumer warps, SPLIT the cluster's 2 head-dim halves, HOLD "regs"
+// the scores' A operand in registers; their grids in blocks at (4, 1024, 1,
+// 512) and (2, 4096, 1, 512); ptxas reports the launch's 168 registers, and
+// the consumers run at setmaxnreg's 232.) chip_smoke.py phase 1 prints the
+// file's build time and the ptxas report.
 
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the dQ kernel
 // does 6*BH*N^2*d FLOP, the dK/dV kernel 8*BH*N^2*d, and each BH*N^2 exp2
@@ -113,12 +143,20 @@
 // shared-memory round trip of S, dP, P and dS off the loop and overlaps the
 // loads with the products, so exp2 and mma.sync issue are what is left;
 // the exp2 of each (q, k) pair is still taken in both kernels, which the
-// two-kernel, atomic-free split costs. wgmma, TMA and warp specialisation
-// are later work. At d = 512 the products bind (K5 0.0130 ms, K6 0.0174 at
-// (4, 1024, 1, 512)); there each warp reads its A rows and B columns from
-// shared memory by ldmatrix for every 16x8 score tile (3 ldmatrix a pair of
-// mma), which a wgmma design would take off.
+// two-kernel, atomic-free split costs. At d = 512 the products bind the
+// pair: K5 0.0130 ms and K6 0.0174 at (4, 1024, 1, 512), 0.1042 and 0.1390
+// at (2, 4096, 1, 512) (6 and 8 B*H*N^2*d FLOP at 989 TFLOP/s). There the
+// wgmma design reads each operand from shared memory once a product (the
+// mma.sync kernels it replaced read every A row again for each 16x8 score
+// tile), but a tile's iteration is still a chain: the scores, the push of
+// the partial (a shared-memory write, a proxy fence, the copies), the
+// partner's partial, the element-wise step, the product; the exchange adds
+// 112 KB (dQ) or 96 KB (dK/dV) of shared-memory traffic a tile (the slots'
+// writes and reads, the copies out and in) beside the operands', and
+// dK/dV's scores read K and V again from shared memory each tile. What that leaves
+// against the bound is in PERF.md (phase 17's times).
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -165,6 +203,17 @@ __device__ __forceinline__ void cp_async_stat(float* dst, const float* src, int 
   }
 }
 
+// round_bf16(x * scale) for the 8 bf16 in v: the q prescale, bit for bit the
+// forward's (load_rows)
+__device__ __forceinline__ void scale8(uint4& v, float scale) {
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h2[j]);
+    h2[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+  }
+}
+
 // dst = round_bf16(src * scale) over the 16-byte chunks of a (ROWS x LD)
 // tile that this thread copied with cp_async_rows<DP, LD, ROWS, THREADS>:
 // once the thread's copies have landed (cp_async_wait_all), they are visible
@@ -175,12 +224,7 @@ __device__ __forceinline__ void prescale_own(bf16* dst, const bf16* src, float s
   for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
     const int off = (i / CH) * LD + (i % CH) * 8;
     uint4 val = *reinterpret_cast<const uint4*>(src + off);
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      h2[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-    }
+    scale8(val, scale);
     *reinterpret_cast<uint4*>(dst + off) = val;
   }
 }
@@ -522,279 +566,461 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// --- the d = 512 kernels: flash_bwd_dq_wide_kernel (K5) and
+// --- the d = 512 pair on wgmma: flash_bwd_dq_wide_kernel (K5) and
 // flash_bwd_dkv_wide_kernel (K6), the VAE's single-head mid attention -----
 
-// One warp's 16x8 tile of A B^T over the DP columns, fp32 in the C layout
-// (c[0..1] row g, columns 2t, 2t+1; c[2..3] row g+8): A the warp's 16 rows
-// (arow: its row lane%16 at column (lane/16)*8), B 8 rows (brow: row lane%8
-// at column (lane/8)*8, so that one ldmatrix.x4 gives b0, b1 of two k16
-// steps). Where SCALE_B, every B element is first rounded to
-// bf16(b * bscale) in registers: the dK/dV kernel's q2, bit for bit the
-// forward's prescale, made from the unscaled Q tile that dK needs as it is.
-// Four independent accumulators keep the dependent mma chains short.
-template <int DP, bool SCALE_B>
-__device__ __forceinline__ void abt_tile(float (&c)[4], const bf16* arow, const bf16* brow,
-                                         float bscale) {
-  float acc[4][4];
+// cuTensorMapEncodeTiled, fetched from the driver at run time (the library
+// links only the runtime)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The pair's tiles (the note at the top of the file): a cluster of two
+// blocks on ROWS rows, the block of cluster rank r owning head-dim columns
+// [HALF r, HALF r + HALF) of every operand and output; 384 threads, a
+// producer warpgroup and two consumer warpgroups (roles 0 and 1). Shared
+// memory (offsets from a 1 KB aligned base): the two resident operands
+// (dQ: q and dO; dK/dV: K and V), a ring of 3 streamed tiles (dQ: K, V;
+// dK/dV: Q, prescaled in place to q2 for the scores and copied in again
+// unscaled for dK, and dO), the score exchange, the row statistics of
+// each stage (dK/dV: L2 and D of its queries) and the barriers: 64 + 96 +
+// 64 KB and 928 B, 231,328 B with the alignment slack.
+struct WideBwd {
+  static constexpr int ROWS = 64;           // a block's rows: the M of one wgmma
+  static constexpr int TR = 32;             // rows of a streamed tile: the scores' N
+  static constexpr int HALF = 256;          // head-dim columns a block owns
+  static constexpr int PANELS = HALF / 64;  // 128-byte swizzled panels of 64 columns
+  static constexpr int THREADS = 384;
+  static constexpr int STAGES = 3;
+  static constexpr uint32_t RES = ROWS * HALF * 2;  // 32,768: a resident operand's half
+  static constexpr uint32_t TILE = TR * HALF * 2;   // 16,384: a streamed operand's half
+  static constexpr uint32_t SLOT = ROWS * TR * 4;   // 8,192: a warpgroup's fp32 scores
+  static constexpr uint32_t STAGE = 2 * TILE;
+  static constexpr uint32_t OFF_RING = 2 * RES;
+  static constexpr uint32_t OFF_X = OFF_RING + STAGES * STAGE;  // 4 slots for each of 2 tiles
+  static constexpr uint32_t OFF_STAT = OFF_X + 2 * 4 * SLOT;    // per stage: L2, D (TR fp32 each)
+  static constexpr uint32_t OFF_BAR = OFF_STAT + STAGES * 2 * TR * 4;
+  static constexpr int BARS = 20;
+  static constexpr uint32_t SMEM = OFF_BAR + BARS * 8 + 1024;
+  static_assert(SMEM <= kSmemPerBlock, "shared memory per block");
+  static_assert(STAGE % 1024 == 0 && OFF_X % 1024 == 0, "panels start on 1 KB swizzle atoms");
+  static_assert(STAGES * STAGE >= 2 * ROWS * HALF * 2, "the epilogue stages in the ring");
+};
+
+// The barriers: resident operands landed; per stage, the ring full (one
+// arrival + the copies' bytes) and empty (the 8 consumer warps);
+// dK/dV's q2 and statistics made (96 prescale threads), q2 read (role 0's 4
+// warps) and Q in again (one arrival + bytes); per tile parity, the
+// exchange slots full (one arrival + the partner's 16 KB) and free (the
+// partner's 8 warps)
+enum {
+  B_RES = 0, B_FULL = 1, B_EMPTY = 4, B_Q2FULL = 7, B_Q2DONE = 10, B_QFULL = 13, B_XFULL = 16,
+  B_XFREE = 18
+};
+
+constexpr int kPrescalers = 96, kProducerRegs = 40, kConsumerRegs = 232;
+
+// `bytes` of a swizzled operand prescaled in place, 16 bytes a step by
+// threads [0, kPrescalers): the swizzle moves whole 16-byte chunks, so an
+// element-wise map keeps it; then the writes are made visible to wgmma
+__device__ __forceinline__ void prescale_panels(unsigned char* p, uint32_t bytes, float scale,
+                                                int pt) {
+  for (uint32_t i = pt; i < bytes / 16; i += kPrescalers) {
+    uint4 v = reinterpret_cast<const uint4*>(p)[i];
+    scale8(v, scale);
+    reinterpret_cast<uint4*>(p)[i] = v;
+  }
+  fence_proxy_async();
+}
+
+// rows [r0, r0 + R) of this block's half (columns [c0, c0 + HALF)) of the
+// operand that map m describes into dst: PANELS panels of R rows x 128
+// bytes, each R / TR boxes, completing on bar
+template <int R>
+__device__ __forceinline__ void tma_half(unsigned char* dst, const CUtensorMap* m, int c0, int r0,
+                                         int hh, int b, uint64_t* bar) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int p = 0; p < WideBwd::PANELS; ++p)
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; kk += 2) {
-    uint32_t b[4], a0[4], a1[4];
-    ldsm_x4(b, brow + kk * 16);
-    ldsm_x4(a0, arow + kk * 16);
-    ldsm_x4(a1, arow + kk * 16 + 16);
-    if constexpr (SCALE_B) {
+    for (int i = 0; i < R / WideBwd::TR; ++i)
+      tma_load_4d(dst + (p * R + i * WideBwd::TR) * 128, m, c0 + 64 * p, r0 + i * WideBwd::TR, hh, b,
+                  bar);
+}
+
+// A B^T over the block's HALF columns into sc, fp32 in wgmma's accumulator
+// layout (16 k16 steps, 4 a panel): B the TR rows of a streamed tile in
+// PANELS panels, K-major; A the ROWS resident rows, from shared memory
+// (K-major, as B) or, where ap is given, from registers (its k16 A
+// fragments)
+__device__ __forceinline__ void scores_half(float (&sc)[16], const unsigned char* A,
+                                            const uint32_t (*ap)[4], const unsigned char* B) {
+  const uint32_t a0 = smem_addr(A), b0 = smem_addr(B);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b[i]));
-        b[i] = pack_bf16(f.x * bscale, f.y * bscale);
+  for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const uint64_t db = sw128_desc(b0 + (kk / 4) * WideBwd::TR * 128 + (kk % 4) * 32, 16, 1024);
+    if (ap != nullptr)
+      wgmma_m64n32_rs(sc, ap[kk], db, kk > 0);
+    else
+      wgmma_m64n32_ss(sc, sw128_desc(a0 + (kk / 4) * WideBwd::ROWS * 128 + (kk % 4) * 32, 16, 1024),
+                      db, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+}
+
+// x (16 fp32 in the accumulator layout, columns = the tile's TR rows)
+// rounded to bf16 as the A fragments of the two k16 steps over those rows
+__device__ __forceinline__ void pack_tile(uint32_t (&af)[2][4], const float (&x)[16]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// Both kernels. Block (2 i + r, bh) of cluster i: rows [64 i, 64 i + 64) of
+// head bh (queries for dQ, keys for dK/dV), head-dim half r.
+template <bool DKV>
+__device__ __forceinline__ void wide_bwd(const Args& a, const CUtensorMap* tq,
+                                         const CUtensorMap* tk, const CUtensorMap* tv,
+                                         const CUtensorMap* to) {
+  using T = WideBwd;
+  constexpr int OUT_COLS = DKV ? T::HALF : T::HALF / 2;  // output columns a consumer warpgroup
+  constexpr int NACC = OUT_COLS / 2;  // its accumulator registers a thread
+  constexpr int S = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);
+  unsigned char* res0 = smem;           // dQ: q; dK/dV: K
+  unsigned char* res1 = smem + T::RES;  // dQ: dO; dK/dV: V
+  // stage s: dQ K at +0, V at +TILE; dK/dV Q (q2) at +0, dO at +TILE
+  auto stage = [&](int j) { return smem + T::OFF_RING + (j % S) * T::STAGE; };
+  auto stat = [&](int j) {
+    return reinterpret_cast<float*>(smem + T::OFF_STAT) + (j % S) * 2 * T::TR;
+  };
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t peer = cluster_rank() ^ 1;
+  const int c0 = (peer ^ 1) * T::HALF;
+  const int bh = blockIdx.y, hh = bh % a.H, b = bh / a.H, n = a.N;
+  const int r0 = (blockIdx.x / 2) * T::ROWS;
+  const int tiles = (n + T::TR - 1) / T::TR;
+
+  if (tid == 0) {
+    mbar_init(&bar[B_RES], 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&bar[B_FULL + s], 1);
+      mbar_init(&bar[B_EMPTY + s], 8);
+      mbar_init(&bar[B_Q2FULL + s], kPrescalers);
+      mbar_init(&bar[B_Q2DONE + s], 4);
+      mbar_init(&bar[B_QFULL + s], 1);
+    }
+    for (int p = 0; p < 2; ++p) {
+      mbar_init(&bar[B_XFULL + p], 1);
+      mbar_init(&bar[B_XFREE + p], 8);
+    }
+  }
+  // the barriers are initialised before the partner block arrives on them
+  fence_barrier_init();
+  cluster_sync();
+
+  if (warp < 4) {
+    // the producer warpgroup: thread 0 issues every copy, warps 1-3 make
+    // dK/dV's q2
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      const CUtensorMap *m0 = DKV ? tk : tq, *m1 = DKV ? tv : to;  // resident
+      const CUtensorMap *s0 = DKV ? tq : tk, *s1 = DKV ? to : tv;  // streamed
+      mbar_expect_tx(&bar[B_RES], 2 * T::RES);
+      tma_half<T::ROWS>(res0, m0, c0, r0, hh, b, &bar[B_RES]);
+      tma_half<T::ROWS>(res1, m1, c0, r0, hh, b, &bar[B_RES]);
+      auto load = [&](int j) {
+        const int s = j % S;
+        if (j >= S) mbar_wait(&bar[B_EMPTY + s], (j / S - 1) & 1);
+        mbar_expect_tx(&bar[B_FULL + s], 2 * T::TILE);
+        tma_half<T::TR>(stage(j), s0, c0, j * T::TR, hh, b, &bar[B_FULL + s]);
+        tma_half<T::TR>(stage(j) + T::TILE, s1, c0, j * T::TR, hh, b, &bar[B_FULL + s]);
+      };
+      for (int j = 0; j < S && j < tiles; ++j) load(j);
+      for (int j = 0; j < tiles; ++j) {
+        if constexpr (DKV) {
+          // Q again, unscaled, once role 0's scores have read q2
+          const int s = j % S;
+          mbar_wait(&bar[B_Q2DONE + s], (j / S) & 1);
+          mbar_expect_tx(&bar[B_QFULL + s], T::TILE);
+          tma_half<T::TR>(stage(j), s0, c0, j * T::TR, hh, b, &bar[B_QFULL + s]);
+        }
+        if (j + S < tiles) load(j + S);
+      }
+    } else if (DKV && warp > 0) {
+      const int pt = tid - 32;
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % S;
+        mbar_wait(&bar[B_FULL + s], (j / S) & 1);
+        prescale_panels(stage(j), T::TILE, a.scale_log2, pt);
+        // L2 and D of the tile's queries, 0 past N
+        if (pt < 2 * T::TR) {
+          const int c = j * T::TR + pt % T::TR;
+          const float* src = pt < T::TR ? a.lse : a.dd;
+          stat(j)[pt] = c < n ? src[(long long)bh * n + c] : 0.f;
+        }
+        mbar_arrive(&bar[B_Q2FULL + s]);
       }
     }
-    mma_bf16(acc[kk % 4], a0, b[0], b[1]);
-    mma_bf16(acc[(kk + 1) % 4], a1, b[2], b[3]);
+    cluster_sync();
+    return;
   }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // role 0 computes the scores S (dK/dV: S^T), role 1 dP (dP^T), over this
+  // block's half; both then hold the whole of both, added over the pair
+  const int ct = tid - 128, role = ct / 128, t = ct % 128, w = t / 32, g = lane / 4, qd = lane % 4;
+  const bool need_dp = !DKV || role == 1;  // dK/dV's role 0 (dV) needs P alone
+  const unsigned char* aop = role ? res1 : res0;
+  float acc[NACC];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] = acc[0][e] + acc[1][e] + acc[2][e] + acc[3][e];
-}
-
-// k16 A fragments of a warp's 16 rows (from row0) of a bf16 (rows x LDP)
-// tile over its KS * 16 columns
-template <int KS, int LDP>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* tile, int row0) {
-  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  // dQ: L2 and D of this thread's query rows 16 w + g and + 8 (0 past N)
+  float l2r[2] = {0.f, 0.f}, ddr[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldsm_x4(a[kk], tile + (row0 + lane % 16) * LDP + kk * 16 + (lane / 16) * 8);
-}
-
-// The tiles of both wide kernels: 8 warps, warp w in row group w / 4 (16 of
-// the block's 32 rows) and slice w % 4. Per streamed tile of 32 rows, warp
-// (rg, c) computes the 16x8 tiles of the two scores over the whole head dim
-// for columns [8c, 8c+8) of the tile, turns them into bf16 P and dS in
-// registers and writes them to shared memory; after a barrier it multiplies
-// its row group's 16x32 of them into its slice [128c, 128c+128) of the
-// accumulators (64 fp32 registers each).
-struct WideBwdTile {
-  static constexpr int DP = 512, ROWS = 32, WARPS = 8, THREADS = 32 * WARPS;
-  static constexpr int LD = DP + 8;     // bf16 row pitch of the (32 x 512) tiles
-  static constexpr int LDP = ROWS + 8;  // bf16 row pitch of P and dS: conflict-free
-  static constexpr int SLICE = DP / 4;  // accumulator columns a warp
-  static constexpr int NO = SLICE / 8;  // its n8 tiles
-  static constexpr size_t TILE = align128(size_t(ROWS) * LD * 2);   // 33,280 bytes
-  static constexpr size_t PDS = align128(size_t(ROWS) * LDP * 2);   // P or dS
-  static constexpr size_t STAT = align128(size_t(ROWS) * 4);        // L2 or D
-};
-
-// dQ at d = 512: the block's 32 query rows (q2, made in place once, and dO)
-// stay in shared memory; key tiles of 32 (K, V) stream through 2 stages.
-// Shared memory: q2 + dO + 2 x (K + V) + dS = 202,240 bytes, one block an SM
-struct DqWide : WideBwdTile {
-  static constexpr size_t SMEM = 6 * TILE + PDS;
-  static_assert(SMEM <= kSmemPerBlock, "shared memory per block");
-};
-
-__global__ void __launch_bounds__(WideBwdTile::THREADS, 1) flash_bwd_dq_wide_kernel(const Args a) {
-  using T = DqWide;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // q2 after the prologue
-  bf16* sDO = reinterpret_cast<bf16*>(smem + T::TILE);
-  unsigned char* ring = smem + 2 * T::TILE;  // K0, V0, K1, V1
-  bf16* sDS = reinterpret_cast<bf16*>(smem + 6 * T::TILE);
-  const int bh = blockIdx.y, q0 = blockIdx.x * T::ROWS, n = a.N, d = a.D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int rg = warp / 4, c = warp % 4;
-  const bf16* kb = head_of(a.k, a.st.k, bh, a.H);
-  const bf16* vb = head_of(a.v, a.st.v, bh, a.H);
-  const int tiles = (n + T::ROWS - 1) / T::ROWS;
-  auto stage = [&](int j, int which) {  // K (0) or V (1) of key tile j
-    return reinterpret_cast<bf16*>(ring + ((j & 1) * 2 + which) * T::TILE);
-  };
-  auto issue = [&](int j) {
-    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(stage(j, 0), kb, a.st.k[1], j * T::ROWS,
-                                                     n, d);
-    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(stage(j, 1), vb, a.st.v[1], j * T::ROWS,
-                                                     n, d);
-    cp_async_commit();
-  };
-
-  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sQ, head_of(a.q, a.st.q, bh, a.H),
-                                                   a.st.q[1], q0, n, d);
-  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sDO, head_of(a.dout, a.st.o, bh, a.H),
-                                                   a.st.o[1], q0, n, d);
-  issue(0);
-  // L2 and D of this thread's rows g and g+8 of its row group (0 past n)
-  const int row0 = q0 + rg * 16;
-  float l2[2], dd[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + g + 8 * i;
-    l2[i] = r < n ? a.lse[(long long)bh * n + r] : 0.f;
-    dd[i] = r < n ? a.dd[(long long)bh * n + r] : 0.f;
-  }
-  cp_async_wait_all();
-  prescale_own<T::DP, T::LD, T::ROWS, T::THREADS>(sQ, sQ, a.scale_log2);
-
-  // A rows of this row group (q2, dO); B rows of keys [8c, 8c+8) of a tile
-  const int aoff = (rg * 16 + lane % 16) * T::LD + (lane / 16) * 8;
-  const int boff = (c * 8 + lane % 8) * T::LD + (lane / 8) * 8;
-  float acc[T::NO][4];
-  zero(acc);
-
-  for (int j = 0; j < tiles; ++j) {
-    if (j > 0) cp_async_wait_all();
-    // tile j (and at j = 0 q2) is visible to every thread; every warp is
-    // done with tile j-1's stage, which the next copy overwrites, and with
-    // sDS
-    __syncthreads();
-    if (j + 1 < tiles) issue(j + 1);
-    const bf16* sK = stage(j, 0);
-
-    float s[4], dp[4];
-    abt_tile<T::DP, false>(s, sQ + aoff, sK + boff, 0.f);          // S  = q2 K^T
-    abt_tile<T::DP, false>(dp, sDO + aoff, stage(j, 1) + boff, 0.f);  // dP = dO V^T
-    // rows: queries g, g+8 of the row group; columns: keys 8c + 2t, +1
-    const int kv = n - j * T::ROWS;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float p = exp2f(s[e] - l2[e / 2]);
-      if (c * 8 + 2 * t + (e & 1) >= kv) p = 0.f;
-      dp[e] = p * (dp[e] - dd[e / 2]) * a.scale;
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 16 * w + g + 8 * i;
+      if (r < n) {
+        l2r[i] = a.lse[(long long)bh * n + r];
+        ddr[i] = a.dd[(long long)bh * n + r];
+      }
     }
-    bf16* w = sDS + (rg * 16 + g) * T::LDP + c * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(w) = pack_bf16(dp[0], dp[1]);
-    *reinterpret_cast<uint32_t*>(w + 8 * T::LDP) = pack_bf16(dp[2], dp[3]);
-    __syncthreads();  // the block's 32x32 dS is whole
-
-    uint32_t ds[T::ROWS / 16][4];
-    load_a<T::ROWS / 16, T::LDP>(ds, sDS, rg * 16);
-    pv_product<T::ROWS / 16, T::NO, T::LD>(acc, ds, sK, c * T::SLICE, d);  // dQ += dS K
   }
-  // q2 has not been read since the last tile's second barrier: each warp
-  // stages its 16 x 128 block of dQ in its own rows and columns of it
-  store_acc<T::NO, T::LD>(acc, sQ + rg * 16 * T::LD + c * T::SLICE, a.out0, a, bh, row0,
-                          c * T::SLICE);
-}
-
-// dK and dV at d = 512: the block's 32 key rows (K, V) stay in shared
-// memory; q tiles of 32 (the unscaled Q, dO, L2 and D) stream through 2
-// stages. q2 = bf16(q * d^-1/2 log2 e) is made in registers from Q as the
-// scores' B operand (abt_tile<.., true>), which saves a third (32 x 512)
-// tile a stage: shared memory K + V + 2 x (Q + dO + L2 + D) + P + dS =
-// 205,312 bytes, one block an SM. Each warp holds 16 x 128 of dK and of dV
-// (128 fp32 registers).
-struct DkvWide : WideBwdTile {
-  static constexpr size_t STAGE = 2 * TILE + 2 * STAT;
-  static constexpr size_t SMEM = 2 * TILE + 2 * STAGE + 2 * PDS;
-  static_assert(SMEM <= kSmemPerBlock, "shared memory per block");
-};
-
-__global__ void __launch_bounds__(WideBwdTile::THREADS, 1) flash_bwd_dkv_wide_kernel(const Args a) {
-  using T = DkvWide;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + T::TILE);
-  unsigned char* ring = smem + 2 * T::TILE;  // stage s at ring + s * STAGE
-  bf16* sP = reinterpret_cast<bf16*>(ring + 2 * T::STAGE);
-  bf16* sDS = reinterpret_cast<bf16*>(ring + 2 * T::STAGE + T::PDS);
-  const int bh = blockIdx.y, k0 = blockIdx.x * T::ROWS, n = a.N, d = a.D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int rg = warp / 4, c = warp % 4;
-  const bf16* qb = head_of(a.q, a.st.q, bh, a.H);
-  const bf16* ob = head_of(a.dout, a.st.o, bh, a.H);
-  const float* lb = a.lse + (long long)bh * n;
-  const float* db = a.dd + (long long)bh * n;
-  const int tiles = (n + T::ROWS - 1) / T::ROWS;
-
-  // q tile j into stage j & 1: Q at +0, dO at +TILE, L2 and D after them
-  auto issue = [&](int j) {
-    unsigned char* st = ring + (j & 1) * T::STAGE;
-    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(reinterpret_cast<bf16*>(st), qb,
-                                                     a.st.q[1], j * T::ROWS, n, d);
-    cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(reinterpret_cast<bf16*>(st + T::TILE), ob,
-                                                     a.st.o[1], j * T::ROWS, n, d);
-    cp_async_stat<T::ROWS, T::THREADS>(reinterpret_cast<float*>(st + 2 * T::TILE), lb,
-                                       j * T::ROWS, n);
-    cp_async_stat<T::ROWS, T::THREADS>(reinterpret_cast<float*>(st + 2 * T::TILE + T::STAT), db,
-                                       j * T::ROWS, n);
-    cp_async_commit();
-  };
-
-  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sK, head_of(a.k, a.st.k, bh, a.H),
-                                                   a.st.k[1], k0, n, d);
-  cp_async_rows<T::DP, T::LD, T::ROWS, T::THREADS>(sV, head_of(a.v, a.st.v, bh, a.H),
-                                                   a.st.v[1], k0, n, d);
-  issue(0);
-
-  // A rows of this row group (K, V); B rows of queries [8c, 8c+8) of a tile
-  const int aoff = (rg * 16 + lane % 16) * T::LD + (lane / 16) * 8;
-  const int boff = (c * 8 + lane % 8) * T::LD + (lane / 8) * 8;
-  float dk[T::NO][4], dv[T::NO][4];
-  zero(dk);
-  zero(dv);
-
-  for (int j = 0; j < tiles; ++j) {
-    cp_async_wait_all();
-    // q tile j (and at j = 0 K and V) is visible to every thread; every
-    // warp is done with tile j-1's stage, which the next copy overwrites,
-    // and with sP and sDS
-    __syncthreads();
-    if (j + 1 < tiles) issue(j + 1);
-    unsigned char* st = ring + (j & 1) * T::STAGE;
-    const bf16* sQ = reinterpret_cast<const bf16*>(st);
-    const bf16* sDO = reinterpret_cast<const bf16*>(st + T::TILE);
-    const float* sL = reinterpret_cast<const float*>(st + 2 * T::TILE);
-    const float* sD = reinterpret_cast<const float*>(st + 2 * T::TILE + T::STAT);
-
-    float s[4], dp[4];
-    abt_tile<T::DP, true>(s, sK + aoff, sQ + boff, a.scale_log2);  // S^T  = K q2^T
-    abt_tile<T::DP, false>(dp, sV + aoff, sDO + boff, 0.f);       // dP^T = V dO^T
-    // rows: keys g, g+8 of the row group; columns: queries 8c + 2t, +1,
-    // whose L2 and D sit side by side
-    const int qv = n - j * T::ROWS;
-    const int col = c * 8 + 2 * t;
-    const float2 l2 = *reinterpret_cast<const float2*>(sL + col);
-    const float2 dd = *reinterpret_cast<const float2*>(sD + col);
+  mbar_wait(&bar[B_RES], 0);
+  // dQ: the scores' A operand in registers for the whole loop, warp w's 16
+  // rows by ldmatrix from the swizzled panels: role 0's q2 made from q on
+  // the way (round_bf16(q * d^-1/2 log2 e), bit for bit the forward's
+  // prescale), role 1's dO as it is (dK/dV's 128 accumulators a thread
+  // leave no room for them)
+  uint32_t ap[DKV ? 1 : 16][4];
+  if constexpr (!DKV) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float p = exp2f(s[e] - ((e & 1) ? l2.y : l2.x));
-      if (col + (e & 1) >= qv) p = 0.f;
-      s[e] = p;
-      dp[e] = p * (dp[e] - ((e & 1) ? dd.y : dd.x)) * a.scale;
+    for (int kk = 0; kk < 16; ++kk) {
+      const int row = 16 * w + lane % 16, col = (kk % 4) * 16 + (lane / 16) * 8;
+      ldsm_x4(ap[kk],
+              reinterpret_cast<const bf16*>(aop + (kk / 4) * T::ROWS * 128 + sw128(row, col)));
+      if (role == 0) {
+        uint4 v = make_uint4(ap[kk][0], ap[kk][1], ap[kk][2], ap[kk][3]);
+        scale8(v, a.scale_log2);
+        ap[kk][0] = v.x, ap[kk][1] = v.y, ap[kk][2] = v.z, ap[kk][3] = v.w;
+      }
     }
-    const int off = (rg * 16 + g) * T::LDP + col;
-    *reinterpret_cast<uint32_t*>(sP + off) = pack_bf16(s[0], s[1]);
-    *reinterpret_cast<uint32_t*>(sP + off + 8 * T::LDP) = pack_bf16(s[2], s[3]);
-    *reinterpret_cast<uint32_t*>(sDS + off) = pack_bf16(dp[0], dp[1]);
-    *reinterpret_cast<uint32_t*>(sDS + off + 8 * T::LDP) = pack_bf16(dp[2], dp[3]);
-    __syncthreads();  // the block's 32x32 P^T and dS^T are whole
-
-    {
-      uint32_t pf[T::ROWS / 16][4];
-      load_a<T::ROWS / 16, T::LDP>(pf, sP, rg * 16);
-      pv_product<T::ROWS / 16, T::NO, T::LD>(dv, pf, sDO, c * T::SLICE, d);  // dV += P^T dO
-    }
-    uint32_t ds[T::ROWS / 16][4];
-    load_a<T::ROWS / 16, T::LDP>(ds, sDS, rg * 16);
-    pv_product<T::ROWS / 16, T::NO, T::LD>(dk, ds, sQ, c * T::SLICE, d);  // dK += dS^T Q
   }
-  // K and V have not been read since the last tile's second barrier: each
-  // warp stages its 16 x 128 blocks of dK and dV in its own rows and
-  // columns of them
-  store_acc<T::NO, T::LD>(dk, sK + rg * 16 * T::LD + c * T::SLICE, a.out0, a, bh,
-                          k0 + rg * 16, c * T::SLICE);
-  store_acc<T::NO, T::LD>(dv, sV + rg * 16 * T::LD + c * T::SLICE, a.out1, a, bh,
-                          k0 + rg * 16, c * T::SLICE);
+
+  // The exchange of tile j's partials, slots of tile parity j & 1: R_S,
+  // R_D (the partner's, copied in by it) and O_S, O_D (this block's: read
+  // by the other warpgroup, copied out to the partner's R slot); a slot
+  // holds warp w's 2 KB at w * 128 float4, float4 i of lane l at + 32 i + l.
+  // Tile j's copy is in flight while this warpgroup finishes tile j - 1:
+  // iteration j pushes j and consumes j - 1.
+  constexpr int SL = T::SLOT / 16;  // float4 a slot
+  const int fo = w * 128 + lane;    // this thread's float4 in a slot, + 32 i
+  for (int j = 0; j <= tiles; ++j) {
+    if (j < tiles) {
+      const int s = j % S, xp = j & 1;
+      const uint32_t ph = (j / S) & 1, xph = (j >> 1) & 1;
+      mbar_wait(&bar[B_FULL + s], ph);
+      if (DKV && role == 0) mbar_wait(&bar[B_Q2FULL + s], ph);
+      // this block's partial scores: dQ S = q2 K^T, dP = dO V^T; dK/dV S^T
+      // = K q2^T, dP^T = V dO^T
+      float sc[16];
+      scores_half(sc, aop, DKV ? nullptr : ap, stage(j) + role * T::TILE);
+      if (DKV && role == 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bar[B_Q2DONE + s]);  // Q may come in again
+      }
+      float4* slot = reinterpret_cast<float4*>(smem + T::OFF_X + xp * 4 * T::SLOT);
+      if (ct == 0) mbar_expect_tx(&bar[B_XFULL + xp], 2 * T::SLOT);  // the partner's copies
+      if (lane == 0) bulk_wait_read<1>();  // this warp's copy of tile j - 2 has read its source
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        slot[(2 + role) * SL + fo + 32 * i] =
+            make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        if (j >= 2) mbar_wait(&bar[B_XFREE + xp], xph ^ 1);  // the partner read R[xp]
+        bulk_copy_peer(slot + role * SL + w * 128, slot + (2 + role) * SL + w * 128,
+                       T::SLOT / 4, &bar[B_XFULL + xp], peer);
+        bulk_commit();
+      }
+    }
+    if (j > 0) {
+      const int jt = j - 1, s = jt % S, xp = jt & 1;
+      const uint32_t ph = (jt / S) & 1, xph = (jt >> 1) & 1;
+      const float4* slot = reinterpret_cast<const float4*>(smem + T::OFF_X + xp * 4 * T::SLOT);
+      mbar_wait(&bar[B_XFULL + xp], xph);
+      // S = this block's + the partner's partial, in that order in both
+      // blocks' warpgroups alike (a + b == b + a): the pair agrees bit for bit
+      float sv[16], dv[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 os = slot[2 * SL + fo + 32 * i], rs = slot[fo + 32 * i];
+        sv[4 * i] = os.x + rs.x;
+        sv[4 * i + 1] = os.y + rs.y;
+        sv[4 * i + 2] = os.z + rs.z;
+        sv[4 * i + 3] = os.w + rs.w;
+        if (need_dp) {
+          const float4 od = slot[3 * SL + fo + 32 * i], rd = slot[SL + fo + 32 * i];
+          dv[4 * i] = od.x + rd.x;
+          dv[4 * i + 1] = od.y + rd.y;
+          dv[4 * i + 2] = od.z + rd.z;
+          dv[4 * i + 3] = od.w + rd.w;
+        }
+      }
+      // the partner may copy into this block's R slots of parity xp again
+      __syncwarp();
+      if (lane == 0) mbar_arrive_remote_relaxed(&bar[B_XFREE + xp], peer);
+      if constexpr (DKV) mbar_wait(&bar[B_Q2FULL + s], ph);  // the tile's L2 and D
+      const float* st2 = stat(jt);
+
+      // P = exp2(S - L2), 0 past N, and dS = P (dP - D) d^-1/2 in fp32;
+      // element 4 i + e: row 16 w + g + 8 (e / 2), column 8 i + 2 qd + e % 2
+      // of the 64 x TR tile (dQ: rows queries, columns keys; dK/dV: rows
+      // keys, columns queries)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * i + 2 * qd + (e & 1);
+          const float l2 = DKV ? st2[col] : l2r[e / 2];
+          const float dd = DKV ? (need_dp ? st2[T::TR + col] : 0.f) : ddr[e / 2];
+          const float p = jt * T::TR + col < n ? exp2f(sv[4 * i + e] - l2) : 0.f;
+          sv[4 * i + e] = p;
+          if (need_dp) dv[4 * i + e] = p * (dv[4 * i + e] - dd) * a.scale;
+        }
+      // the product into this warpgroup's accumulator, A from registers
+      // (the tile's TR rows are its k), B the streamed tile MN-major:
+      //   dQ: both roles dQ += dS K, role r on columns [128 r, 128 r + 128)
+      //   dK/dV: role 0 dV += P^T dO, role 1 dK += dS^T Q (Q in again, unscaled)
+      uint32_t af[2][4];
+      if (DKV && role == 0)
+        pack_tile(af, sv);
+      else
+        pack_tile(af, dv);
+      if (DKV && role == 1) mbar_wait(&bar[B_QFULL + s], ph);
+      const uint32_t ob =
+          smem_addr(stage(jt)) + (DKV ? (role ? 0 : T::TILE) : role * 2 * T::TR * 128);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t db = sw128_desc(ob + kk * 2048, T::TR * 128, 1024);
+        if constexpr (DKV)
+          wgmma_m64n256_rs_t(acc, af[kk], db);
+        else
+          wgmma_m64n128_rs_t(acc, af[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(af[0]);
+      fence_regs(af[1]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar[B_EMPTY + s]);
+    }
+    // both warpgroups are done with the O slots of tile j - 1 (their
+    // parity is written again at tile j + 1) and have written tile j's
+    named_barrier(1, 256);
+  }
+  // every exchange of the pair is over; the ring is free for the epilogue
+  cluster_sync();
+
+  // the epilogue: this warpgroup's 64 x OUT_COLS block as bf16, staged in
+  // the 128-byte swizzle (panels of 64 columns; conflict-free for the
+  // fragment's rows) and written as 16-byte chunks, rows past N and columns
+  // past d left out
+  unsigned char* out_stage = smem + T::OFF_RING + role * T::ROWS * OUT_COLS * 2;
+#pragma unroll
+  for (int i = 0; i < NACC / 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * w + g + 8 * h, col = 8 * i + 2 * qd;
+      *reinterpret_cast<uint32_t*>(out_stage + (col / 64) * T::ROWS * 128 + sw128(row, col % 64)) =
+          pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
+  named_barrier(2 + role, 128);
+  bf16* out = DKV ? (role ? a.out0 : a.out1) : a.out0;  // dQ; dK (role 1), dV (role 0)
+  const int oc = c0 + (DKV ? 0 : role * OUT_COLS);
+  constexpr int CH = OUT_COLS / 8;  // 16-byte chunks of a row
+  for (int k = t; k < T::ROWS * CH; k += 128) {
+    const int row = k / CH, cc = k % CH, col = oc + 8 * cc;
+    if (r0 + row < n && col < a.D)
+      *reinterpret_cast<uint4*>(out + ((long long)(b * n + r0 + row) * a.H + hh) * a.D + col) =
+          *reinterpret_cast<const uint4*>(out_stage + (cc / 8) * T::ROWS * 128 + row * 128 +
+                                          (((cc % 8) ^ (row & 7)) << 4));
+  }
 }
 
-template <typename T>
-cudaError_t launch_wide(void (*kern)(const Args), const Args& a, cudaStream_t stream) {
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WideBwd::THREADS, 1)
+    flash_bwd_dq_wide_kernel(const Args a, const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap to) {
+  wide_bwd<false>(a, &tq, &tk, &tv, &to);
+}
+
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(WideBwd::THREADS, 1)
+    flash_bwd_dkv_wide_kernel(const Args a, const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap to) {
+  wide_bwd<true>(a, &tq, &tk, &tv, &to);
+}
+
+// The tensor map of one (B, N, H, D) bf16 operand with element strides st
+// (batch, seq, head) and a unit head-dim stride: dims (d, n, h, b), boxes
+// of 64 columns x TR rows in the 128-byte swizzle, zeros outside. false
+// where the driver refuses it (strides not multiples of 16 bytes, a base
+// not 16-byte aligned: the wrapper's layout_error checks both first).
+bool operand_map(CUtensorMap* m, const bf16* x, const long long (&st)[3], const Args& a) {
+  static const EncodeTiled encode = []() -> EncodeTiled {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(fn);
+  }();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)a.D, (cuuint64_t)a.N, (cuuint64_t)a.H, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, WideBwd::TR, 1, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// a cluster pair of blocks per 64 rows of each head
+template <bool DKV>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  using T = WideBwd;
+  auto kern = DKV ? flash_bwd_dkv_wide_kernel : flash_bwd_dq_wide_kernel;
   // once per kernel (thread-safe static init): allow > 48 KB dynamic smem
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (attr != cudaSuccess) return attr;
-  kern<<<dim3((a.N + T::ROWS - 1) / T::ROWS, a.B * a.H), T::THREADS, T::SMEM, stream>>>(a);
+  CUtensorMap m[4];
+  const bf16* x[4] = {a.q, a.k, a.v, a.dout};
+  const long long(*st[4])[3] = {&a.st.q, &a.st.k, &a.st.v, &a.st.o};
+  for (int i = 0; i < 4; ++i)
+    if (!operand_map(&m[i], x[i], *st[i], a)) return cudaErrorInvalidValue;
+  kern<<<dim3(2 * ((a.N + T::ROWS - 1) / T::ROWS), a.B * a.H), T::THREADS, T::SMEM, stream>>>(
+      a, m[0], m[1], m[2], m[3]);
   return cudaGetLastError();
 }
 
@@ -848,7 +1074,7 @@ extern "C" int pbe_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
     case 48:  return (int)launch_dq<48, 16, 32, true, 1>(a, s);
     case 80:  return (int)launch_dq<80, 8, 32, false, 2>(a, s);
     case 160: return (int)launch_dq<160, 4, 64, false, 1>(a, s);
-    case 512: return (int)launch_wide<DqWide>(flash_bwd_dq_wide_kernel, a, s);
+    case 512: return (int)launch_wide<false>(a, s);
     default:  return (int)cudaErrorInvalidValue;
   }
 }
@@ -869,7 +1095,7 @@ extern "C" int pbe_flash_bwd_dkv_bf16(const void* q, const void* k, const void* 
     case 48:  return (int)launch_dkv<48, 8, 32, true, 1, 2>(a, s);
     case 80:  return (int)launch_dkv<80, 8, 64, true, 1, 1>(a, s);
     case 160: return (int)launch_dkv<160, 4, 32, false, 2, 1>(a, s);
-    case 512: return (int)launch_wide<DkvWide>(flash_bwd_dkv_wide_kernel, a, s);
+    case 512: return (int)launch_wide<true>(a, s);
     default:  return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,8 +5,10 @@
 // kernels' correctness rests on: every kernel that keeps its state in
 // registers relies on the C layout of two adjacent n8 tiles being the A
 // layout of one k16 step. Then the forward kernels' operands, online-softmax
-// step and epilogue, and the mbarrier, bulk-copy and cluster helpers of the
-// resident kernel.
+// step and epilogue; the mbarrier, bulk-copy and cluster helpers of the
+// resident kernel and of the d = 512 backward pair; and that pair's TMA
+// tensor copies, 128-byte swizzle and wgmma (sm_90a), whose accumulator
+// layout is mma_bf16's C layout in n8 tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -390,6 +392,258 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
         "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
         "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
         : "memory");
+}
+
+// one arrival on a barrier of this block (release at block scope)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// mbar_arrive_remote without release semantics: for a reader telling the
+// writer in another block that a buffer may be written again, once the
+// values it read from there have been used (a release arrival at cluster
+// scope waits for this thread's memory accesses to complete first)
+__device__ __forceinline__ void mbar_arrive_remote_relaxed(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at src into the
+// cluster's block `rank`, at the offset that `dst` has here, completing
+// that block's barrier at the offset of `bar` by the bytes: the copy engine
+// moves them, so the issuing thread waits on no acknowledgement; the
+// receiver expects them (mbar_expect_tx) and reads once the phase completes
+__device__ __forceinline__ void bulk_copy_peer(const void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 rd, rb;\n"
+      "mapa.shared::cluster.u32 rd, %0, %3;\n"
+      "mapa.shared::cluster.u32 rb, %2, %3;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [rd], [%1], %4, "
+      "[rb];\n"
+      "}\n" ::"r"(smem_addr(dst)),
+      "r"(smem_addr(src)), "r"(smem_addr(bar)), "r"(rank), "r"(bytes)
+      : "memory");
+}
+
+// the bulk copies this thread issued since the last commit form one group
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups have not yet read
+// their source (it may be overwritten then)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier among `count` threads (a multiple of 32) of this block, by id
+// 1..15 (0 is __syncthreads'): the consumer warpgroups of a block meet here
+// without the producer
+__device__ __forceinline__ void named_barrier(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy that wgmma and the bulk copies read it through; the writing
+// threads fence before they signal the readers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- TMA tensor copies and wgmma (sm_90a)
+
+// One box of a 4-d tensor map (dims innermost first; here (d, n, h, b) of a
+// (B, N, H, D) operand, encoded on the host with cuTensorMapEncodeTiled)
+// at coordinates (c0, c1, c2, c3) into this block's shared memory at dst,
+// completing `bar`'s transaction count by the box's bytes. Elements outside
+// the tensor (rows past N, columns past D) arrive as zeros, and the box
+// lands in the map's swizzle (128-byte here: sw128 below).
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, int c0, int c1, int c2,
+                                            int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Byte offset of bf16 element (row, col), col < 64, in a panel of 64
+// columns stored in the 128-byte swizzle that TMA writes and wgmma reads:
+// rows of 128 bytes, and the 16-byte chunk c of row r at chunk c ^ (r % 8),
+// so 8 rows form a 1 KB atom (the panel starts 1 KB aligned). The 8 rows a
+// warp's quad-pairs write in an mma fragment then hit 8 distinct chunks.
+__host__ __device__ constexpr uint32_t sw128(int row, int col) {
+  return row * 128 + ((((col * 2) >> 4) ^ (row & 7)) << 4) + ((col * 2) & 15);
+}
+
+// The shared-memory matrix descriptor of a wgmma operand in the 128-byte
+// swizzle (PTX "matrix-descriptor-encode"): bits 0-13 the start address /
+// 16, 16-29 the leading byte offset / 16, 32-45 the stride byte offset / 16,
+// 62-63 the layout (1: 128-byte swizzle). K-major (the k16 slice of each
+// row lies along a 128-byte row): SBO is the step between 8-row groups (1024
+// B); LBO is unused; a k16 step inside the atom moves the start by 32 bytes.
+// MN-major (transposed: the operand's rows run along k): SBO is the step
+// between groups of 8 k rows (1024 B), LBO the step between 64-column
+// panels; a k16 step moves the start by 2 KB.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma.fence: the warpgroup's register writes (accumulators, A fragments)
+// are ordered before the wgmma.mma_async that follow; needed before the
+// first wgmma of a batch whose registers ordinary code has touched
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// the wgmma.mma_async issued since the last commit form one group
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are in flight: their accumulators
+// are written and their shared-memory and register operands read
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of x across the
+// asynchronous product (its registers are written when the group completes)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, fp32 accumulate, for the warpgroup:
+// D (64 x N) = A (64 x 16) B (16 x N) + (acc ? D : 0). Thread t of the
+// warpgroup holds rows 16 (t/32) + g and + 8 (g = t%32/4) of D; d[4j..4j+3]
+// are columns 8j + 2(t%4), +1 of those two rows, so the accumulator is
+// mma_bf16's C layout in n8 tiles, and n8 tiles 2k, 2k+1 rounded to bf16
+// are the A fragment of k16 step k of a following product from registers.
+// m64n32k16 with A and B both from shared memory, K-major (descriptors).
+__device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// m64n32k16 with A from registers (mma_bf16's A fragment of the thread's
+// rows) and B from shared memory K-major
+__device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// m64n128k16 and m64n256k16 with A from registers (a[0..3]: mma_bf16's A
+// fragment of the thread's rows, as above) and B from shared memory
+// MN-major (imm-trans-b = 1: the tile's rows run along k)
+__device__ __forceinline__ void wgmma_m64n128_rs_t(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256_rs_t(float (&d)[128], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 }  // namespace

@@ -246,6 +246,28 @@ def resident_cluster(shape: tuple, cluster: int | None = None, sms: int = SMS,
     return cluster
 
 
+# csrc/flash_bwd.cu's d = 512 pair (struct Wide, WideBwd): blocks of 64 rows
+# (one wgmma M) in clusters of 2 that split the head dim, 32-row streamed
+# tiles, 384 threads, a ring of 3 stages
+WIDE_BWD_ROWS, WIDE_BWD_TILE, WIDE_BWD_CLUSTER, WIDE_BWD_THREADS = 64, 32, 2, 384
+
+
+def wide_bwd_launch(shape: tuple) -> dict:
+    """The launch of the d = 512 backward kernels at (B, N, H, D), as
+    csrc/flash_bwd.cu's launch_wide makes it: a grid of (2 ceil(N / 64),
+    B*H) blocks in clusters of 2, block 2 i + r on rows [64 i, 64 i + 64) of
+    head y and head-dim half r ([256 r, 256 r + 256)); and the dynamic
+    shared memory a block asks for, counted as WideBwd counts it (the
+    resident halves, the ring, the exchange slots, the statistics, 20
+    barriers and 1 KB to align the base)."""
+    b, n, h, _ = shape
+    rows, tile, half = WIDE_BWD_ROWS, WIDE_BWD_TILE, 256
+    res, streamed, slot = rows * half * 2, tile * half * 2, rows * tile * 4
+    smem = 2 * res + 3 * 2 * streamed + 2 * 4 * slot + 3 * 2 * tile * 4 + 20 * 8 + 1024
+    return {"grid": (WIDE_BWD_CLUSTER * -(-n // rows), b * h), "cluster": WIDE_BWD_CLUSTER,
+            "rows": rows, "tile": tile, "threads": WIDE_BWD_THREADS, "smem": smem}
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -304,13 +326,9 @@ def operand_dtype(kernel: str, dtypes, **xs: torch.Tensor) -> torch.dtype:
 def _check_operands(kernel: str, head_dims: tuple, dtypes, **xs: torch.Tensor) -> torch.dtype:
     """Raise unless every x is a (B,N,H,D) CUDA tensor of the first one's
     shape, device and dtype, that dtype one of ``dtypes``, which the kernel
-    can read in place; returns the dtype."""
+    can read in place; returns the dtype. The layout is checked first, so
+    a strided or misaligned view is refused for its layout on any device."""
     first = next(iter(xs.values()))
-    for name, x in xs.items():
-        if x.device.type != "cuda" or x.device != first.device:
-            raise ValueError(f"{kernel}: {name} must be on a CUDA device shared by all "
-                             f"operands, got {x.device}")
-    dtype = operand_dtype(kernel, dtypes, **xs)
     for name, x in xs.items():
         if x.shape != first.shape:
             raise ValueError(f"{kernel}: operands must share one shape, got "
@@ -318,6 +336,11 @@ def _check_operands(kernel: str, head_dims: tuple, dtypes, **xs: torch.Tensor) -
         err = layout_error(x)
         if err:
             raise ValueError(f"{kernel}: {name} {err}")
+    for name, x in xs.items():
+        if x.device.type != "cuda" or x.device != first.device:
+            raise ValueError(f"{kernel}: {name} must be on a CUDA device shared by all "
+                             f"operands, got {x.device}")
+    dtype = operand_dtype(kernel, dtypes, **xs)
     if _round_up(first.shape[3], 16) not in head_dims:
         raise ValueError(f"{kernel}: head dim {first.shape[3]} unsupported (pads to one "
                          f"of {head_dims})")
@@ -390,7 +413,10 @@ class FlashBackward(_Kernel):
     """``pbe_flash_bwd_dq_bf16`` or ``pbe_flash_bwd_dkv_bf16``
     (csrc/flash_bwd.cu) for bf16 operands, ``pbe_flash_bwd_dq_f32`` or
     ``pbe_flash_bwd_dkv_f32`` (csrc/flash_fp32.cu) for fp32: (q, k, v, dO,
-    LSE, D) -> dQ, or (dK, dV)."""
+    LSE, D) -> dQ, or (dK, dV). At d = 512 the bf16 kernels read q, k, v
+    and dO by TMA tensor copies, which take a unit head-dim stride, other
+    strides in multiples of 16 bytes and a 16-byte aligned base: the
+    layout check (:func:`layout_error`) refuses anything else."""
 
     def __init__(self, which: str):
         self.outputs = {"dq": 1, "dkv": 2}[which]
