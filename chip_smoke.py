@@ -35,7 +35,12 @@ Training (the second slice):
      q/k/v views there, and at ragged N for every padded head dim, each
      launched twice and compared bitwise; then timed beside the plain
      versions and SDPA's backward alone (all around CUDA graphs); the
-     forward kernel with the LSE timed at the same shapes.
+     forward kernel with the LSE timed at the same shapes. Then
+     flash_attention(q, k, v) backpropagated from three cotangents it
+     cannot read in place (out.sum()'s expanded one, a permuted one with
+     a head-dim stride of H, one at a 2-element offset) at (4, 4096, 8,
+     40) and (4, 1024, 1, 512), each gradient against the plain backward
+     on the same cotangent.
   8. one v1 UNet loss at batch 4 (bf16, remat) backpropagated through the
      flash kernels and through plain attention: the gradients compared.
   9. the slice: Trainer.fit on v1 at full width, batch 4, 512^2, with the
@@ -184,17 +189,41 @@ Evaluation and first-stage training (the tenth slice):
      result is black and the other equal to the first pass's; the card's
      fp32 cosines and scores within 1e-4 of the CPU's.
 
+The frozen edit program (the sixteenth slice):
+ 25. on phase 4's weights (its seeded checkpoint), the 512^2 50-step PLMS
+     edit at CFG 5, bf16, det_first_stage, frozen by
+     pbe_tpu_torch.scripts.verify_frozen_program.main (export_edit_program:
+     a prologue, one step body run 47 times, an epilogue; params.npz) and
+     run in its own process holding no model code: max|diff| <= 0.02
+     against the live edit, 818 flash launches (816 K1 by phase 4's
+     shapes, 2 K2), two frozen calls bitwise equal; its row (export,
+     params load, the live and frozen first and warm call seconds, MB)
+     printed with the card line, and the FLOPs of one CFG UNet call (torch.utils.flop_counter,
+     the flash ops by their formulas) with the flash share. The int8
+     program at v1 width runs beside it (two processes started together
+     on one params.npz; the steps printed in its line).
+
 A run takes them in the order 1, 2, 7, 17, 20, 11, 3, 4, 12, 13, 14, 5, 8,
-9, 15, 16, 18, 6, 10, 19, 12's tiny edits, then 21, 22, 23, 24: kernels
+9, 15, 16, 18, 6, 10, 19, 12's tiny edits, then 21, 22, 23, 24, 25: kernels
 first, the timed edits before the profiler, the card-vs-CPU comparisons
 last.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when any phase fails or there is no CUDA device.
+
+    python3 chip_smoke.py --only edit,serving[,frozen-bf16][,frozen-int8]
+
+runs v1 with phase 4's random weights through just the named phases (4,
+13, and 25 with the named precisions: one alone, both side by side), each
+kernel built at its first use, and prints their summaries as its last line
+instead of the contract line. Run from two trees in one call, it compares
+their host paths on one card.
 """
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import os
 import sys
@@ -232,6 +261,8 @@ FLASH_SHAPES = (
     ("vae_mid", (1, 4096, 1, 512), K2, 2),
 )
 LAUNCHES_PER_EDIT = sum(s[3] for s in FLASH_SHAPES)  # 818
+# phase 25's PLMS steps: the bf16 frozen edit at phase 4's 50, the int8 one
+FROZEN_STEPS = {"bf16": 50, "int8": 50}
 # a 50-step DDIM edit: 50 UNet calls of 16 self-attentions, 2 VAE ones
 DDIM_LAUNCHES = 50 * 16 + 2  # 802
 # phase 12, the CLIs: (name, (B, N, H, D), TPU kernel, CLI run, launches in
@@ -307,6 +338,9 @@ VAE_TRAIN_SHAPE = (4, 4096, 1, 512)  # the frozen VAE's mid attention, 2 a step
 # order moves), so an element may land a few bf16 ulps away, never more.
 GRAD_MAX_REL = 2.0 ** -5
 GRAD_L2_REL = 1e-2
+# flash_attention's backward from cotangents the kernels cannot read in
+# place: the UNet's ds1 training shape and first-stage training's d = 512
+COTANGENT_CHECKS = ((4, 4096, 8, 40), (4, 1024, 1, 512))
 # the backward kernels beyond the training shapes: N that no q or key tile
 # divides at every padded head dim (48, 80, 16, 32, 160), and N below one
 # tile
@@ -615,6 +649,48 @@ def check_bwd(fa, q, k, v, do, label: str) -> dict:
     return res
 
 
+def check_cotangents(fa, rand, shape) -> None:
+    """flash_attention's backward on the card from cotangents the kernels
+    cannot read in place: out.sum()'s (expanded, every stride 0), a
+    permuted one (head-dim stride H) and one at a 2-element offset; each
+    gradient against the plain backward on the same cotangent, at phase 7's
+    tolerances."""
+    import torch
+
+    b, n, h, d = shape
+    q, k, v = (rand(shape).requires_grad_() for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    o, lse = fa.flash_fwd(q.detach(), k.detach(), v.detach(), return_lse=True)
+    flat = rand((b * n * h * d + 2,))
+    cotangents = {"out.sum()": None,
+                  "permuted": rand((b, n, d, h)).permute(0, 1, 3, 2),
+                  "offset 2": flat[2:].view(shape)}
+    for name, do in cotangents.items():
+        if do is None:
+            got = torch.autograd.grad(out.sum(), (q, k, v), retain_graph=True)
+            do = torch.ones((), dtype=out.dtype, device=out.device).expand(shape)
+        else:
+            got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+        if fa.layout_error(do) is None:
+            raise AssertionError(f"cotangent {name} at {shape} is one the kernels read in "
+                                 f"place; the check needs one they cannot")
+        want = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o, lse, do)
+        res = []
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            diff = g.float() - w.float()
+            err, scale = diff.abs().max().item(), w.float().abs().max().item()
+            rel_l2 = (diff.norm() / w.float().norm()).item()
+            res.append(f"{gname} max|err| {err:.3e} (tol {GRAD_MAX_REL * scale:.3e}) "
+                       f"rel L2 {rel_l2:.3e}")
+            if not (err <= GRAD_MAX_REL * scale and rel_l2 <= GRAD_L2_REL):
+                raise AssertionError(f"flash_attention's {gname} from the {name} cotangent "
+                                     f"at {shape} disagrees with the plain backward")
+        log(f"[bwd] cotangent {name} {shape} strides {tuple(do.stride())}: "
+            + "; ".join(res) + f" (tol {GRAD_L2_REL}) ok")
+    del q, k, v, out, o, lse, flat
+    torch.cuda.empty_cache()
+
+
 def dq_order_controls(fa, q, k, v, do, label: str) -> None:
     """Controls for phase 20's dQ check (fp32 inputs): the rel L2 distance
     of dQ from flash_bwd_dq_plain's and from the exact dQ given the plain
@@ -830,6 +906,9 @@ def phase_train_kernels() -> list[dict]:
         check_bwd(fa, q, k, v, do, f"packed qkv views {shape} strides {q.stride()}")
         del q, k, v, do
         torch.cuda.empty_cache()
+
+    for shape in COTANGENT_CHECKS:
+        check_cotangents(fa, rand, shape)
 
     rows = []
     for name, shape, per_step in TRAIN_SHAPES:
@@ -1389,7 +1468,8 @@ def phase_edit(pipe, card: str, rows: list[dict]) -> dict:
         raise AssertionError(f"edit output shape {out.shape} or non-finite values")
     if out.min() < 0.0 or out.max() > 1.0:
         raise AssertionError(f"edit output outside [0,1]: [{out.min()}, {out.max()}]")
-    log(f"[edit] output mean {out.mean():.4f} std {out.std():.4f}")
+    digest = hashlib.sha256(out.tobytes()).hexdigest()[:16]
+    log(f"[edit] output mean {out.mean():.4f} std {out.std():.4f}, sha256 {digest}")
     if launches != LAUNCHES_PER_EDIT:
         raise AssertionError(f"flash kernel launched {launches} times, not "
                              f"{LAUNCHES_PER_EDIT}")
@@ -1426,7 +1506,7 @@ def phase_edit(pipe, card: str, rows: list[dict]) -> dict:
     if not np.array_equal(got, want):
         raise AssertionError("the block=False edit differs from the block=True edit")
     return {"first_edit_s": first_s, "warm_edit_s": times, "p50_s": p50,
-            "edits_per_s": 1.0 / p50}
+            "edits_per_s": 1.0 / p50, "output_sha256": digest}
 
 
 def phase_reference() -> None:
@@ -1781,7 +1861,8 @@ def phase_serving(pipe, card: str, rows: list[dict]) -> dict:
         f"{seq - piped:.4f} s of {seq:.4f} ({(seq - piped) / seq:.4f}); mean time to a "
         f"result {np.mean(lats['one at a time']):.4f} s one at a time (counted from the "
         f"first submit), {np.mean(lats['together']):.4f} s together; results equal ({card})")
-    summary.update(sequential_4_s=walls["one at a time"], pipelined_4_s=walls["together"])
+    summary.update(sequential_4_s=walls["one at a time"], pipelined_4_s=walls["together"],
+                   hidden_share=(seq - piped) / seq)
 
     # (c) two fresh servers, one seed
     outs = []
@@ -3331,7 +3412,154 @@ def phase_safety(ckpt: str, card: str) -> dict:
     return summary
 
 
-def main() -> int:
+def unet_call_flops(config: str = "configs/v1.yaml") -> dict:
+    """FLOPs of one CFG UNet call at the 512^2 edit's shapes (batch 2, a
+    64^2 latent, bf16, flash) by torch.utils.flop_counter, the flash ops by
+    their registered formulas: traced on fake tensors, so nothing runs."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from pbe_tpu_torch.models.pbe import build_from_yaml
+    from pbe_tpu_torch.utils.profiling import compiled_flops
+
+    with FakeTensorMode(), torch.no_grad():
+        model, _ = build_from_yaml(config, dtype=torch.bfloat16, attn_impl="flash",
+                                   device="cuda", remat=False)
+        x9 = torch.zeros((2, 64, 64, 9), dtype=torch.bfloat16, device="cuda")
+        t = torch.zeros((2,), device="cuda")
+        ctx = torch.zeros((2, 1, 768), dtype=torch.bfloat16, device="cuda")
+        total, by_op = compiled_flops(model.apply_model, x9, t, ctx, by_op=True)
+    flash = sum(n for op, n in by_op.items() if op.startswith("pbe."))
+    return {"unet_call_tflop": total / 1e12, "flash_tflop": flash / 1e12,
+            "flash_share": flash / total}
+
+
+def phase_frozen(ckpt: str, card: str, precisions=("bf16", "int8")) -> dict:
+    """Phase 25: the frozen edit on the card, by
+    scripts.verify_frozen_program at v1 width on phase 4's weights: bf16 and
+    int8 at FROZEN_STEPS, the two runs started together (each exports on
+    one host core for minutes) on one params.npz written first; or one of
+    them alone."""
+    import subprocess
+
+    import torch
+
+    from pbe_tpu_torch.export_runtime import save_params_npz
+    from pbe_tpu_torch.pipelines.loading import load_pipeline
+
+    flops = unet_call_flops()
+    log(f"[frozen] one CFG UNet call: {flops['unet_call_tflop']:.4f} TFLOP "
+        f"(torch.utils.flop_counter), flash ops {flops['flash_tflop']:.4f} TFLOP, "
+        f"share {flops['flash_share']:.4f}")
+    want = {shape: n for _, shape, _, n in FLASH_SHAPES}
+    out = {"unet_call": flops}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        params = os.path.join(root, "params.npz")
+        pipe, _ = load_pipeline("configs/v1.yaml", ckpt, device="cuda", verbose=False)
+        with torch.no_grad():
+            save_params_npz(params, pipe.model.state_dict())
+        del pipe
+        torch.cuda.empty_cache()
+        out["params_write_s"] = time.perf_counter() - t0
+        log(f"[frozen] v1 params.npz ({os.path.getsize(params) / 1e6:.1f} MB) written in "
+            f"{out['params_write_s']:.1f} s")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        procs = {}
+        try:
+            for name in precisions:
+                extra = ["--quantize", "int8"] if name == "int8" else []
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "pbe_tpu_torch.scripts.verify_frozen_program",
+                     "--outdir", os.path.join(root, name), "--config", "configs/v1.yaml",
+                     "--ckpt", ckpt, "--params", params, "--H", "512", "--W", "512",
+                     "--steps", str(FROZEN_STEPS[name]), "--scale", "5",
+                     "--det_first_stage", "1", "--device", "cuda", *extra],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                    start_new_session=True)
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=900)
+                if proc.returncode != 0:
+                    raise AssertionError(f"verify_frozen_program ({name}) exited "
+                                         f"{proc.returncode}: {stderr[-3000:]}")
+                row = json.loads(stdout.strip().splitlines()[-1])
+                row["phase_s"] = time.perf_counter() - t0
+                by_shape = {tuple(int(x) for x in k.strip("()").split(",")): n
+                            for k, n in row["flash_fwd_launches_by_shape"].items()}
+                launches = row["flash_launches"]
+                side = "the bf16 and int8 runs side by side" if len(procs) > 1 else "alone"
+                log(f"[frozen] {name} 512^2 PLMS {FROZEN_STEPS[name]} CFG 5 ({side}): "
+                    f"{json.dumps(row)} ({card})")
+                log(f"[frozen] {name}: step body run {row['step_runs']} times; flash launches "
+                    f"{launches['flash_fwd']} (expected {LAUNCHES_PER_EDIT} at 50 steps), by "
+                    f"shape {by_shape}")
+                if not row["pass"]:
+                    raise AssertionError(f"the frozen {name} edit is {row['max_abs_diff']} "
+                                         f"from the live edit")
+                if row["step_runs"] != FROZEN_STEPS[name] - 3:
+                    raise AssertionError(f"the step body ran {row['step_runs']} times")
+                if name == "bf16" and (by_shape != want or launches["flash_fwd"]
+                                       != LAUNCHES_PER_EDIT):
+                    raise AssertionError(f"the frozen edit launched {by_shape}, not {want}")
+                if any(n for k, n in launches.items() if k != "flash_fwd"):
+                    raise AssertionError(f"the frozen edit launched {launches}")
+                out[name] = row
+        finally:
+            for proc in procs.values():  # and the frozen side each one started
+                if proc.poll() is None:
+                    os.killpg(proc.pid, 9)
+                    proc.wait()
+    return out
+
+
+def seeded_checkpoint(pipe, zero_names: list[str], root: str) -> str:
+    """The tensors randomize_zero_params changed, as a checkpoint in
+    ``root`` for the CLIs of phases 21, 23, 24 and 25 (the rest is
+    load_pipeline's seeded init)."""
+    import torch
+
+    ckpt = os.path.join(root, "seeded.ckpt")
+    params = dict(pipe.model.named_parameters())
+    torch.save({"state_dict": {n: params[n].detach().cpu() for n in zero_names}}, ckpt)
+    return ckpt
+
+
+ONLY = ("edit", "serving", "frozen-bf16", "frozen-int8")
+
+
+def run_only(only: list[str], card: str) -> dict:
+    """``--only``: v1 with phase 4's random weights through the named
+    phases -> their summaries."""
+    import torch
+
+    from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
+
+    pipe, _ = load_pipeline("configs/v1.yaml", device="cuda")
+    zero_names = [n for n, p in pipe.model.named_parameters() if not torch.any(p)]
+    randomize_zero_params(pipe.model, seed=0)
+    out = {}
+    if "edit" in only:
+        out["edit"] = phase_edit(pipe, card, [{"name": s[0]} for s in FLASH_SHAPES])
+    if "serving" in only:
+        out["serving"] = phase_serving(pipe, card, [])
+    frozen = [name.removeprefix("frozen-") for name in only if name.startswith("frozen-")]
+    if frozen:
+        with tempfile.TemporaryDirectory() as root:
+            ckpt = seeded_checkpoint(pipe, zero_names, root)
+            del pipe
+            torch.cuda.empty_cache()
+            out["frozen"] = phase_frozen(ckpt, card, frozen)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    parser.add_argument("--only", default="",
+                        help=f"comma-separated phases of {ONLY} to run alone on v1 (see the "
+                             f"module docstring); by default every phase runs")
+    only = [name for name in parser.parse_args(argv).only.split(",") if name]
+    if set(only) - set(ONLY):
+        parser.error(f"--only takes {ONLY}, got {only}")
     import torch
 
     if not torch.cuda.is_available():
@@ -3350,6 +3578,9 @@ def main() -> int:
     card = card_line()
     log(f"[env] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if only:
+        print(json.dumps({"only": run_only(only, card)}), flush=True)
+        return 0
     phase_build()
     rows = phase_kernels()
     train_rows = phase_train_kernels()
@@ -3377,13 +3608,9 @@ def main() -> int:
     serving = phase_serving(pipe, card, serve_rows)
     int8 = phase_int8(pipe, card)
     phase_profile(pipe.model)  # after the timed edits: the profiler slows the host
-    # the tensors randomize_zero_params changed, for the CLIs of phases
-    # 21, 23 and 24 (the rest is load_pipeline's seeded init)
     seeded = tempfile.TemporaryDirectory()
-    ckpt = os.path.join(seeded.name, "seeded.ckpt")
-    params = dict(pipe.model.named_parameters())
-    torch.save({"state_dict": {n: params[n].detach().cpu() for n in zero_names}}, ckpt)
-    del pipe, params
+    ckpt = seeded_checkpoint(pipe, zero_names, seeded.name)
+    del pipe
     torch.cuda.empty_cache()
     model = build_v1_for_training()
     phase_unet_grad(model)
@@ -3403,6 +3630,7 @@ def main() -> int:
     long_rows = []
     tiling = phase_tiling(ckpt, card, long_rows)
     safety = phase_safety(ckpt, card)
+    frozen = phase_frozen(ckpt, card)
     seeded.cleanup()
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
@@ -3415,6 +3643,7 @@ def main() -> int:
     log(f"[fp32] summary {json.dumps(precision_full)}")
     log(f"[tiling] summary {json.dumps(tiling)}")
     log(f"[safety] summary {json.dumps(safety)}")
+    log(f"[frozen] summary {json.dumps(frozen)}")
     kernels = (rows + train_rows + vae_rows + variant_rows + cli_rows + serve_rows + f32_rows
                + long_rows)
     for row in kernels:

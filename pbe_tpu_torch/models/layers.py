@@ -14,19 +14,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from pbe_tpu_torch.ops import quant
-from pbe_tpu_torch.ops.conv import conv2d
+from pbe_tpu_torch.ops.conv import as_dtype, conv2d
 
 
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return F.linear(x, as_dtype(self.weight, x.dtype), as_dtype(self.bias, x.dtype))
 
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return self._conv_forward(x, as_dtype(self.weight, x.dtype), as_dtype(self.bias, x.dtype))
 
 
 class QuantLinear(Linear):
@@ -41,9 +39,8 @@ class QuantConv2d(Conv2d):
         if quant.is_active():
             return quant.conv2d_int8(x, self.weight, self.bias, self.stride, self.padding,
                                      self.dilation, self.groups)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
-                      self.dilation, self.groups)
+        return conv2d(x, as_dtype(self.weight, x.dtype), as_dtype(self.bias, x.dtype),
+                      self.stride, self.padding, self.dilation, self.groups)
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

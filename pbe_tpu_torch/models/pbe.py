@@ -91,12 +91,17 @@ class PaintByExample(nn.Module):
 
     # ---- first stage -----------------------------------------------------
     def encode_first_stage(self, x: torch.Tensor,
-                           generator: torch.Generator | None = None) -> torch.Tensor:
+                           generator: torch.Generator | None = None,
+                           eps: torch.Tensor | None = None) -> torch.Tensor:
         """Scaled latent of x (NHWC in [-1,1]); the posterior mode when
-        generator is None, else a sample drawn from it."""
+        generator and eps are None, else a sample of it: mean + std * eps,
+        with ``eps`` the standard normals of the latent's shape where given
+        (an exported program takes them as an input), else drawn from
+        ``generator``."""
         mean, logvar = self.first_stage_model.encode(x)
-        z = mean if generator is None else sample_diagonal_gaussian(generator, mean, logvar)
-        return self.scale_factor * z
+        if generator is None and eps is None:
+            return self.scale_factor * mean
+        return self.scale_factor * sample_diagonal_gaussian(generator, mean, logvar, eps)
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.first_stage_model.decode(z / self.scale_factor)

@@ -219,12 +219,16 @@ class AutoencoderKL(nn.Module):
         return self.decode(z), (mean, logvar)
 
 
-def sample_diagonal_gaussian(generator: torch.Generator, mean: torch.Tensor,
-                             logvar: torch.Tensor) -> torch.Tensor:
-    """z = mean + std * eps, eps drawn from ``generator``."""
-    eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                      dtype=torch.float32).to(mean.dtype)
-    return mean + torch.exp(0.5 * logvar) * eps
+def sample_diagonal_gaussian(generator: torch.Generator | None, mean: torch.Tensor,
+                             logvar: torch.Tensor, eps: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """z = mean + std * eps: ``eps`` the standard normals of the latent's
+    shape (float32) where given, else drawn from ``generator``; either way
+    rounded to the latent's dtype."""
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                          dtype=torch.float32)
+    return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
 
 
 def diagonal_gaussian_kl(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

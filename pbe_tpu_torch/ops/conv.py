@@ -16,6 +16,13 @@ import torch
 import torch.nn.functional as F
 
 
+def as_dtype(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    """A layer's weight or bias in the activations' dtype: ``t`` itself
+    where it already is (as ``Tensor.to`` would return it, but with no call,
+    so a traced program records no cast and no check for it)."""
+    return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
 def im2col(x: torch.Tensor, kernel: tuple[int, int], stride: tuple[int, int],
            padding: tuple[int, int]) -> tuple[torch.Tensor, int, int]:
     """NCHW x -> ((B*Ho*Wo, kh*kw*C) rows, Ho, Wo): each output position's

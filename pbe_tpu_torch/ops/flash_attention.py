@@ -36,10 +36,14 @@ ctypes. Layout: (B, N, H, D) with
 strides, as the attention projections produce it, so no transpose copy is
 made; the LSE and D are (B*H, N).
 
-Dispatch is by the tensor's device: a CPU tensor takes the plain version,
-a CUDA tensor launches the kernel or raises. :class:`FlashAttention` is the
-autograd function: its forward keeps the LSE only when an input needs a
-gradient, and its backward runs the two backward kernels.
+Each kernel is also a ``torch.library`` custom op in the ``pbe`` namespace
+(``pbe.flash_fwd``, ``pbe.flash_fwd_lse``, ``pbe.flash_bwd_dq``,
+``pbe.flash_bwd_dkv``), with a fake implementation and a FLOP formula, so an
+exported program holds one node a call. Dispatch is by the tensor's device,
+inside the op: a CPU tensor takes the plain version, a CUDA tensor launches
+the kernel or raises. :class:`FlashAttention` is the autograd function: its
+forward keeps the LSE only when an input needs a gradient, and its backward
+runs the two backward ops.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import collections
 import ctypes
 
 import torch
+import torch.utils.flop_counter
 
 from pbe_tpu_torch.ops import cuda_build
 
@@ -454,6 +459,115 @@ flash_bwd_dq = FlashBackward("dq")
 flash_bwd_dkv = FlashBackward("dkv")
 
 
+# The kernels as torch.library custom ops, so that torch.export, a CUDA
+# graph capture and torch.utils.flop_counter see each call as one node. Each
+# op dispatches by its operands' device: its CUDA kernel calls the wrapper
+# above (which checks the layout, launches and counts), its CPU kernel runs
+# the plain version, and neither falls back to the other. ``kind`` is
+# "fwd" (K1/K2), "resident" (K3) or "pipelined" (K4); ``block`` is the
+# variant's key block, 0 for the kernel's default (the resident kernel's
+# cluster is its own choice). The fake implementations give shapes and
+# dtypes only.
+#
+# Launch counts (``launches``, ``launches_by_shape``, ``launches_by_dtype``)
+# change in the wrappers' ``_launch``, so they count every call that runs an
+# op's CUDA kernel: the live edit's, and an exported program's as it runs.
+# Under a captured CUDA graph they count once, at capture: a replay launches
+# the recorded kernels without running Python.
+_FWD_KERNELS = {"fwd": flash_fwd, "resident": flash_fwd_resident,
+                "pipelined": flash_fwd_pipelined}
+
+
+def _fwd_cuda(q, k, v, kind, block, return_lse):
+    kernel = _FWD_KERNELS[kind]
+    if kernel is flash_fwd:
+        return flash_fwd(q, k, v, return_lse)
+    return kernel(q, k, v, return_lse, block or None)
+
+
+@torch.library.custom_op("pbe::flash_fwd", mutates_args=(), device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
+                  block: int) -> torch.Tensor:
+    return flash_attention_plain(q, k, v)
+
+
+@torch.library.custom_op("pbe::flash_fwd_lse", mutates_args=(), device_types="cpu")
+def _flash_fwd_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
+                      block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_plain(q, k, v, return_lse=True)
+
+
+@torch.library.custom_op("pbe::flash_bwd_dq", mutates_args=(), device_types="cpu")
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                     lse: torch.Tensor, dd: torch.Tensor) -> torch.Tensor:
+    return flash_bwd_dq_plain(q, k, v, do, lse, dd)
+
+
+@torch.library.custom_op("pbe::flash_bwd_dkv", mutates_args=(), device_types="cpu")
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                      lse: torch.Tensor, dd: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_bwd_dkv_plain(q, k, v, do, lse, dd)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _(q, k, v, kind, block):
+    return _fwd_cuda(q, k, v, kind, block, False)
+
+
+@_flash_fwd_lse_op.register_kernel("cuda")
+def _(q, k, v, kind, block):
+    return _fwd_cuda(q, k, v, kind, block, True)
+
+
+_flash_bwd_dq_op.register_kernel("cuda")(lambda q, k, v, do, lse, dd:
+                                          flash_bwd_dq(q, k, v, do, lse, dd))
+_flash_bwd_dkv_op.register_kernel("cuda")(lambda q, k, v, do, lse, dd:
+                                           flash_bwd_dkv(q, k, v, do, lse, dd))
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """(B,N,H,D) of x's shape and dtype, as the kernels and the plain
+    versions write their outputs."""
+    return x.new_empty(x.shape)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, kind, block):
+    return _dense(q)
+
+
+@_flash_fwd_lse_op.register_fake
+def _(q, k, v, kind, block):
+    b, n, h, _ = q.shape
+    return _dense(q), q.new_empty((b * h, n), dtype=torch.float32)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, dd):
+    return _dense(q)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, dd):
+    return _dense(k), _dense(v)
+
+
+def _flops(factor: int):
+    """A FLOP formula of ``factor`` * B*H*N^2*D (the multiply-adds of the
+    op's products, two FLOPs each, as chip_smoke.py's bounds count them):
+    4 for the forward (S and P V), 6 for dQ (dP, S and dQ), 8 for dK/dV
+    (S, dP, dV and dK)."""
+    def formula(q_shape, *args, **kwargs) -> int:
+        b, n, h, d = q_shape
+        return factor * b * h * n * n * d
+    return formula
+
+
+for _op, _factor in ((torch.ops.pbe.flash_fwd, 4), (torch.ops.pbe.flash_fwd_lse, 4),
+                     (torch.ops.pbe.flash_bwd_dq, 6), (torch.ops.pbe.flash_bwd_dkv, 8)):
+    torch.utils.flop_counter.register_flop_formula(_op)(_flops(_factor))
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   variant: str = "auto", block_k: int | None = None,
                   block_c: int | None = None, return_lse: bool = False):
@@ -463,33 +577,41 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of ``block_k``; "pipelined" :data:`flash_fwd_pipelined` with key chunks
     of ``block_c``. A name, block or shape that the variant's kernel does not
     take raises ValueError with the reason, on either device; no call moves
-    to another variant. CUDA tensors launch the kernel (or raise); CPU
-    tensors run :func:`flash_attention_plain`."""
+    to another variant. The call is one ``pbe.flash_fwd`` (or
+    ``pbe.flash_fwd_lse``) op: CUDA tensors launch the kernel (or raise);
+    CPU tensors run :func:`flash_attention_plain`."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown flash variant {variant!r} (one of {VARIANTS})")
     if block_k is not None and variant != "resident":
         raise ValueError(f"block_k is the resident kernel's key block, not {variant}'s")
     if block_c is not None and variant != "pipelined":
         raise ValueError(f"block_c is the pipelined kernel's key chunk, not {variant}'s")
-    kernel = {"resident": flash_fwd_resident, "pipelined": flash_fwd_pipelined}.get(variant)
-    block = block_k if variant == "resident" else block_c
-    if kernel is not None:
-        kernel.plan(q.shape, block, dtype=q.dtype)  # raises here on either device
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, return_lse)
-    if q.device.type != "cuda":
+    kind = variant if variant in ("resident", "pipelined") else "fwd"
+    block = (block_k if variant == "resident" else block_c) or 0
+    if kind != "fwd":
+        _FWD_KERNELS[kind].plan(q.shape, block or None, dtype=q.dtype)  # raises here on either device
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention has no path for device {q.device}")
-    if kernel is None:
-        return flash_fwd(q, k, v, return_lse)
-    return kernel(q, k, v, return_lse, block)
+    op = torch.ops.pbe.flash_fwd_lse if return_lse else torch.ops.pbe.flash_fwd
+    return op(q, k, v, kind, block)
+
+
+def kernel_cotangent(do: torch.Tensor) -> torch.Tensor:
+    """The cotangent as the backward kernels take it: ``do`` itself where
+    they can read it in place, else a dense copy in a new allocation
+    (autograd hands over any strides: the cotangent of ``out.sum()`` is
+    expanded, all strides 0; a dense view at an odd offset is misaligned,
+    and ``contiguous()`` would return it as it is)."""
+    return do.clone(memory_format=torch.contiguous_format) if layout_error(do) else do
 
 
 class FlashAttention(torch.autograd.Function):
     """The port of the JAX package's ``flash_attention`` custom VJP. The
     forward asks the kernel for the LSE only when an input needs a
     gradient and saves q, k, v, O and the LSE; the backward computes D
-    and runs the dQ and dK/dV kernels on CUDA tensors (or raises), their
-    plain versions on CPU tensors. Nothing falls back: a ragged N is
+    and runs the ``pbe.flash_bwd_dq`` and ``pbe.flash_bwd_dkv`` ops (the
+    kernels on CUDA tensors, or raise; their plain versions on CPU tensors)
+    on :func:`kernel_cotangent`'s dO. Nothing falls back: a ragged N is
     masked inside the kernels."""
 
     @staticmethod
@@ -503,11 +625,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type != "cuda":
-            return flash_attention_bwd_plain(q, k, v, o, lse, do)
+        do = kernel_cotangent(do)
         dd = rowsum_do_o(do, o)
-        return (flash_bwd_dq(q, k, v, do, lse, dd),
-                *flash_bwd_dkv(q, k, v, do, lse, dd))
+        return (torch.ops.pbe.flash_bwd_dq(q, k, v, do, lse, dd),
+                *torch.ops.pbe.flash_bwd_dkv(q, k, v, do, lse, dd))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

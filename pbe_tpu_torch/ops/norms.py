@@ -12,6 +12,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pbe_tpu_torch.ops.conv import as_dtype
+
+f32 = torch.float32
+
 
 class GroupNorm32(nn.Module):
     """GroupNorm over NCHW in fp32. groups = gcd(32, C): every production
@@ -28,9 +32,9 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.groups, self.weight.float(),
-                         self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        y = F.group_norm(as_dtype(x, f32), self.groups, as_dtype(self.weight, f32),
+                         as_dtype(self.bias, f32), self.eps)
+        return as_dtype(y, x.dtype)
 
 
 class LayerNormF32(nn.Module):
@@ -42,6 +46,6 @@ class LayerNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         self.bias.float(), 1e-5)
-        return y.to(x.dtype)
+        y = F.layer_norm(as_dtype(x, f32), self.weight.shape, as_dtype(self.weight, f32),
+                         as_dtype(self.bias, f32), 1e-5)
+        return as_dtype(y, x.dtype)

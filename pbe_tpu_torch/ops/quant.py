@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pbe_tpu_torch.ops.conv import conv2d, im2col
+from pbe_tpu_torch.ops.conv import as_dtype, conv2d, im2col
 
 # the JAX package's gates, the same numbers: ops below them stay fp
 MIN_SPATIAL = 256      # H*W of the conv input
@@ -233,8 +233,7 @@ def linear_int8(x: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor | None = None) -> torch.Tensor:
     """x (..., k) @ weight (n, k)^T + bias in w8a8 where eligible, else the
     exact fp op (weights cast to x's dtype, as ``layers.Linear`` does)."""
-    w = weight.to(x.dtype)
-    b = None if bias is None else bias.to(x.dtype)
+    w, b = as_dtype(weight, x.dtype), as_dtype(bias, x.dtype)
     spec = active_spec() or QuantSpec()
     n, k = w.shape
     # rows per example (the leading axis is the batch): a total-row gate
@@ -270,8 +269,7 @@ def conv2d_int8(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
                 dilation: tuple[int, int] = (1, 1), groups: int = 1) -> torch.Tensor:
     """NCHW conv with OIHW weights in w8a8 where eligible, else the UNet's
     fp conv (``ops/conv.conv2d``, weights cast to x's dtype)."""
-    w = weight.to(x.dtype)
-    b = None if bias is None else bias.to(x.dtype)
+    w, b = as_dtype(weight, x.dtype), as_dtype(bias, x.dtype)
     spec = active_spec() or QuantSpec()
     _, cin, h, wd = x.shape
     cout = w.shape[0]

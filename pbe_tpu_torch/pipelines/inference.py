@@ -56,6 +56,69 @@ class PendingOutput:
         return a if dtype is None else a.astype(dtype)
 
 
+class EditBody:
+    """The tensor-level edit of one configuration (sampler, steps, eta,
+    guided or not, paste-back, output), shared by the live edit and the
+    frozen programs of ``pipelines/export.py``. Inputs are float32 tensors on
+    the model's device, as the caller's arrays: the body rounds them to the
+    model's dtype where the model reads them (and keeps the caller's fp32
+    pixels for paste-back). :meth:`encode`, :meth:`eps_fn`, the samplers'
+    step functions and :meth:`finish` are the pieces; the live edit runs
+    them through :meth:`sample`, a frozen program as its prologue, step and
+    epilogue."""
+
+    def __init__(self, pipeline: "EditPipeline", *, steps: int, sampler: str, eta: float,
+                 cfg: bool, paste_back: int | None, output: str = "float32"):
+        self.model = pipeline.model
+        self.apply_fn = pipeline._apply_fn()
+        self.sampler, self.cfg, self.output = sampler, bool(cfg), output
+        self.paste_back = paste_back
+        self.sched = (SamplerSchedule.create(self.model.schedule, int(steps), eta=float(eta))
+                      if sampler in ("plms", "ddim") else None)
+
+    def encode(self, image: torch.Tensor, mask: torch.Tensor, ref: torch.Tensor,
+               generator: torch.Generator | None = None, eps: torch.Tensor | None = None):
+        """(z_inpaint, mask latent, conditioning) of an edit: the masked
+        source's posterior mode, or its sample by ``generator`` or the
+        standard normals ``eps``."""
+        model, dt = self.model, self.model.dtype
+        image, mask = image.to(dt), mask.to(dt)
+        z_inpaint = model.encode_first_stage(image * mask, generator, eps)
+        m_lat = resize_mask(mask, z_inpaint.shape[1:3]).to(z_inpaint.dtype)
+        return z_inpaint, m_lat, model.get_conditioning(ref.to(dt))
+
+    def eps_fn(self, c: torch.Tensor, scale: float | torch.Tensor):
+        return make_cfg_eps_fn(self.apply_fn, c, self.model.uncond_vector(c.shape[0]), scale,
+                               self.cfg)
+
+    def sample(self, x_t, z_inpaint, m_lat, c, scale, generator=None, noise=None):
+        """The whole chain from x_t (model dtype) -> x_0."""
+        eps_fn = self.eps_fn(c, scale)
+        if self.sampler == "ddpm":
+            return ddpm_ancestral_sample(eps_fn, self.model.schedule, x_t, z_inpaint, m_lat,
+                                         generator=generator, noise=noise)
+        if self.sampler == "plms":
+            return plms_sample(eps_fn, self.sched, x_t, z_inpaint, m_lat)
+        return ddim_sample(eps_fn, self.sched, x_t, z_inpaint, m_lat, generator=generator,
+                           noise=noise)
+
+    def finish(self, x0: torch.Tensor, image: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x_0 -> the output: the float32 latent, or the decode in [0,1]
+        (pasted back against the caller's fp32 pixels), as uint8 if asked."""
+        if self.output == "latent":
+            return x0.float()
+        img = self.model.decode_first_stage(x0)
+        out = ((img.float() + 1.0) / 2.0).clamp(0.0, 1.0)
+        if self.paste_back is not None:
+            # against the caller's fp32 pixels, so every mask==1 pixel is
+            # the source's exactly, also when the model runs in bf16
+            out = paste_back_fn(out, (image + 1.0) / 2.0, mask, feather=int(self.paste_back))
+        if self.output == "uint8":
+            # round half to even, as the JAX pipeline and to_uint8 do
+            out = torch.round(out * 255.0).to(torch.uint8)
+        return out
+
+
 class EditPipeline:
     """Holds a PaintByExample model (already on its device, in eval mode)."""
 
@@ -130,44 +193,19 @@ class EditPipeline:
         # a copy with C strides: a view such as ref[None] has stride 0 on
         # its batch axis, and on the card the bf16 result depended on the
         # strides (the convs choose their layout and algorithm by them)
-        as_t = lambda a, dtype=dt: torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+        as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
         if x_T is None:
             x_t = torch.randn((b, h // f, w // f, 4), generator=gen, device=dev).to(dt)
         else:
-            x_t = as_t(x_T)
-        image_t, mask_t, ref_t = as_t(image), as_t(mask), as_t(ref)
-
-        z_inpaint = model.encode_first_stage(image_t * mask_t,
-                                             None if det_first_stage else gen)
-        m_lat = resize_mask(mask_t, z_inpaint.shape[1:3]).to(z_inpaint.dtype)
-        c = model.get_conditioning(ref_t)
-        eps_fn = make_cfg_eps_fn(self._apply_fn(), c, model.uncond_vector(b), float(scale))
-        noise_t = None if noise is None else as_t(noise, torch.float32)
-        if sampler == "ddpm":
-            x0 = ddpm_ancestral_sample(eps_fn, model.schedule, x_t, z_inpaint, m_lat,
-                                       generator=gen, noise=noise_t)
-        else:
-            sched = SamplerSchedule.create(model.schedule, int(steps), eta=float(eta))
-            if sampler == "plms":
-                x0 = plms_sample(eps_fn, sched, x_t, z_inpaint, m_lat)
-            else:
-                x0 = ddim_sample(eps_fn, sched, x_t, z_inpaint, m_lat,
-                                 generator=gen, noise=noise_t)
-
-        if output == "latent":
-            out = x0.float()
-        else:
-            img = model.decode_first_stage(x0)
-            out = ((img.float() + 1.0) / 2.0).clamp(0.0, 1.0)
-            if paste_back is not None:
-                # against the caller's fp32 pixels, so every mask==1 pixel
-                # is the source's exactly, also when the model runs in bf16
-                orig01 = (as_t(image, torch.float32) + 1.0) / 2.0
-                out = paste_back_fn(out, orig01, as_t(mask, torch.float32),
-                                    feather=int(paste_back))
-            if output == "uint8":
-                # round half to even, as the JAX pipeline and to_uint8 do
-                out = torch.round(out * 255.0).to(torch.uint8)
+            x_t = as_t(x_T).to(dt)
+        body = EditBody(self, steps=steps, sampler=sampler, eta=eta, cfg=float(scale) != 1.0,
+                        paste_back=paste_back, output=output)
+        image_t, mask_t = as_t(image), as_t(mask)
+        z_inpaint, m_lat, c = body.encode(image_t, mask_t, as_t(ref),
+                                          None if det_first_stage else gen)
+        x0 = body.sample(x_t, z_inpaint, m_lat, c, float(scale), gen,
+                         None if noise is None else as_t(noise))
+        out = body.finish(x0, image_t, mask_t)
         if not block:
             return PendingOutput(out)
         return out.cpu().numpy()

@@ -12,11 +12,20 @@ EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 def make_cfg_eps_fn(apply_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
                     cond: torch.Tensor, uncond: torch.Tensor | None,
-                    scale: float) -> EpsFn:
-    """eps_fn(x9, t) with CFG baked in. scale == 1 or uncond None runs the
-    UNet once at batch B. The guided combination is taken in fp32 from the
-    model-dtype difference, as the edit pipeline's float32 scale does."""
-    if uncond is None or scale == 1.0:
+                    scale: float | torch.Tensor, cfg: bool | None = None) -> EpsFn:
+    """eps_fn(x9, t) with CFG baked in. ``scale`` is a float or a 0-d fp32
+    tensor; only guided-or-not is fixed here, as in the JAX edit program:
+    ``cfg`` (by default ``scale != 1``, which a tensor scale must state)
+    False or uncond None runs the UNet once at batch B. The guided
+    combination is taken in fp32 from the model-dtype difference, as the
+    edit pipeline's float32 scale does; a tensor scale gives a float's
+    numbers bit for bit."""
+    if cfg is None:
+        if isinstance(scale, torch.Tensor):
+            raise ValueError("a tensor scale needs cfg= (guided or not is fixed when "
+                             "the function is built)")
+        cfg = scale != 1.0
+    if uncond is None or not cfg:
         def eps_fn(x9: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
             return apply_fn(x9, t, cond)
         return eps_fn

@@ -36,6 +36,15 @@ from pbe_tpu_torch.utils.watermark import embed_watermark, extract_watermark
 from _torch_port import write_test_bench
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Six test workers share the CPU: two intra-op threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _keep_mask(n=2, hw=32):
     m = np.ones((n, hw, hw, 1), np.float32)
     m[:, 8:24, 6:20] = 0.0

@@ -1,14 +1,15 @@
 """The port's three edit CLIs (pbe_tpu_torch.scripts.inference,
-run_inference_batch, inference_test_bench) as subprocesses on the CPU at
+run_inference_batch, inference_test_bench) through their main(argv) on the CPU at
 configs/tiny.yaml, 64^2, 2 steps, with a checkpoint of seeded weights and
 input PNGs the tests write: the JAX CLIs' file layout, and results equal to
 the same edit run in-process; tiled inference and the safety checker
 through the inference CLI. Then the flags the port refuses, the lifted
 flags failing as the JAX CLI fails, and the refusal to run without a card
 unless --device cpu is given."""
+import contextlib
+import importlib
+import io
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -51,13 +52,21 @@ def _inputs(root, size=64, seed=0):
     return root / "photo.png", root / "mask.png", root / "ref.jpg"
 
 
-def _run(module, args, timeout=300):
-    # a few threads: the suite runs beside other test workers on the CPU
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="4")
-    proc = subprocess.run([sys.executable, "-m", f"pbe_tpu_torch.scripts.{module}", *args],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return proc.stdout
+def _run(module, args):
+    """The CLI's ``main(argv)`` in this process, as ``python -m
+    pbe_tpu_torch.scripts.<module>`` runs it (a process of its own would
+    import torch and build its pipeline again) -> what it printed. Four
+    threads: the suite runs beside other test workers on the CPU."""
+    cli = importlib.import_module(f"pbe_tpu_torch.scripts.{module}")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(list(args))
+    finally:
+        torch.set_num_threads(threads)
+    return out.getvalue()
 
 
 def _png(path):
@@ -179,8 +188,8 @@ def test_quantize_flags_run(seeded, tmp_path, capsys, request):
     pipe, ckpt = seeded
     img, mask, ref = _inputs(tmp_path / "in")
     out = tmp_path / "static"
-    # in-process, with as few threads as the subprocess runs above take:
-    # the suite's workers share the CPU
+    # with as few threads as the CLI runs above take: the suite's workers
+    # share the CPU
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 4))
     request.addfinalizer(lambda: torch.set_num_threads(threads))

@@ -4,6 +4,7 @@ at CFG scale 5 and at scale 1 (the single-call specialization), same
 weights in both frameworks, fp32 on the CPU."""
 import numpy as np
 import pytest
+import torch
 
 from pbe_tpu.data.transforms import to_uint8
 from pbe_tpu.pipelines.inference import EditPipeline as JEditPipeline
@@ -12,6 +13,15 @@ from pbe_tpu_torch.ops.tiling import TilingSpec
 from pbe_tpu_torch.pipelines.inference import EditPipeline as TEditPipeline
 
 from _torch_port import pipeline_pair
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Six test workers share the CPU: two intra-op threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,15 @@ from pbe_tpu_torch.ops import flash_attention as tfa
 from pbe_tpu_torch.ops.attention import multi_head_attention
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Six test workers share the CPU: two intra-op threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(shape, seed=0):
     g = np.random.default_rng(seed)
     return [g.standard_normal(shape).astype(np.float32) for _ in range(3)]
@@ -136,16 +145,18 @@ def test_model_hands_the_kernel_tensors_it_can_read(monkeypatch, batch):
         seen.append(tuple(q.shape))
         return tfa.flash_attention(q, k, v, return_lse)
 
-    real_bwd = tfa.flash_attention_bwd_plain
+    real_bwd = tfa.flash_bwd_dq_plain
 
-    def checked_bwd(q, k, v, o, lse, do):
-        for x in (q, k, v, o, do):
+    # the backward's dQ op on a CPU tensor runs this plain version: what it
+    # is handed is what the dQ and dK/dV kernels read on the card
+    def checked_bwd(q, k, v, do, lse, dd):
+        for x in (q, k, v, do):
             assert tfa.layout_error(x) is None, tfa.layout_error(x)
         seen_bwd.append(tuple(do.shape))
-        return real_bwd(q, k, v, o, lse, do)
+        return real_bwd(q, k, v, do, lse, dd)
 
     monkeypatch.setattr(attention, "flash_attention", checked)
-    monkeypatch.setattr(tfa, "flash_attention_bwd_plain", checked_bwd)
+    monkeypatch.setattr(tfa, "flash_bwd_dq_plain", checked_bwd)
     model, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.bfloat16,
                                attn_impl="flash", device="cpu")
     init_parameters(model, seed=0)

@@ -17,6 +17,15 @@ from pbe_tpu.ops.attention import multi_head_attention
 torch.manual_seed(0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Six test workers share the CPU: two intra-op threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _nchw(x_nhwc: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.transpose(x_nhwc, (0, 3, 1, 2)))
 

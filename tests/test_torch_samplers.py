@@ -25,6 +25,15 @@ from _torch_port import pipeline_pair, to_t
 SHAPE = (2, 4, 4, 4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Six test workers share the CPU: two intra-op threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _schedules(steps=8, eta=0.0):
     args = (1000, "linear", 0.00085, 0.0120)
     jbase, tbase = JDiffusionSchedule.create(*args), TDiffusionSchedule.create(*args)

@@ -36,6 +36,15 @@ from _torch_port import pipeline_pair
 B, SIZE, LATENT = 2, 32, 8  # PIPELINE_GEO: 32^2 images, 4x latent downsample
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Six test workers share the CPU: two intra-op threads each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     return pipeline_pair()
