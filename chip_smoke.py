@@ -7,11 +7,10 @@ Phases:
   1. card name and power limit, torch/CUDA versions; build the kernels
      from csrc/flash_fwd.cu (the models' forward kernels), flash_variants.cu
      (the resident and pipelined kernels), flash_bwd.cu (the backward
-     kernels, the d = 512 pair among them) and flash_fp32.cu (the fp32
-     forward, resident, pipelined, dQ and dK/dV kernels; one nvcc each,
-     started together) and
-     print each kernel's registers and spills from their -Xptxas -v
-     reports.
+     kernels, the d = 512 pair among them), one nvcc each, started
+     together, and flash_fp32.cu (the fp32 forward, resident, pipelined, dQ
+     and dK/dV kernels; minutes to build), started after phase 13; print
+     each kernel's registers and spills from their -Xptxas -v reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
      edit gives it (bf16), at ragged N for every padded head dim, and with
      peaked scores, a row max rising at every key tile and packed q/k/v
@@ -203,26 +202,59 @@ The frozen edit program (the sixteenth slice):
      program at v1 width runs beside it (two processes started together
      on one params.npz; the steps printed in its line).
 
-A run takes them in the order 1, 2, 7, 17, 20, 11, 3, 4, 12, 13, 14, 5, 8,
-9, 15, 16, 18, 6, 10, 19, 12's tiny edits, then 21, 22, 23, 24, 25: kernels
-first, the timed edits before the profiler, the card-vs-CPU comparisons
-last.
+The remaining user scripts and the legacy models (the seventeenth slice):
+ 26. on phase 4's weights (its seeded checkpoint), pbe_tpu_torch.scripts.test
+     .main on configs/v1.yaml over a synthetic OpenImages tree (512^2, 2
+     batches of 4): the loss of each batch (Trainer.validate), 50-step DDIM
+     at CFG 5 with 6-panel grids, the FID trio on random Inception; the JAX
+     CLI's result keys, every value finite, K1/K2 launches by shape (820 a
+     batch); the forward kernel at those shapes against its plain version
+     and timed. Then weights_runbook --dry_run on configs/tiny.yaml
+     (--skip_int8 --skip_frozen --bench_size 64): every step, a port CLI
+     in a subprocess on the card, exits 0.
+ 27. scripts.train_overfit_demo.main on v1 at 512^2 (bf16, remat, constant
+     LR), batch 8, 30 steps, then its 50-step DDIM at scales 1 and 5: step
+     p50, images/s, peak memory, first and last loss_simple, latent rel-MSE,
+     launches a step (34 K1/K2, 16 K5, 16 K6); the JAX demo's files; the
+     kernels at the step's shapes against their plain versions and timed;
+     a tiny (configs/tiny.yaml, 64^2) 2-step demo and its sampling, fp32,
+     card against CPU with the draws injected.
+ 28. the legacy models at published widths, fp32, card against CPU on the
+     same seeded weights (max|diff| <= 1e-4 of the output's RMS):
+     EncoderUNetModel (guided-diffusion's 64x64 classifier) and
+     classifier_loss, TextTransformer (LDM's BERTEmbedder, 1280 x 32),
+     vae_legacy.Model (DDPM CIFAR-10; its attn_impl="flash" raises),
+     LatentRescaler with "flash" (one K2 launch at (2, 4096, 1, 512), also
+     against "plain" on the card, its row timed), MergedRescaleEncoder and
+     Decoder at the v1 VAE's widths at 256^2.
+
+A run takes them in the order 1, 2, 7, 17, 11's bf16 part, 3, 4, 12, 13,
+14, 5, 8, 9, 15, 16, 18, 6, 10, 19, 12's tiny edits, then 20, 11's fp32
+part, 21, 22, 23, 24, 25, 26, 27, 28: kernels first, the timed edits
+before the profiler, the card-vs-CPU comparisons last. csrc/flash_fp32.cu,
+the slowest build (minutes, one host core), starts after phase 13, so that
+no nvcc runs beside the host-bound timings of phases 4, 12 and 13; it
+builds beside phases 14, 5, 8, 9, 15, 16, 18, 6, 10, 19 and 12's tiny
+edits, and phase 20 waits for it. Every phase logs its seconds
+("[clock]").
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when any phase fails or there is no CUDA device.
 
     python3 chip_smoke.py --only edit,serving[,frozen-bf16][,frozen-int8]
+        [,test-split][,overfit][,legacy]
 
 runs v1 with phase 4's random weights through just the named phases (4,
-13, and 25 with the named precisions: one alone, both side by side), each
-kernel built at its first use, and prints their summaries as its last line
-instead of the contract line. Run from two trees in one call, it compares
+13, 25 with the named precisions: one alone, both side by side, 26, 27,
+28), each kernel built at its first use, and prints their summaries (and
+the kernel rows they add) as its last line instead of the contract line. Run from two trees in one call, it compares
 their host paths on one card.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -436,28 +468,59 @@ def graph_ms(fn, iters: int, stream=None) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_build():
-    """Every kernel source, one nvcc each, started together."""
+# csrc/flash_fp32.cu takes minutes to build on one host core: it starts
+# after phase 13, so that the edit and serving timings (phases 4, 12 and
+# 13) run with no nvcc beside them, and phase 20 waits for it
+LATE_BUILD = "flash_fp32"
+_START = time.perf_counter()
+
+
+def clocked(phase):
+    """A phase that logs its seconds and the run's clock as it returns (or
+    fails)."""
+    @functools.wraps(phase)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args, **kw)
+        finally:
+            now = time.perf_counter()
+            log(f"[clock] {phase.__name__} {now - t0:.1f} s (the run at {now - _START:.1f} s)")
+    return run
+
+
+def start_builds(names: tuple):
+    """One nvcc per source in ``names``, all started together -> a function
+    that waits for them and logs their times and ptxas reports."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pbe_tpu_torch.ops import cuda_build
+    from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
 
     def timed_build(name):
         t = time.perf_counter()
         cuda_build.build(name)
         return f"{name}.cu {time.perf_counter() - t:.1f} s"
 
-    from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
-
     t0 = time.perf_counter()
-    names = ("flash_fwd", "flash_variants", "flash_bwd", "flash_fp32")
-    with ThreadPoolExecutor(len(names)) as pool:
-        each = list(pool.map(timed_build, names))
-    log(f"[build] {', '.join(n + '.cu' for n in names)} built side by side in "
-        f"{time.perf_counter() - t0:.1f} s ({', '.join(each)})")
-    for n in names:
-        log(f"[build] {n}.cu registers and spills (ptxas):\n"
-            f"{ptxas_report(cuda_build.build_log(n))}")
+    pool = ThreadPoolExecutor(len(names))
+    futures = [pool.submit(timed_build, n) for n in names]
+    pool.shutdown(wait=False)
+
+    def wait():
+        each = [f.result() for f in futures]
+        log(f"[build] {', '.join(n + '.cu' for n in names)} built side by side in "
+            f"{time.perf_counter() - t0:.1f} s ({', '.join(each)})")
+        for n in names:
+            log(f"[build] {n}.cu registers and spills (ptxas):\n"
+                f"{ptxas_report(cuda_build.build_log(n))}")
+    return wait
+
+
+@clocked
+def phase_build():
+    """Every kernel source but LATE_BUILD, one nvcc each, started together."""
+    start_builds(("flash_fwd", "flash_variants", "flash_bwd"))()
 
 
 def check_flash(fa, q, k, v, label: str) -> tuple[float, float]:
@@ -547,6 +610,7 @@ def check_stress(fa, rand, gen) -> None:
         torch.cuda.empty_cache()
 
 
+@clocked
 def phase_kernels() -> list[dict]:
     import torch
 
@@ -882,6 +946,7 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
     return rows
 
 
+@clocked
 def phase_train_kernels() -> list[dict]:
     """The backward kernels, and the forward kernel with the LSE, at the
     v1 training shapes (plus ragged and odd ones for the backward): each
@@ -938,6 +1003,7 @@ def phase_train_kernels() -> list[dict]:
     return rows
 
 
+@clocked
 def phase_vae_kernels() -> list[dict]:
     """Phase 17: the backward kernels at the VAE's head dim 512 and the
     forward kernel with the LSE there (the G step of first-stage training):
@@ -1003,6 +1069,7 @@ def phase_vae_kernels() -> list[dict]:
     return rows
 
 
+@clocked
 def phase_fp32_kernels() -> list[dict]:
     """Phase 20: the fp32 kernels (csrc/flash_fp32.cu) against their plain
     versions at fp32: the forward at every edit shape and the VAE's, with
@@ -1069,6 +1136,7 @@ def phase_fp32_kernels() -> list[dict]:
     return rows
 
 
+@clocked
 def phase_variants() -> list[dict]:
     """K3 (resident) and K4 (pipelined) against the plain version at
     VARIANT_CHECKS; at the attention benchmark's shapes, every
@@ -1190,6 +1258,7 @@ def phase_variants() -> list[dict]:
     return rows
 
 
+@clocked
 def phase_variants_f32() -> list[dict]:
     """Phase 11 at fp32: K3 and K4 of csrc/flash_fp32.cu against
     flash_attention_plain at fp32 (F32_MAX_REL, F32_L2_REL, the LSE too) at
@@ -1328,6 +1397,7 @@ def set_attn_impl(model, impl: str) -> None:
             m.attn_impl = impl
 
 
+@clocked
 def phase_unet(model) -> None:
     import torch
 
@@ -1388,6 +1458,7 @@ def device_time(prof):
     return kernels, sum(DEV_MS(e) for e in kernels), groups
 
 
+@clocked
 def phase_profile(model) -> None:
     """Where one warm v1 CFG UNet call spends the card's time: device time
     by kernel (torch.profiler) and the device's idle share, taken against
@@ -1444,6 +1515,7 @@ def edit_inputs(size: int, ref_size: int, seed: int):
     return image, mask, ref
 
 
+@clocked
 def phase_edit(pipe, card: str, rows: list[dict]) -> dict:
     import torch
 
@@ -1509,6 +1581,7 @@ def phase_edit(pipe, card: str, rows: list[dict]) -> dict:
             "edits_per_s": 1.0 / p50, "output_sha256": digest}
 
 
+@clocked
 def phase_reference() -> None:
     """configs/tiny.yaml 64^2 edit: bf16 + flash kernel on the card against
     fp32 + plain attention on the CPU, the same seeded weights."""
@@ -1579,6 +1652,7 @@ def smooth_image(g, size: int) -> np.ndarray:
     return np.kron(blocks, np.ones((8, 8, 1), np.uint8))
 
 
+@clocked
 def phase_cli(pipe, zero_names: list[str], card: str, rows: list[dict]) -> dict:
     """The edit CLIs in-process at full width (v1, 512^2, bf16), on a
     checkpoint of the tensors randomize_zero_params changed (the rest is
@@ -1722,6 +1796,7 @@ def phase_cli(pipe, zero_names: list[str], card: str, rows: list[dict]) -> dict:
     return summary
 
 
+@clocked
 def phase_serving(pipe, card: str, rows: list[dict]) -> dict:
     """The micro-batching EditServer on phase 4's v1 pipeline (512^2, PLMS
     50, scale 5, uint8 out): warmup() with 818 flash launches a bucket;
@@ -1935,6 +2010,7 @@ def phase_serving(pipe, card: str, rows: list[dict]) -> dict:
     return summary
 
 
+@clocked
 def phase_int8(pipe, card: str) -> dict:
     """w8a8 int8 on the card: (a) at three v1 ops (a ds1 3x3 conv, a ds2
     1x1 proj_in, a ds1 to_q) in bf16, the card's int8 operands and int32
@@ -2059,6 +2135,7 @@ def phase_int8(pipe, card: str) -> dict:
     return summary
 
 
+@clocked
 def phase_reference_samplers() -> None:
     """configs/tiny.yaml 16^2 edits with DDIM (eta 0.5, 10 steps) and the
     full 1000-step DDPM chain: bf16 with the flash kernel on the card
@@ -2126,6 +2203,7 @@ def build_v1_for_training():
     return model
 
 
+@clocked
 def phase_unet_grad(model) -> None:
     """One v1 UNet eps-MSE at batch 4 (64^2 latent, bf16) backpropagated
     through the flash autograd function and through plain attention; the
@@ -2179,6 +2257,7 @@ def train_batches(n: int, size: int, ref_size: int, batch: int, seed: int) -> li
     return out
 
 
+@clocked
 def phase_train(model, card: str, rows: list[dict]) -> dict:
     """The slice: Trainer.fit on v1 at full width, batch 4, 512^2: 4 warm
     steps, then 12 steps with every kernel's launch count set to 0 just
@@ -2325,6 +2404,7 @@ CLI_TRAIN_ARGS = ("--base", "configs/v1.yaml", "{tmp}/data.yaml", "--scale_lr", 
                   "--logdir", "{tmp}/run")
 
 
+@clocked
 def phase_train_cli(card: str, phase9: dict, cli_args=CLI_TRAIN_ARGS,
                     workers: int = 8) -> dict:
     """The ninth slice: pbe_tpu_torch.scripts.train.main in-process on v1 at
@@ -2569,6 +2649,7 @@ def phase_train_cli(card: str, phase9: dict, cli_args=CLI_TRAIN_ARGS,
             "trainable_moved": len(moved), "run_s": run_s, "resume_s": resume_s}
 
 
+@clocked
 def phase_train_reference() -> None:
     """configs/tiny.yaml: 3 train steps on the card (bf16, the kernels)
     against the same steps on the CPU (fp32, the kernels' plain versions):
@@ -2644,6 +2725,7 @@ def gmm_stand_in(feats: np.ndarray, seed: int):
                            precisions_cholesky_=chol)
 
 
+@clocked
 def phase_eval(card: str) -> dict:
     """Phase 16, the evaluation CLIs in-process on the card: eval_fid
     (Inception, then --clip-features), eval_clip_score over a synthetic
@@ -2768,6 +2850,7 @@ def vae_trainer(vae, device: str, dtype, disc_ch: int, disc_layers: int, lr: flo
     return state, step
 
 
+@clocked
 def phase_vae_train(card: str, rows: list[dict]) -> dict:
     """Phase 18, the slice: make_vae_train_step on v1's first stage at full
     width (configs/v1.yaml ddconfig: ch 128, ch_mult 1-2-4-4, 2 res blocks)
@@ -2877,6 +2960,7 @@ def phase_vae_train(card: str, rows: list[dict]) -> dict:
             "idle_share": 1 - busy / p50, "groups_ms": groups, "k5_k6_share": bwd / busy}
 
 
+@clocked
 def phase_vae_train_reference() -> None:
     """Phase 19: 3 training steps of a configs/tiny.yaml-sized first stage
     (ch 16, ch_mult 1-2, one res block) at 64^2, batch 2, on the card in
@@ -2944,6 +3028,7 @@ def write_edit_inputs(root: str, size: int, seed: int, box: tuple) -> tuple[str,
     return paths
 
 
+@clocked
 def phase_precision_full(ckpt: str, card: str, rows: list[dict]) -> dict:
     """Phase 21: --precision full through the CLIs on the card at full
     width, with every kernel's counts set to 0 just before each run and
@@ -3108,6 +3193,7 @@ def phase_precision_full(ckpt: str, card: str, rows: list[dict]) -> dict:
     return summary
 
 
+@clocked
 def phase_fp32_reference() -> None:
     """Phase 22: phase 6's tiny 4-step edit and phase 10's 3 training steps
     in fp32 on the card (the fp32 kernels) against fp32 on the CPU: max
@@ -3238,6 +3324,7 @@ def long_row(fa, name: str, shape, replaces: str, launches: int) -> dict:
     return row
 
 
+@clocked
 def phase_tiling(ckpt: str, card: str, rows: list[dict]) -> dict:
     """Phase 23: scripts.inference.main at --H 1024 --W 1024 (bf16, PLMS 50,
     CFG 5) un-tiled, then with --tile_ks 64 --tile_stride 32 (9 crops: UNet
@@ -3309,6 +3396,7 @@ def phase_tiling(ckpt: str, card: str, rows: list[dict]) -> dict:
     return summary
 
 
+@clocked
 def phase_safety(ckpt: str, card: str) -> dict:
     """Phase 24: the safety checker at full geometry (ViT-L/14: 24 layers,
     width 1024, 224^2, projection 768, 17 + 3 concepts) from a seeded
@@ -3434,6 +3522,7 @@ def unet_call_flops(config: str = "configs/v1.yaml") -> dict:
             "flash_share": flash / total}
 
 
+@clocked
 def phase_frozen(ckpt: str, card: str, precisions=("bf16", "int8")) -> dict:
     """Phase 25: the frozen edit on the card, by
     scripts.verify_frozen_program at v1 width on phase 4's weights: bf16 and
@@ -3512,6 +3601,471 @@ def phase_frozen(ckpt: str, card: str, precisions=("bf16", "int8")) -> dict:
     return out
 
 
+# phase 26, the test split (scripts/test.py): v1 at 512^2, bf16, on phase 4's
+# weights, TEST_SPLIT_BATCHES batches of 4 from a synthetic tree. A batch
+# validates (one UNet forward at batch 4, two VAE encodes) and samples 50
+# DDIM steps at CFG 5 (50 UNet calls at batch 8, one VAE encode and one
+# decode at batch 4). (name, (B, N, H, D), TPU kernel, launches a batch)
+TEST_SPLIT_BATCHES = 2
+TEST_SPLIT_SHAPES = (
+    ("test_val_ds1", (4, 4096, 8, 40), K1, 5),
+    ("test_val_ds2", (4, 1024, 8, 80), K1, 5),
+    ("test_val_ds4", (4, 256, 8, 160), K1, 5),
+    ("test_val_ds8", (4, 64, 8, 160), K1, 1),
+    ("test_cfg_ds1", (8, 4096, 8, 40), K1, 5 * 50),
+    ("test_cfg_ds2", (8, 1024, 8, 80), K1, 5 * 50),
+    ("test_cfg_ds4", (8, 256, 8, 160), K1, 5 * 50),
+    ("test_cfg_ds8", (8, 64, 8, 160), K1, 1 * 50),
+    ("test_vae_b4", (4, 4096, 1, 512), K2, 2 + 2),
+)
+# the JAX CLI's test_results.json keys (scripts/test.py: the eval step's
+# metrics and the FID trio)
+TEST_SPLIT_KEYS = {f"test/{k}" for k in ("loss_simple", "loss_vlb", "loss", "fid_global",
+                                          "fid_local", "fid_ref")}
+# phase 27, the overfit demo: v1, 512^2, bf16, remat, constant LR; the
+# demo's default batch of 8, OVERFIT_STEPS steps, then its 50-step DDIM
+OVERFIT_BATCH = 8
+OVERFIT_STEPS = 30
+# phase 28: the legacy models at fp32 (TF32 off), card against CPU on the
+# same weights and inputs: max|diff| <= LEGACY_TOL x the output's RMS (the
+# sums run in other orders on either side: a few fp32 ulps an op through
+# tens of layers)
+LEGACY_TOL = 1e-4
+LATENT_RESCALER_SHAPE = (2, 4096, 1, 512)  # its mid attention on a 64^2 latent
+
+
+def measured_row(measured: dict, fa, name: str, shape, replaces: str, rand) -> dict:
+    """A kernels-line row at ``shape``: the numbers of the row this run
+    already measured at the same shape and dtype (``measured``: shape ->
+    row), renamed, or kernel_row's where there is none."""
+    if shape not in measured:
+        return kernel_row(fa, name, shape, replaces, rand)
+    row = dict(measured[shape], name=f"flash_fwd/{name}", launches=None)
+    row["timed_as"] = measured[shape]["name"]
+    return row
+
+
+@clocked
+def phase_test_split(ckpt: str, card: str, rows: list[dict], measured: dict) -> dict:
+    """Phase 26: pbe_tpu_torch.scripts.test.main in-process on configs/v1.yaml
+    over a synthetic OpenImages tree (dotlist overrides point the test
+    split at it), --limit 2 --ddim_steps 50 --scale 5, the FID trio on
+    random Inception, every kernel's count set to 0 just before and read
+    just after; then weights_runbook --dry_run on configs/tiny.yaml (its
+    steps subprocesses on the card, each exiting 0). ``measured`` (shape ->
+    row) holds the forward kernel's rows timed earlier in this run."""
+    import torch
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import make_synthetic_openimages
+    from pbe_tpu_torch.scripts import test as test_cli
+    from pbe_tpu_torch.scripts import weights_runbook
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = os.path.join(tmp, "tree")
+        make_synthetic_openimages.make_tree(tree, n_train=0, n_val=4 * TEST_SPLIT_BATCHES,
+                                            size=512, seed=26)
+        args = ["--base", "configs/v1.yaml", "--ckpt", ckpt, "--limit",
+                str(TEST_SPLIT_BATCHES), "--ddim_steps", "50", "--scale", "5", "--logdir",
+                os.path.join(tmp, "test"), f"data.params.test.params.dataset_dir={tree}",
+                "data.params.test.params.state=validation"]
+        t0 = time.perf_counter()
+        results, counts, lse = counted_all(fa, lambda: test_cli.main(args))
+        torch.cuda.synchronize()
+        out["test_s"] = time.perf_counter() - t0
+        by_shape = counts["flash_fwd"][1]
+        log(f"[test-split] scripts.test v1 512^2 bf16, {TEST_SPLIT_BATCHES} batches of 4, "
+            f"DDIM 50 at CFG 5, FID trio on random Inception: {out['test_s']:.1f} s; "
+            f"results {json.dumps(results)}")
+        log(f"[test-split] launches: {json.dumps({k: v[0] for k, v in counts.items()})}, "
+            f"by shape {by_shape}, with the LSE {lse}")
+        fails = []
+        if set(results) != TEST_SPLIT_KEYS or not all(np.isfinite(v) for v in results.values()):
+            fails.append(f"results {results} (want the keys {sorted(TEST_SPLIT_KEYS)}, finite)")
+        if lse or any(sum(v[0].values()) for k, v in counts.items() if k != "flash_fwd"):
+            fails.append(f"the test split ran a backward, variant or LSE kernel: {counts}")
+        want = {}
+        for _, shape, _, per in TEST_SPLIT_SHAPES:
+            want[shape] = want.get(shape, 0) + per * TEST_SPLIT_BATCHES
+        if by_shape != want:
+            fails.append(f"forward launches by shape {by_shape}, expected {want}")
+        out.update(results=results, launches=sum(by_shape.values()),
+                   launches_per_batch=sum(by_shape.values()) / TEST_SPLIT_BATCHES)
+
+        t0 = time.perf_counter()
+        book = weights_runbook.main(["--dry_run", "--config", "configs/tiny.yaml",
+                                     "--skip_int8", "--skip_frozen", "--bench_size", "64",
+                                     "--outdir", os.path.join(tmp, "runbook")])
+        out["runbook_s"] = time.perf_counter() - t0
+        log(f"[test-split] weights_runbook --dry_run --config configs/tiny.yaml --skip_int8 "
+            f"--skip_frozen --bench_size 64: steps {book['steps']} each exited 0, read "
+            f"{json.dumps(book['measured'])} (random weights: mechanics only), "
+            f"{out['runbook_s']:.1f} s")
+        steps = ["synthetic bench", "bench (fp)", "FID (fp)", "CLIP score (fp)"]
+        if book["steps"] != steps or set(book["measured"]["fp"]) != {"FID", "CLIP"}:
+            fails.append(f"the runbook ran {book['steps']} and read {book['measured']}")
+        out["runbook"] = book["measured"]
+    if fails:
+        raise AssertionError("phase 26 (test split): " + "; ".join(fails))
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for name, shape, replaces, per in TEST_SPLIT_SHAPES:
+        row = measured_row(measured, fa, name, shape, replaces, rand)
+        row["launches"] = by_shape.get(shape, 0)
+        row["run"] = f"scripts.test, {TEST_SPLIT_BATCHES} batches: {per} a batch"
+        rows.append(row)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[test-split] phase 26 {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+def _step_timer(fa, events: list, deltas: list):
+    """A Trainer.train_step wrapper that records a CUDA event as each step
+    starts and each step's launches by kernel and shape."""
+    import torch
+
+    from pbe_tpu_torch.training.trainer import Trainer
+
+    train_step = Trainer.train_step
+
+    def timed(self, batch):
+        snap = {k: dict(getattr(fa, k).launches_by_shape) for k in KERNELS}
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        metrics = train_step(self, batch)
+        deltas.append({k: {s: n - snap[k].get(s, 0)
+                           for s, n in getattr(fa, k).launches_by_shape.items()
+                           if n - snap[k].get(s, 0)} for k in KERNELS})
+        return metrics
+
+    return train_step, timed
+
+
+@clocked
+def phase_overfit(card: str, rows: list[dict], measured: dict) -> dict:
+    """Phase 27: pbe_tpu_torch.scripts.train_overfit_demo.main in-process on
+    configs/v1.yaml at 512^2 (bf16, remat, constant LR, the posterior's
+    mode), batch OVERFIT_BATCH (an OOM fails the phase with the peak),
+    OVERFIT_STEPS steps, then its 50-step DDIM at scales 1 and 5: step p50, images/s,
+    peak memory, the first and last loss_simple, the latent rel-MSE,
+    launches a step by kernel; every loss and metric finite, the JAX demo's
+    files written. Then the kernels at the step's shapes, and the tiny
+    card-against-CPU check (overfit_tiny_reference)."""
+    import torch
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.scripts import train_overfit_demo as demo
+    from pbe_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    out = {}
+    batch = OVERFIT_BATCH
+    events, deltas = [], []
+    saved, timed = _step_timer(fa, events, deltas)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    Trainer.train_step = timed
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            res = demo.main(["--steps", str(OVERFIT_STEPS), "--batch", str(batch),
+                             "--sample_steps", "50", "--log_every", "1", "--outdir", tmp])
+            files = set(os.listdir(tmp))
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(f"phase 27 (overfit demo): batch {batch} does not fit, peak "
+                             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB") from e
+    finally:
+        Trainer.train_step = saved
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(1, len(events) - 1)]
+    p50 = float(np.median(step_ms))
+    losses = [v for _, v in res["losses"]]
+    summary = res["summary"]
+    per_step = {k: sum(sum(d[k].values()) for d in deltas[1:]) / (len(deltas) - 1)
+                for k in KERNELS}
+    by_shape = deltas[-1]
+    out.update(batch=batch, steps=OVERFIT_STEPS, step_p50_ms=p50,
+               images_per_s=batch * 1e3 / p50, peak_gib=peak, train_s=res["train_s"],
+               loss_first=losses[0], loss_last=losses[-1],
+               latent_rel_mse={k: v["latent_rel_mse"] for k, v in summary.items()},
+               psnr_mean={k: v["psnr_mean"] for k, v in summary.items()},
+               launches_per_step=per_step)
+    log(f"[overfit] v1 512^2 bf16 remat batch {batch}, {OVERFIT_STEPS} steps: step p50 "
+        f"{p50:.3f} ms, {batch * 1e3 / p50:.4f} images/s, peak memory {peak:.3f} GiB, "
+        f"loss_simple {losses[0]:.5f} (step 1) -> {losses[-1]:.5f} (step {OVERFIT_STEPS}); "
+        f"latent rel-MSE {json.dumps(out['latent_rel_mse'])}, PSNR vs round trip "
+        f"{json.dumps(out['psnr_mean'])} ({card})")
+    log(f"[overfit] launches a step {json.dumps(per_step)}; the last step's by shape "
+        f"{json.dumps({k: {str(s): n for s, n in v.items()} for k, v in by_shape.items()})}; "
+        f"files {sorted(files)}")
+    fails = []
+    metrics = [*losses, *out["latent_rel_mse"].values(), *out["psnr_mean"].values()]
+    if len(losses) != OVERFIT_STEPS or not all(np.isfinite(v) for v in metrics):
+        fails.append(f"losses {losses}, summary {summary}")
+    want_files = {"metrics.jsonl", "grids", "overfit_summary.json", "pred_scale1.npy",
+                  "pred_scale5.npy", "roundtrip.npy", "loss_curve.json"}
+    if not want_files <= files:
+        fails.append(f"the demo wrote {sorted(files)}, not {sorted(want_files)}")
+    want = {"flash_fwd": FWD_PER_STEP, "flash_bwd_dq": BWD_PER_STEP,
+            "flash_bwd_dkv": BWD_PER_STEP, "flash_fwd_resident": 0, "flash_fwd_pipelined": 0}
+    if per_step != want:
+        fails.append(f"launches a step {per_step}, expected {want}")
+    if fails:
+        raise AssertionError("phase 27 (overfit demo): " + "; ".join(fails))
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for name, (_, n, h, d), per in TRAIN_SHAPES:
+        shape = (batch, n, h, d)
+        got = {k: by_shape.get(k, {}).get(shape, 0)
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        for row in bwd_rows(fa, f"overfit_{name}", shape, per, 2 * per, K1, rand):
+            row.pop("expected_launches_per_step")
+            row["launches"] = got[row["name"].split("/")[0].removesuffix("_lse")]
+            row["run"] = "overfit demo, a step"
+            rows.append(row)
+    vae = (batch, 4096, 1, 512)
+    row = measured_row(measured, fa, "overfit_vae", vae, K2, rand)
+    row["launches"], row["run"] = by_shape["flash_fwd"].get(vae, 0), "overfit demo, a step"
+    rows.append(row)
+    out["tiny"] = overfit_tiny_reference()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[overfit] phase 27 {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+def overfit_tiny_reference() -> dict:
+    """Phase 27's check: the demo's training (2 steps, batch 2, 64^2) and
+    sampling (4-step DDIM, CFG 5) on configs/tiny.yaml in fp32 (TF32 off) on
+    the card against the same on the CPU, the step's draws injected (t,
+    noise, u from numpy) and the zero-init heads randomized: losses and
+    gradient norms within 1e-4 relative (phase 22's bound); the sampling
+    on the card's trained weights, copied to the CPU, within max 2e-3 and
+    mean 2e-4 of [0,1] (phase 22's edit bound), z within 1e-3 of its RMS."""
+    import argparse
+
+    import torch
+
+    from pbe_tpu_torch.models.pbe import build_from_yaml
+    from pbe_tpu_torch.pipelines.loading import init_parameters, randomize_zero_params
+    from pbe_tpu_torch.schedules import SamplerSchedule
+    from pbe_tpu_torch.scripts import train_overfit_demo as demo
+    from pbe_tpu_torch.training.trainer import Trainer
+
+    card, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.float32, attn_impl="flash",
+                              device="cuda", remat=True)
+    randomize_zero_params(init_parameters(card, seed=0), seed=0)
+    host, _ = build_from_yaml("configs/tiny.yaml", dtype=torch.float32, attn_impl="flash",
+                              device="cpu", remat=True)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    images, masks, refs = demo.make_pairs(8, 64)
+    n = 64 // card.latent_downsample
+    g = np.random.default_rng(27)
+    draws = [(g.integers(0, 1000, (2,)), g.standard_normal((2, n, n, 4)).astype(np.float32),
+              np.float32(g.uniform())) for _ in range(2)]
+    saved = Trainer._draws
+    curves = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model in (("card", card), ("cpu", host)):
+            it = iter(draws)
+            Trainer._draws = lambda self, batch, gen: tuple(
+                torch.from_numpy(np.array(a)).to(batch["image"].device) for a in next(it))
+            opt = argparse.Namespace(steps=2, batch=2, lr=1e-4, log_every=1,
+                                     sample_posterior=False,
+                                     outdir=os.path.join(tmp, name))
+            try:
+                trainer = demo.train(model, images, masks, refs, opt)
+            finally:
+                Trainer._draws = saved
+            with open(trainer.logger.path) as f:
+                curves[name] = [(r["train/loss_simple"], r["train/grad_norm"])
+                                for r in map(json.loads, f)]
+    rel = max(abs(a - b) / abs(b) for ca, cb in zip(curves["card"], curves["cpu"])
+              for a, b in zip(ca, cb))
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    sched = SamplerSchedule.create(card.schedule, 4)
+    x_T = np.random.default_rng(28).standard_normal((8, n, n, 4)).astype(np.float32)
+    outs = {}
+    for name, model, dev in (("card", card, "cuda"), ("cpu", host, "cpu")):
+        put = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        z0, z_hat, rt, pred = demo.build_eval_sample(model, sched)(
+            put(images), put(masks), put(refs), put(x_T), 5.0)
+        outs[name] = (z_hat.cpu().numpy(), pred.cpu().numpy())
+    z_err = (np.abs(outs["card"][0] - outs["cpu"][0]).max()
+             / np.sqrt(np.mean(outs["cpu"][0] ** 2)))
+    diff = np.abs(outs["card"][1] - outs["cpu"][1])
+    log(f"[overfit] tiny 64^2 demo fp32, 2 steps card vs CPU (draws injected): "
+        f"(loss_simple, grad_norm) {curves['card']} / {curves['cpu']}, max rel diff "
+        f"{rel:.3e} (tol 1e-4); 4-step DDIM at CFG 5 on the card's weights: z max|diff| / RMS "
+        f"{z_err:.3e} (tol 1e-3), image max|diff| {diff.max():.3e} (tol 2e-3), mean "
+        f"{diff.mean():.3e} (tol 2e-4)")
+    if not (rel <= 1e-4 and z_err <= 1e-3 and diff.max() <= 2e-3 and diff.mean() <= 2e-4
+            and all(np.isfinite(v).all() for v in outs["card"])):
+        raise AssertionError("the tiny overfit demo on the card disagrees with the CPU's")
+    return {"loss_rel": rel, "z_err": float(z_err), "image_max": float(diff.max()),
+            "image_mean": float(diff.mean())}
+
+
+def _legacy_pair(build, seed: int):
+    """(module on the card, its copy on the CPU), seeded as flax
+    initializes (init_like_flax) with the zero-init tensors randomized."""
+    import copy
+
+    import torch
+
+    from pbe_tpu_torch.models.layers import init_like_flax
+    from pbe_tpu_torch.pipelines.loading import randomize_zero_params
+
+    with torch.device("cuda"):
+        card = build()
+    randomize_zero_params(init_like_flax(card, seed), seed)
+    return card.eval(), copy.deepcopy(card).to("cpu").eval()
+
+
+def _card_vs_cpu(name: str, card, host, args: tuple, fails: list, **kw) -> dict:
+    """One forward on the card and on the CPU -> {card_s, cpu_s, err}: the
+    largest |diff| over the CPU output's RMS, checked against LEGACY_TOL."""
+    import torch
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args), **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = host(*args, **kw)
+        cpu_s = time.perf_counter() - t0
+    got, want = got.double().cpu(), want.double()
+    rms = float(want.square().mean().sqrt())
+    err = float((got - want).abs().max()) / rms
+    log(f"[legacy] {name}: output {tuple(want.shape)}, RMS {rms:.4e}, card vs CPU fp32 "
+        f"max|diff| / RMS {err:.3e} (tol {LEGACY_TOL:g}); card {card_s:.3f} s, CPU "
+        f"{cpu_s:.3f} s")
+    if not (torch.isfinite(got).all() and err <= LEGACY_TOL):
+        fails.append(f"{name}: {err:.3e}")
+    return {"card_s": card_s, "cpu_s": cpu_s, "err": err}
+
+
+@clocked
+def phase_legacy(card: str, rows: list[dict]) -> dict:
+    """Phase 28: the legacy models at their published widths, fp32 (TF32
+    off), each on the card and on the CPU with the same seeded weights:
+    EncoderUNetModel at guided-diffusion's 64x64 classifier (128 channels,
+    4 res blocks, mult (1,2,3,4), attention at ds 2/4/8 with 64-channel
+    heads, attention pool, 1000 classes, batch 8) and classifier_loss once;
+    TextTransformer at LDM txt2img-1p4B's BERTEmbedder (1280 wide, 32
+    layers, vocab 30522, 77 tokens, batch 2); vae_legacy.Model at DDPM's
+    CIFAR-10 widths (128, mult (1,2,2,2), 2 res blocks, attention at 16,
+    32^2, batch 16), "plain" (its 256-wide heads have no kernel: "flash"
+    there raises); LatentRescaler (1.0, 4 -> 512 -> 4, depth 2) on a 64^2
+    latent at batch 2 with "flash" (K2 at LATENT_RESCALER_SHAPE), against
+    "plain" on the card too; MergedRescaleEncoder/Decoder at the v1 VAE's
+    widths at 256^2."""
+    import torch
+
+    from pbe_tpu_torch.models import encoder_unet as eu
+    from pbe_tpu_torch.models import text_transformer as tt
+    from pbe_tpu_torch.models import vae_legacy as vl
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.schedules import DiffusionSchedule
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(28)
+    fails, out = [], {}
+
+    card_m, host = _legacy_pair(lambda: eu.EncoderUNetModel(
+        image_size=64, in_channels=3, model_channels=128, out_channels=1000,
+        num_res_blocks=4, attention_resolutions=(2, 4, 8), channel_mult=(1, 2, 3, 4),
+        num_head_channels=64, pool="attention"), 1)
+    x = torch.randn((8, 3, 64, 64), generator=g)
+    t = torch.randint(0, 1000, (8,), generator=g)
+    out["encoder_unet"] = _card_vs_cpu("EncoderUNetModel 64x64 classifier, batch 8", card_m,
+                                       host, (x, t), fails)
+    sched = DiffusionSchedule.create()
+    labels = torch.randint(0, 1000, (8,), generator=g)
+    noise = torch.randn(x.shape, generator=g)
+    with torch.no_grad():
+        loss_c, logits = eu.classifier_loss(card_m, sched, x.cuda(), labels.cuda(), t=t.cuda(),
+                                            noise=noise.cuda())
+        loss_h, _ = eu.classifier_loss(host, sched, x, labels, t=t, noise=noise)
+    rel = float(((loss_c.cpu() - loss_h).abs() / loss_h.abs()).max())
+    top5 = float(eu.top_k_accuracy(logits, labels.cuda(), 5))
+    log(f"[legacy] classifier_loss at batch 8: mean {float(loss_c.mean()):.4f}, card vs CPU "
+        f"max rel diff {rel:.3e} (tol {LEGACY_TOL:g}); top-5 accuracy {top5}")
+    if not (torch.isfinite(loss_c).all() and rel <= LEGACY_TOL):
+        fails.append(f"classifier_loss: {rel:.3e}")
+    out["classifier_loss_rel"] = rel
+    del card_m, host
+
+    card_m, host = _legacy_pair(lambda: tt.BERTEmbedderConfig(n_embed=1280, n_layer=32).build(),
+                                2)
+    tokens = torch.randint(0, 30522, (2, 77), generator=g)
+    out["text_transformer"] = _card_vs_cpu("TextTransformer (BERTEmbedder 1280 x 32), 2 x 77 "
+                                           "tokens", card_m, host, (tokens,), fails,
+                                           return_embeddings=True)
+    del card_m, host
+
+    cifar = dict(ch=128, out_ch=3, num_res_blocks=2, resolution=32, in_channels=3,
+                 ch_mult=(1, 2, 2, 2), attn_resolutions=(16,))
+    card_m, host = _legacy_pair(lambda: vl.Model(**cifar), 3)
+    out["ddpm_model"] = _card_vs_cpu("vae_legacy.Model (DDPM CIFAR-10), batch 16", card_m, host,
+                                     (torch.randn((16, 3, 32, 32), generator=g),
+                                      torch.randint(0, 1000, (16,), generator=g)), fails)
+    del card_m, host
+    try:
+        vl.Model(**cifar, attn_impl="flash")
+        fails.append("vae_legacy.Model at 256-wide heads built with attn_impl='flash'")
+    except ValueError as e:
+        log(f"[legacy] vae_legacy.Model(attn_impl='flash') at CIFAR widths raises: {e}")
+
+    card_m, host = _legacy_pair(lambda: vl.LatentRescaler(1.0, 4, 512, 4, depth=2,
+                                                          attn_impl="flash"), 4)
+    plain = vl.LatentRescaler(1.0, 4, 512, 4, depth=2).cuda().eval()
+    plain.load_state_dict(card_m.state_dict())
+    z = torch.randn((2, 4, 64, 64), generator=g)
+    with torch.no_grad():
+        got, counts, _ = counted_all(fa, lambda: card_m(z.cuda()))
+        want = plain(z.cuda())
+    flash_vs_plain = float((got - want).abs().max() / want.square().mean().sqrt())
+    launches = counts["flash_fwd"][1]
+    log(f"[legacy] LatentRescaler (1.0, 4 -> 512 -> 4, depth 2) 64^2 latent, batch 2, flash: "
+        f"launches {launches} ({counts['flash_fwd'][0]}); against 'plain' on the card "
+        f"max|diff| / RMS {flash_vs_plain:.3e} (tol {LEGACY_TOL:g})")
+    if launches != {LATENT_RESCALER_SHAPE: 1} or flash_vs_plain > LEGACY_TOL:
+        fails.append(f"LatentRescaler flash: launches {launches}, vs plain {flash_vs_plain}")
+    out["latent_rescaler"] = _card_vs_cpu("LatentRescaler flash", card_m, host, (z,), fails)
+    out["latent_rescaler"]["flash_vs_plain"] = flash_vs_plain
+    del card_m, host, plain, got, want
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rand32 = lambda shape: torch.randn(shape, generator=gen, device="cuda")
+    row = kernel_row(fa, "latent_rescaler", LATENT_RESCALER_SHAPE, K2, rand32)
+    row["launches"], row["run"] = launches.get(LATENT_RESCALER_SHAPE, 0), "phase 28, a forward"
+    rows.append(row)
+
+    v1 = dict(ch=128, num_res_blocks=2, ch_mult=(1, 2, 4, 4), resolution=256)
+    card_m, host = _legacy_pair(lambda: vl.MergedRescaleEncoder(in_channels=3, out_ch=4, **v1),
+                                5)
+    out["merged_encoder"] = _card_vs_cpu("MergedRescaleEncoder (v1 VAE widths) 256^2, batch 2",
+                                         card_m, host,
+                                         (torch.randn((2, 3, 256, 256), generator=g),), fails)
+    del card_m, host
+    card_m, host = _legacy_pair(lambda: vl.MergedRescaleDecoder(z_channels=4, out_ch=3, **v1), 6)
+    out["merged_decoder"] = _card_vs_cpu("MergedRescaleDecoder (v1 VAE widths) to 256^2, "
+                                         "batch 2", card_m, host,
+                                         (torch.randn((2, 4, 32, 32), generator=g),), fails)
+    del card_m, host
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("phase 28 (legacy models): " + "; ".join(fails))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[legacy] phase 28 {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def seeded_checkpoint(pipe, zero_names: list[str], root: str) -> str:
     """The tensors randomize_zero_params changed, as a checkpoint in
     ``root`` for the CLIs of phases 21, 23, 24 and 25 (the rest is
@@ -3524,31 +4078,40 @@ def seeded_checkpoint(pipe, zero_names: list[str], root: str) -> str:
     return ckpt
 
 
-ONLY = ("edit", "serving", "frozen-bf16", "frozen-int8")
+ONLY = ("edit", "serving", "frozen-bf16", "frozen-int8", "test-split", "overfit", "legacy")
 
 
 def run_only(only: list[str], card: str) -> dict:
     """``--only``: v1 with phase 4's random weights through the named
-    phases -> their summaries."""
+    phases -> their summaries (and the kernel rows they add)."""
     import torch
 
     from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
 
-    pipe, _ = load_pipeline("configs/v1.yaml", device="cuda")
-    zero_names = [n for n, p in pipe.model.named_parameters() if not torch.any(p)]
-    randomize_zero_params(pipe.model, seed=0)
-    out = {}
-    if "edit" in only:
-        out["edit"] = phase_edit(pipe, card, [{"name": s[0]} for s in FLASH_SHAPES])
-    if "serving" in only:
-        out["serving"] = phase_serving(pipe, card, [])
+    out, rows = {}, []
     frozen = [name.removeprefix("frozen-") for name in only if name.startswith("frozen-")]
-    if frozen:
+    if {"edit", "serving", "test-split"} & set(only) or frozen:
+        pipe, _ = load_pipeline("configs/v1.yaml", device="cuda")
+        zero_names = [n for n, p in pipe.model.named_parameters() if not torch.any(p)]
+        randomize_zero_params(pipe.model, seed=0)
+        if "edit" in only:
+            out["edit"] = phase_edit(pipe, card, [{"name": s[0]} for s in FLASH_SHAPES])
+        if "serving" in only:
+            out["serving"] = phase_serving(pipe, card, [])
         with tempfile.TemporaryDirectory() as root:
             ckpt = seeded_checkpoint(pipe, zero_names, root)
             del pipe
             torch.cuda.empty_cache()
-            out["frozen"] = phase_frozen(ckpt, card, frozen)
+            if frozen:
+                out["frozen"] = phase_frozen(ckpt, card, frozen)
+            if "test-split" in only:
+                out["test_split"] = phase_test_split(ckpt, card, rows, {})
+    if "overfit" in only:
+        out["overfit"] = phase_overfit(card, rows, {})
+    if "legacy" in only:
+        out["legacy"] = phase_legacy(card, rows)
+    if rows:
+        out["kernels"] = rows
     return out
 
 
@@ -3585,8 +4148,7 @@ def main(argv=None) -> int:
     rows = phase_kernels()
     train_rows = phase_train_kernels()
     vae_rows = phase_vae_kernels()
-    f32_rows = phase_fp32_kernels()
-    variant_rows = phase_variants() + phase_variants_f32()
+    variant_rows = phase_variants()
     from pbe_tpu_torch.pipelines.loading import (eps_rms_probe, load_pipeline,
                                                  randomize_zero_params)
 
@@ -3606,6 +4168,7 @@ def main(argv=None) -> int:
     cli = phase_cli(pipe, zero_names, card, cli_rows)
     serve_rows = []
     serving = phase_serving(pipe, card, serve_rows)
+    wait_fp32 = start_builds((LATE_BUILD,))
     int8 = phase_int8(pipe, card)
     phase_profile(pipe.model)  # after the timed edits: the profiler slows the host
     seeded = tempfile.TemporaryDirectory()
@@ -3625,13 +4188,25 @@ def main(argv=None) -> int:
     phase_train_reference()
     phase_vae_train_reference()
     phase_reference_samplers()
+    wait_fp32()
+    f32_rows = phase_fp32_kernels()
+    variant_rows += phase_variants_f32()
     precision_full = phase_precision_full(ckpt, card, f32_rows)
     phase_fp32_reference()
     long_rows = []
     tiling = phase_tiling(ckpt, card, long_rows)
     safety = phase_safety(ckpt, card)
     frozen = phase_frozen(ckpt, card)
+    slice_rows = []
+    # the forward kernel's rows timed above, by shape (bf16)
+    measured = {shape: row for shapes, shape_rows in ((FLASH_SHAPES, rows),
+                                                      (CLI_SHAPES, cli_rows),
+                                                      (SERVE_SHAPES, serve_rows))
+                for (_, shape, *_), row in zip(shapes, shape_rows)}
+    test_split = phase_test_split(ckpt, card, slice_rows, measured)
     seeded.cleanup()
+    overfit = phase_overfit(card, slice_rows, measured)
+    legacy = phase_legacy(card, slice_rows)
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
     log(f"[train-cli] summary {json.dumps(train_cli)}")
@@ -3644,8 +4219,11 @@ def main(argv=None) -> int:
     log(f"[tiling] summary {json.dumps(tiling)}")
     log(f"[safety] summary {json.dumps(safety)}")
     log(f"[frozen] summary {json.dumps(frozen)}")
+    log(f"[test-split] summary {json.dumps(test_split)}")
+    log(f"[overfit] summary {json.dumps(overfit)}")
+    log(f"[legacy] summary {json.dumps(legacy)}")
     kernels = (rows + train_rows + vae_rows + variant_rows + cli_rows + serve_rows + f32_rows
-               + long_rows)
+               + long_rows + slice_rows)
     for row in kernels:
         row.setdefault("dtype", "bfloat16")
     print(json.dumps({"kernels": kernels}), flush=True)

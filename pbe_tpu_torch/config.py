@@ -2,13 +2,16 @@
 
 The port's copy of ``pbe_tpu/config.py``: the same configs/v1.yaml and
 configs/tiny.yaml load here, with the reference's dotted ``target`` strings
-remapped onto this package's config classes. Only the targets the edit and
-training paths need are registered (the model, the LR schedules, the
-OpenImages and quadruple datasets and the data module); anything else
-resolves by plain dotted import. The VAE's ``lossconfig`` is kept as a dict
-and never built. CLI overrides (``model.params.timesteps=500``) merge with
-:func:`merge_dotlist`, as OmegaConf's ``from_dotlist`` did for the
-reference's main.py.
+remapped onto this package's config classes: every alias the JAX package
+registers (the model, its legacy classifier, text and conditioning
+encoders, the LR schedules, the OpenImages, quadruple, COCOEE test-bench
+and legacy ImageNet/LSUN datasets and the data module), with
+``torch.nn.Identity`` left to torch's own class. Anything else resolves by
+plain dotted import, and the reference's ``"__is_first_stage__"`` /
+``"__is_unconditional__"`` sentinels are returned as they are. The VAE's
+``lossconfig`` is kept as a dict and never built. CLI overrides
+(``model.params.timesteps=500``) merge with :func:`merge_dotlist`, as
+OmegaConf's ``from_dotlist`` did for the reference's main.py.
 """
 from __future__ import annotations
 
@@ -17,19 +20,37 @@ from typing import Any, Callable
 
 import yaml
 
+_P = "pbe_tpu_torch."
 _TARGET_ALIASES: dict[str, str] = {
-    "ldm.models.diffusion.ddpm.LatentDiffusion": "pbe_tpu_torch.models.pbe.PaintByExampleConfig",
-    "ldm.models.diffusion.latent_diffusion.LatentDiffusion": "pbe_tpu_torch.models.pbe.PaintByExampleConfig",
-    "ldm.modules.diffusionmodules.openaimodel.UNetModel": "pbe_tpu_torch.models.unet.UNetConfig",
-    "ldm.models.autoencoder.AutoencoderKL": "pbe_tpu_torch.models.vae.AutoencoderKLConfig",
-    "ldm.modules.encoders.modules.FrozenCLIPImageEmbedder": "pbe_tpu_torch.models.exemplar.ExemplarEncoderConfig",
-    "ldm.lr_scheduler.LambdaLinearScheduler": "pbe_tpu_torch.training.lr_schedule.LambdaLinearScheduler",
-    "ldm.lr_scheduler.LambdaWarmUpCosineScheduler": "pbe_tpu_torch.training.lr_schedule.LambdaWarmUpCosineScheduler",
-    "ldm.lr_scheduler.LambdaWarmUpCosineScheduler2": "pbe_tpu_torch.training.lr_schedule.LambdaWarmUpCosineScheduler2",
-    "ldm.data.open-images.OpenImageDataset": "pbe_tpu_torch.data.openimages.OpenImagesDataset",
-    "ldm.data.open-images.PBEQuadrupleDataset": "pbe_tpu_torch.data.quadruple.QuadrupleDataset",
-    "main.DataModuleFromConfig": "pbe_tpu_torch.data.loader.DataModuleConfig",
+    "ldm.models.diffusion.ddpm.LatentDiffusion": _P + "models.pbe.PaintByExampleConfig",
+    "ldm.models.diffusion.latent_diffusion.LatentDiffusion": _P + "models.pbe.PaintByExampleConfig",
+    "ldm.modules.diffusionmodules.openaimodel.UNetModel": _P + "models.unet.UNetConfig",
+    "ldm.modules.diffusionmodules.openaimodel.EncoderUNetModel":
+        _P + "models.encoder_unet.EncoderUNetConfig",
+    "ldm.models.autoencoder.AutoencoderKL": _P + "models.vae.AutoencoderKLConfig",
+    "ldm.modules.encoders.modules.FrozenCLIPImageEmbedder": _P + "models.exemplar.ExemplarEncoderConfig",
+    "ldm.modules.encoders.modules.BERTEmbedder": _P + "models.text_transformer.BERTEmbedderConfig",
+    "ldm.modules.encoders.modules.TransformerEmbedder":
+        _P + "models.text_transformer.TransformerEmbedderConfig",
+    "ldm.modules.encoders.modules.ClassEmbedder": _P + "models.text_transformer.ClassEmbedder",
+    "ldm.modules.encoders.modules.SpatialRescaler": _P + "models.text_transformer.SpatialRescaler",
+    "torch.nn.Identity": "torch.nn.Identity",
+    "ldm.lr_scheduler.LambdaLinearScheduler": _P + "training.lr_schedule.LambdaLinearScheduler",
+    "ldm.lr_scheduler.LambdaWarmUpCosineScheduler": _P + "training.lr_schedule.LambdaWarmUpCosineScheduler",
+    "ldm.lr_scheduler.LambdaWarmUpCosineScheduler2": _P + "training.lr_schedule.LambdaWarmUpCosineScheduler2",
+    "ldm.data.open-images.OpenImageDataset": _P + "data.openimages.OpenImagesDataset",
+    "ldm.data.open-images.PBEQuadrupleDataset": _P + "data.quadruple.QuadrupleDataset",
+    "ldm.data.test_bench_dataset.COCOImageDataset": _P + "data.test_bench.COCOEEDataset",
+    "main.DataModuleFromConfig": _P + "data.loader.DataModuleConfig",
+    **{f"ldm.data.imagenet.{name}": _P + f"data.legacy.{name}"
+       for name in ("ImageNetTrain", "ImageNetValidation", "ImageNetSRTrain",
+                    "ImageNetSRValidation")},
+    **{f"ldm.data.lsun.LSUN{name}{split}": _P + f"data.legacy.LSUN{name}{split}"
+       for name in ("Churches", "Bedrooms", "Cats") for split in ("Train", "Validation")},
 }
+
+# the reference's placeholders for a stage its LatentDiffusion builds itself
+SENTINELS = ("__is_first_stage__", "__is_unconditional__")
 
 
 def get_obj_from_str(string: str) -> Callable[..., Any]:
@@ -40,6 +61,8 @@ def get_obj_from_str(string: str) -> Callable[..., Any]:
 
 def instantiate_from_config(config: dict[str, Any]) -> Any:
     if not isinstance(config, dict) or "target" not in config:
+        if config in SENTINELS:
+            return config
         raise KeyError(f"Expected a dict with a `target` key, got: {config!r}")
     return get_obj_from_str(config["target"])(**config.get("params", {}))
 

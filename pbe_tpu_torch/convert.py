@@ -158,3 +158,81 @@ def asym_decoder_state_dict_from_flax(params_np: Mapping[str, Any]) -> dict[str,
             items.append((key.removeprefix("decoder."), value))
     items.append(("blend_scale", np.asarray([scales[i] for i in range(len(scales))])))
     return _tensors(items)
+
+
+def _renamed(mods: list[str], rules: list[tuple[str, Any]]) -> list[str]:
+    for pattern, repl in rules:
+        mods = [re.sub(pattern, repl, m) for m in mods]
+    return mods
+
+
+# flax module names of the legacy nets -> the reference's dotted keys
+_ENCODER_UNET_RULES = [
+    (r"^(input_blocks)_(\d+)_(\d+)$", r"\1.\2.\3"), (r"^(middle_block|out|time_embed)_(\d+)$",
+                                                    r"\1.\2"),
+    (r"^(in_layers|out_layers|emb_layers)_(\d+)$", r"\1.\2"),
+]
+# the reference's conv_nd(1, ...) projections: flax Dense kernels, torch (O, I, 1)
+_CONV1D = ("qkv", "proj_out", "qkv_proj", "c_proj")
+_VAE_LEGACY_RULES = [
+    (r"^temb_dense_(\d+)$", r"temb.dense.\1"), (r"^(down|up)_(\d+)_block_(\d+)$", r"\1.\2.block.\3"),
+    (r"^(down|up)_(\d+)_attn_(\d+)$", r"\1.\2.attn.\3"),
+    (r"^(down|up)_(\d+)_(downsample|upsample)$", r"\1.\2.\3"), (r"^mid_(block_[12]|attn_1)$",
+                                                                r"mid.\1"),
+    (r"^model_(\d+)$", r"model.\1"), (r"^res_(\d+)_(\d+)$", r"res_blocks.\1.\2"),
+    (r"^upsample_(\d+)$", r"upsample_blocks.\1"), (r"^res_block([12])_(\d+)$", r"res_block\1.\2"),
+]
+
+
+def encoder_unet_state_dict_from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``models.encoder_unet.EncoderUNetModel`` params (the tree under
+    'params') -> the port's state_dict, the reference's keys and layouts:
+    the 1x1 projections as Conv1d weights (O, I, 1), the attention pool's
+    positional embedding as (C, HW + 1)."""
+    items = []
+    for path, arr in flatten_params(params_np).items():
+        arr = np.asarray(arr, np.float32)
+        if path[-1] == "positional_embedding":
+            mods, leaf, value = list(path[:-1]), "positional_embedding", arr.T
+        else:
+            mods, leaf, value = _layer_param(path, arr)
+            if leaf == "weight" and value.ndim == 2 and mods[-1] in _CONV1D:
+                value = value[..., None]
+        items.append((".".join(_renamed(mods, _ENCODER_UNET_RULES) + [leaf]), value))
+    return _tensors(items)
+
+
+def vae_legacy_state_dict_from_flax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The params of any ``models.vae_legacy`` module (``Model``, the
+    decoders, ``LatentRescaler``, the merged rescalers, ``Upsampler``) -> the
+    port's state_dict under the reference's keys (``encoder``/``decoder``
+    subtrees by the first stage's names)."""
+    items = []
+    for path, arr in flatten_params(params_np).items():
+        mods, leaf, value = _layer_param(path, np.asarray(arr, np.float32))
+        items.append((".".join(_renamed(mods, _VAE_LEGACY_RULES) + [leaf]), value))
+    return _tensors(items)
+
+
+def text_transformer_state_dict_from_flax(params_np: Mapping[str, Any],
+                                          glu: bool = False) -> dict[str, torch.Tensor]:
+    """``models.text_transformer`` params (a ``TextTransformer``, a
+    ``ClassEmbedder`` or a ``SpatialRescaler``) -> the port's state_dict
+    under the reference ``TransformerWrapper`` keys (x_transformer.py:548-596:
+    block i's attention at ``attn_layers.layers.{2i}``, its feed-forward at
+    ``.{2i+1}``, each ``.0`` its LayerNorm; ``glu`` feed-forwards take
+    ``net.0.proj``)."""
+    rules = [
+        (r"^pos_emb$", "pos_emb.emb"), (r"^final_norm$", "norm"),
+        (r"^attn_norm_(\d+)$", lambda m: f"attn_layers.layers.{2 * int(m[1])}.0"),
+        (r"^attn_(\d+)$", lambda m: f"attn_layers.layers.{2 * int(m[1])}.1"),
+        (r"^ff_norm_(\d+)$", lambda m: f"attn_layers.layers.{2 * int(m[1]) + 1}.0"),
+        (r"^ff_(\d+)$", lambda m: f"attn_layers.layers.{2 * int(m[1]) + 1}.1"),
+        (r"^w_in$", "net.0.proj" if glu else "net.0.0"), (r"^w_out$", "net.2"),
+    ]
+    items = []
+    for path, arr in flatten_params(params_np).items():
+        mods, leaf, value = _layer_param(path, np.asarray(arr, np.float32))
+        leaf = "weight" if leaf == "embedding" else leaf  # nn.Embed -> nn.Embedding
+        items.append((".".join(_renamed(mods, rules) + [leaf]), value))
+    return _tensors(items)

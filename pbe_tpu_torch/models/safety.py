@@ -26,7 +26,7 @@ from torch import nn
 
 from pbe_tpu_torch.models.clip_vit import CLIPVisionConfig
 from pbe_tpu_torch.models.layers import Linear
-from pbe_tpu_torch.ops.image import CLIP_MEAN, CLIP_STD
+from pbe_tpu_torch.ops.image import CLIP_MEAN, CLIP_STD, resize_weights
 
 
 def cosine_distance(image_embeds: torch.Tensor, concept_embeds: torch.Tensor) -> torch.Tensor:
@@ -96,40 +96,15 @@ class SafetyChecker(nn.Module):
                              self.special_care_embeds_weights)
 
 
-def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
-    # Keys' cubic convolution kernel with a = -0.5, as jax.image's "cubic"
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return torch.where(x >= 2.0, 0.0, out)
-
-
-def cubic_weights(in_size: int, out_size: int) -> torch.Tensor:
-    """(in_size, out_size) fp32 weights of ``jax.image.resize(..., "cubic")``
-    along one axis, on the CPU: output pixel j samples input coordinate
-    (j + 0.5) / s - 0.5; when downsampling the kernel is widened by 1/s (the
-    antialiasing); each output pixel's weights are normalized to sum 1 and
-    zero where the sample lies outside the input."""
-    f32 = torch.float32
-    inv = 1.0 / (out_size / in_size)  # JAX takes the scale as a Python float
-    sample = (torch.arange(out_size, dtype=f32) + 0.5) * inv - 0.5
-    x = (sample[None, :] - torch.arange(in_size, dtype=f32)[:, None]).abs()
-    w = _keys_cubic(x / torch.tensor(max(inv, 1.0), dtype=f32))
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return torch.where(inside[None, :], w, 0.0)
-
-
 def cubic_resize(images: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """``jax.image.resize(images, (B, h, w, C), "cubic")`` of (B, H, W, C)
     fp32 images; an axis whose size does not change is left as it is, as
     JAX leaves it."""
     x = images.float()
     if h != x.shape[1]:
-        x = torch.einsum("bhwc,hi->biwc", x, cubic_weights(x.shape[1], h).to(x.device))
+        x = torch.einsum("bhwc,hi->biwc", x, resize_weights(x.shape[1], h, "cubic", x.device))
     if w != x.shape[2]:
-        x = torch.einsum("bhwc,wj->bhjc", x, cubic_weights(x.shape[2], w).to(x.device))
+        x = torch.einsum("bhwc,wj->bhjc", x, resize_weights(x.shape[2], w, "cubic", x.device))
     return x
 
 

@@ -117,7 +117,7 @@ class Level(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
-                 z_channels: int, in_channels: int, attn_impl: str):
+                 z_channels: int, in_channels: int, attn_impl: str, double_z: bool = True):
         super().__init__()
         self.conv_in = Conv2d(in_channels, ch, 3, padding=1)
         levels = []
@@ -131,7 +131,8 @@ class Encoder(nn.Module):
         self.down = nn.ModuleList(levels)
         self.mid = Mid(block_in, attn_impl)
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
-        self.conv_out = Conv2d(block_in, 2 * z_channels, 3, padding=1)
+        self.conv_out = Conv2d(block_in, 2 * z_channels if double_z else z_channels, 3,
+                               padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv_in(x)

@@ -189,9 +189,13 @@ def layout_error(x: torch.Tensor) -> str | None:
     if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
         return (f"needs a unit head-dim stride and rows and base aligned to 8 elements, "
                 f"got strides {x.stride()}")
-    if x.shape[3] % 8 or _round_up(x.shape[3], 16) not in SUPPORTED_HEAD_DIMS:
-        return (f"head dim {x.shape[3]} unsupported (a multiple of 8 padding to one of "
-                f"{SUPPORTED_HEAD_DIMS})")
+    return head_dim_error(x.shape[3])
+
+
+def head_dim_error(d: int) -> str | None:
+    """Why the kernels have no instantiation for head dim d, or None."""
+    if d % 8 or _round_up(d, 16) not in SUPPORTED_HEAD_DIMS:
+        return f"head dim {d} unsupported (a multiple of 8 padding to one of {SUPPORTED_HEAD_DIMS})"
     return None
 
 

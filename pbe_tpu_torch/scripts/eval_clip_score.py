@@ -22,15 +22,19 @@ from PIL import Image
 from pbe_tpu_torch.scripts.inference import device_and_dtype
 
 
-def main(argv=None) -> float:
-    """Run the CLI; returns the region CLIP score."""
+def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--result_dir", required=True)
     p.add_argument("--test_bench_dir", default="test_bench")
     p.add_argument("--weights", default="", help="CLIP ViT-B/32 state_dict")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    opt = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> float:
+    """Run the CLI; returns the region CLIP score."""
+    opt = get_parser().parse_args(argv)
     device, _ = device_and_dtype(opt.device, "autocast")
 
     from pbe_tpu_torch.data.test_bench import COCOEEDataset

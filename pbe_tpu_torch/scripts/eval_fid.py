@@ -17,8 +17,7 @@ import sys
 from pbe_tpu_torch.scripts.inference import device_and_dtype
 
 
-def main(argv=None) -> float:
-    """Run the CLI; returns the FID."""
+def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("paths", nargs=2)
     p.add_argument("--batch-size", type=int, default=50)
@@ -28,7 +27,12 @@ def main(argv=None) -> float:
                    help="use CLIP ViT-B/32 features instead of Inception")
     p.add_argument("--clip-weights", type=str, default="")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    opt = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> float:
+    """Run the CLI; returns the FID."""
+    opt = get_parser().parse_args(argv)
     device, _ = device_and_dtype(opt.device, "autocast")
 
     from pbe_tpu_torch.evaltools.fid import fid_between_dirs, make_inception_feature_fn

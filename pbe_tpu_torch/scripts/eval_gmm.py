@@ -20,8 +20,7 @@ from PIL import Image
 from pbe_tpu_torch.scripts.inference import device_and_dtype
 
 
-def main(argv=None) -> float:
-    """Run the CLI; returns the QS score."""
+def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("path")
     p.add_argument("--gmm", required=True, help="pretrained sklearn GMM pickle")
@@ -30,7 +29,12 @@ def main(argv=None) -> float:
     p.add_argument("--batch-size", type=int, default=50)
     p.add_argument("--output_file", default="")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    opt = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> float:
+    """Run the CLI; returns the QS score."""
+    opt = get_parser().parse_args(argv)
     device, _ = device_and_dtype(opt.device, "autocast")
 
     from pbe_tpu_torch.evaltools.fid import list_images, make_inception_feature_fn

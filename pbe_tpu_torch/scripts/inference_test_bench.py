@@ -24,10 +24,7 @@ import numpy as np
 from pbe_tpu_torch.scripts.inference import device_and_dtype, refuse
 
 
-def main(argv=None) -> dict:
-    """Run the CLI; returns {"edits", "batches": [(pairs, seconds) of each
-    infer_batch call], "wall_s", "steady_edits_per_s" (None with one
-    batch)}."""
+def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--outdir", type=str, default="results/test_bench")
     p.add_argument("--ddim_steps", type=int, default=50)
@@ -59,7 +56,14 @@ def main(argv=None) -> dict:
                         "batch's. int8-static calibrates constant scales on the first "
                         "test-bench pair")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    opt = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns {"edits", "batches": [(pairs, seconds) of each
+    infer_batch call], "wall_s", "steady_edits_per_s" (None with one
+    batch)}."""
+    opt = get_parser().parse_args(argv)
     if opt.data_parallel:
         refuse("--data_parallel", "multi-card serving (EditPipeline.shard)", "11")
     device, dtype = device_and_dtype(opt.device, opt.precision)

@@ -321,11 +321,12 @@ class Trainer:
                 tracker.update(unpack_uint8_batch(batch), preds)
         return tracker.compute() if tracker is not None else {}
 
-    def validate(self, val_loader: Iterable, max_batches: int = 50) -> dict:
+    def validate(self, val_loader: Iterable, max_batches: int = 50, seed: int = 0) -> dict:
         """Mean eval metrics over up to ``max_batches`` batches, with draws
-        from a generator seeded 0 (the same at every validation); with EMA,
-        also the ``*_ema`` metrics of the shadow weights on the same draws."""
-        gen = torch.Generator(device=self.device).manual_seed(0)
+        from a generator seeded ``seed`` (the same at every validation);
+        with EMA, also the ``*_ema`` metrics of the shadow weights on the
+        same draws."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         agg: dict[str, list[float]] = {}
         for i, batch in enumerate(val_loader):
             if i >= max_batches:

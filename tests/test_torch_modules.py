@@ -323,7 +323,14 @@ def test_port_imports_no_jax_and_nothing_of_pbe_tpu():
             "pbe_tpu_torch/pipelines/export.py", "pbe_tpu_torch/scripts/export_program.py",
             "pbe_tpu_torch/scripts/verify_frozen_program.py",
             "pbe_tpu_torch/utils/profiling.py",
-            "pbe_tpu_torch/scripts/modify_checkpoints.py"} <= names
+            "pbe_tpu_torch/scripts/modify_checkpoints.py",
+            "pbe_tpu_torch/scripts/test.py", "pbe_tpu_torch/scripts/train_overfit_demo.py",
+            "pbe_tpu_torch/scripts/read_bbox.py",
+            "pbe_tpu_torch/scripts/make_synthetic_test_bench.py",
+            "pbe_tpu_torch/scripts/weights_runbook.py",
+            "pbe_tpu_torch/models/encoder_unet.py", "pbe_tpu_torch/models/text_transformer.py",
+            "pbe_tpu_torch/models/vae_legacy.py", "pbe_tpu_torch/models/diffusion_wrapper.py",
+            "pbe_tpu_torch/data/legacy.py"} <= names
     banned = []
     for f in files:
         for mod in _imported_modules(f):
