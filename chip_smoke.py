@@ -9,8 +9,10 @@ Phases:
      (the resident and pipelined kernels), flash_bwd.cu (the backward
      kernels, the d = 512 pair among them), one nvcc each, started
      together, and flash_fp32.cu (the fp32 forward, resident, pipelined, dQ
-     and dK/dV kernels; minutes to build), started after phase 13; print
-     each kernel's registers and spills from their -Xptxas -v reports.
+     and dK/dV kernels; minutes to build) and flash_anyd.cu (the forward,
+     dQ and dK/dV kernels at any head dim), started together after phase
+     13; print each kernel's registers and spills from their -Xptxas -v
+     reports.
   2. each kernel against its plain PyTorch version at the shapes the 512^2
      edit gives it (bf16), at ragged N for every padded head dim, and with
      peaked scores, a row max rising at every key tile and packed q/k/v
@@ -200,7 +202,7 @@ The frozen edit program (the sixteenth slice):
      printed with the card line, and the FLOPs of one CFG UNet call (torch.utils.flop_counter,
      the flash ops by their formulas) with the flash share. The int8
      program at v1 width runs beside it (two processes started together
-     on one params.npz; the steps printed in its line).
+     on one params.npz) at 10 PLMS steps (FROZEN_STEPS).
 
 The remaining user scripts and the legacy models (the seventeenth slice):
  26. on phase 4's weights (its seeded checkpoint), pbe_tpu_torch.scripts.test
@@ -223,31 +225,46 @@ The remaining user scripts and the legacy models (the seventeenth slice):
      same seeded weights (max|diff| <= 1e-4 of the output's RMS):
      EncoderUNetModel (guided-diffusion's 64x64 classifier) and
      classifier_loss, TextTransformer (LDM's BERTEmbedder, 1280 x 32),
-     vae_legacy.Model (DDPM CIFAR-10; its attn_impl="flash" raises),
-     LatentRescaler with "flash" (one K2 launch at (2, 4096, 1, 512), also
+     vae_legacy.Model (DDPM CIFAR-10; also with attn_impl="flash" on the
+     same weights against "plain" on the card: six flash_fwd_anyd
+     launches), LatentRescaler with "flash" (one K2 launch at (2, 4096, 1, 512), also
      against "plain" on the card, its row timed), MergedRescaleEncoder and
      Decoder at the v1 VAE's widths at 256^2.
 
+The flash kernels at any head dim (the eighteenth slice):
+ 29. csrc/flash_anyd.cu's forward, dQ and dK/dV kernels, bf16 and fp32,
+     against their plain versions at d = 1 ... 1024 (ANYD_DIMS; N = 77),
+     on peaked and rising-max scores and packed q/k/v views, each launched
+     twice and compared bitwise; then the DDPM CIFAR-10 UNet
+     (vae_legacy.Model, Ho et al. 2020's widths, attn_impl="flash") at
+     batch 128: a forward and the gradient of its epsilon-MSE loss at fp32
+     and bf16, each run 6 flash_fwd_anyd launches (5 at (128, 256, 1,
+     256), 1 at (128, 16, 1, 256)) and the gradient 6 of each backward
+     kernel, nothing else; held against plain attention on the card and
+     the CPU at batch 16; step p50 and peak memory; each kernel timed at
+     the DDPM shapes and at d = 64 and 128 beside its plain version and
+     SDPA (rows named *_anyd).
+
 A run takes them in the order 1, 2, 7, 17, 11's bf16 part, 3, 4, 12, 13,
 14, 5, 8, 9, 15, 16, 18, 6, 10, 19, 12's tiny edits, then 20, 11's fp32
-part, 21, 22, 23, 24, 25, 26, 27, 28: kernels first, the timed edits
+part, 21, 22, 23, 24, 25, 26, 27, 28, 29: kernels first, the timed edits
 before the profiler, the card-vs-CPU comparisons last. csrc/flash_fp32.cu,
-the slowest build (minutes, one host core), starts after phase 13, so that
-no nvcc runs beside the host-bound timings of phases 4, 12 and 13; it
-builds beside phases 14, 5, 8, 9, 15, 16, 18, 6, 10, 19 and 12's tiny
-edits, and phase 20 waits for it. Every phase logs its seconds
-("[clock]").
+the slowest build (minutes, one host core), and csrc/flash_anyd.cu start
+after phase 13, so that no nvcc runs beside the host-bound timings of
+phases 4, 12 and 13; they build beside phases 14, 5, 8, 9, 15, 16, 18, 6,
+10, 19 and 12's tiny edits, and phase 20 waits for them. Every phase logs
+its seconds ("[clock]"), and the run its total.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when any phase fails or there is no CUDA device.
 
     python3 chip_smoke.py --only edit,serving[,frozen-bf16][,frozen-int8]
-        [,test-split][,overfit][,legacy]
+        [,test-split][,overfit][,legacy][,ddpm]
 
 runs v1 with phase 4's random weights through just the named phases (4,
 13, 25 with the named precisions: one alone, both side by side, 26, 27,
-28), each kernel built at its first use, and prints their summaries (and
+28, 29), each kernel built at its first use, and prints their summaries (and
 the kernel rows they add) as its last line instead of the contract line. Run from two trees in one call, it compares
 their host paths on one card.
 """
@@ -294,7 +311,9 @@ FLASH_SHAPES = (
 )
 LAUNCHES_PER_EDIT = sum(s[3] for s in FLASH_SHAPES)  # 818
 # phase 25's PLMS steps: the bf16 frozen edit at phase 4's 50, the int8 one
-FROZEN_STEPS = {"bf16": 50, "int8": 50}
+# at 10 (the run's clock: its export, save and load, a host core each for
+# minutes, do not shrink with the steps, but its eight timed calls do)
+FROZEN_STEPS = {"bf16": 50, "int8": 10}
 # a 50-step DDIM edit: 50 UNet calls of 16 self-attentions, 2 VAE ones
 DDIM_LAUNCHES = 50 * 16 + 2  # 802
 # phase 12, the CLIs: (name, (B, N, H, D), TPU kernel, CLI run, launches in
@@ -470,8 +489,9 @@ def graph_ms(fn, iters: int, stream=None) -> float:
 
 # csrc/flash_fp32.cu takes minutes to build on one host core: it starts
 # after phase 13, so that the edit and serving timings (phases 4, 12 and
-# 13) run with no nvcc beside them, and phase 20 waits for it
-LATE_BUILD = "flash_fp32"
+# 13) run with no nvcc beside them, and phase 20 waits for it; so does
+# csrc/flash_anyd.cu, which only phases 28 and 29 run
+LATE_BUILDS = ("flash_fp32", "flash_anyd")
 _START = time.perf_counter()
 
 
@@ -519,7 +539,7 @@ def start_builds(names: tuple):
 
 @clocked
 def phase_build():
-    """Every kernel source but LATE_BUILD, one nvcc each, started together."""
+    """Every kernel source but LATE_BUILDS, one nvcc each, started together."""
     start_builds(("flash_fwd", "flash_variants", "flash_bwd"))()
 
 
@@ -559,15 +579,15 @@ def compare_flash(got, want, label: str) -> tuple[float, float]:
 
 
 def check_flash_f32(fa, q, k, v, label: str) -> tuple[float, float]:
-    """check_flash on fp32 operands, then a second launch on the same
-    inputs that must give the same bits of O and of the LSE (every output
-    tile has one owner and no atomics)."""
+    """check_flash (on fp32 operands, or any of csrc/flash_anyd.cu's), then
+    a second launch on the same inputs that must give the same bits of O
+    and of the LSE (every output tile has one owner and no atomics)."""
     import torch
 
     res = check_flash(fa, q, k, v, label)
     (o1, l1), (o2, l2) = (fa.flash_fwd(q, k, v, return_lse=True) for _ in range(2))
     if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
-        raise AssertionError(f"fp32 forward is not bitwise repeatable at {label}")
+        raise AssertionError(f"{q.dtype} forward is not bitwise repeatable at {label}")
     return res
 
 
@@ -629,7 +649,7 @@ def phase_kernels() -> list[dict]:
             for name, shape, replaces, _ in FLASH_SHAPES]
 
 
-def kernel_row(fa, name: str, shape, replaces: str, rand) -> dict:
+def kernel_row(fa, name: str, shape, replaces: str, rand, source: str | None = None) -> dict:
     """flash_fwd against its plain version on randn inputs at one shape,
     then timed beside the plain version and SDPA: one row of the kernels
     line (launches filled in by the main path's run). ``rand`` gives bf16
@@ -656,7 +676,7 @@ def kernel_row(fa, name: str, shape, replaces: str, rand) -> dict:
         t_fma, binding = t_mma, bound_3xtf32(4.0, b, n, h, d, 4.0 * b * n * h * d * 4)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     row = {"name": f"flash_fwd/{name}", "route": "cuda",
-           "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu",
+           "source": source or f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu",
            "replaces": replaces, "dtype": str(q.dtype).removeprefix("torch."),
            "launches": None, "max_abs_err": err, "lse_max_abs_err": lerr,
            "ms": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
@@ -851,7 +871,7 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replaces: str,
-             rand) -> list[dict]:
+             rand, source: str | None = None) -> list[dict]:
     """At one training shape: the dQ and dK/dV kernels and the forward
     kernel with the LSE against their plain versions on randn inputs, then
     each timed (CUDA graphs) beside its plain version and SDPA (its
@@ -884,7 +904,7 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
     bnhd, bhn = b * n * h * d * q.element_size(), b * h * n * 4
     dtype = {"dtype": str(q.dtype).removeprefix("torch.")}
     common = {"route": "cuda",
-              "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_bwd'}.cu",
+              "source": source or f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_bwd'}.cu",
               "library": f"sdpa backward ({backend})", **dtype}
     rows, fma_bound = [], {}
     for kname, replaces, flop, nbytes, launch, plain in (
@@ -917,8 +937,9 @@ def bwd_rows(fa, name: str, shape, per_step: int, fwd_per_step: int, fwd_replace
     fma_bound["flash_fwd_lse"] = ms_bound
     if f32:  # as the backward's: S on FMA, P V as 3xTF32
         by, ms_bound = bound_3xtf32(4.0, b, n, h, d, 4 * bnhd + bhn)
+    fwd_source = f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu"
     rows.append({"name": f"flash_fwd_lse/{name}_train", "route": "cuda",
-                 "source": f"pbe_tpu_torch/csrc/{'flash_fp32' if f32 else 'flash_fwd'}.cu",
+                 "source": source or fwd_source,
                  "replaces": fwd_replaces, **dtype,
                  "launches": None, "expected_launches_per_step": fwd_per_step,
                  "max_abs_err": ferr, "lse_max_abs_err": flerr,
@@ -1524,18 +1545,22 @@ def phase_edit(pipe, card: str, rows: list[dict]) -> dict:
     image, mask, ref = edit_inputs(512, 224, seed=2)
     variants = (fa.flash_fwd_resident, fa.flash_fwd_pipelined)
     for kern in (fa.flash_fwd, *variants):
-        kern.launches = 0
-        kern.launches_by_shape.clear()
+        kern.reset()
     t0 = time.perf_counter()
     out = pipe.edit_batch(image, mask, ref, steps=50, scale=5.0, seed=3)
     first_s = time.perf_counter() - t0
     launches = fa.flash_fwd.launches
     by_shape = dict(fa.flash_fwd.launches_by_shape)
+    by_kernel = dict(fa.flash_fwd.launches_by_kernel)
     log(f"[edit] 512^2 50-step PLMS scale 5 batch 1: first edit {first_s:.3f} s, "
-        f"flash launches {launches} (expected {LAUNCHES_PER_EDIT}), by shape {by_shape}; "
-        f"resident {variants[0].launches}, pipelined {variants[1].launches} (expected 0)")
+        f"flash launches {launches} (expected {LAUNCHES_PER_EDIT}), by shape {by_shape}, by "
+        f"kernel {by_kernel}; resident {variants[0].launches}, pipelined "
+        f"{variants[1].launches} (expected 0)")
     if any(kern.launches for kern in variants):
         raise AssertionError("the edit launched the resident or pipelined kernel")
+    if by_kernel != {"flash_fwd": launches}:
+        raise AssertionError(f"the edit's forward launches by kernel {by_kernel}: not all the "
+                             f"tuned kernels'")
     if out.shape != (1, 512, 512, 3) or not np.isfinite(out).all():
         raise AssertionError(f"edit output shape {out.shape} or non-finite values")
     if out.min() < 0.0 or out.max() > 1.0:
@@ -3579,9 +3604,9 @@ def phase_frozen(ckpt: str, card: str, precisions=("bf16", "int8")) -> dict:
                 side = "the bf16 and int8 runs side by side" if len(procs) > 1 else "alone"
                 log(f"[frozen] {name} 512^2 PLMS {FROZEN_STEPS[name]} CFG 5 ({side}): "
                     f"{json.dumps(row)} ({card})")
+                expected = f" (expected {LAUNCHES_PER_EDIT})" if name == "bf16" else ""
                 log(f"[frozen] {name}: step body run {row['step_runs']} times; flash launches "
-                    f"{launches['flash_fwd']} (expected {LAUNCHES_PER_EDIT} at 50 steps), by "
-                    f"shape {by_shape}")
+                    f"{launches['flash_fwd']}{expected}, by shape {by_shape}")
                 if not row["pass"]:
                     raise AssertionError(f"the frozen {name} edit is {row['max_abs_diff']} "
                                          f"from the live edit")
@@ -3632,6 +3657,38 @@ OVERFIT_STEPS = 30
 # tens of layers)
 LEGACY_TOL = 1e-4
 LATENT_RESCALER_SHAPE = (2, 4096, 1, 512)  # its mid attention on a 64^2 latent
+# phases 28-29: the DDPM CIFAR-10 UNet at Ho et al. 2020's widths; its six
+# attention blocks are single-head at d = 256, five at 16^2 (two down,
+# three up), one in the middle at 4^2: at phase 29's batch of 128, the
+# flash launches a forward by shape
+DDPM_CIFAR = dict(ch=128, out_ch=3, num_res_blocks=2, resolution=32, in_channels=3,
+                  ch_mult=(1, 2, 2, 2), attn_resolutions=(16,))
+DDPM_BATCH = 128
+DDPM_ATTN = {(DDPM_BATCH, 256, 1, 256): 5, (DDPM_BATCH, 16, 1, 256): 1}
+# phase 29, csrc/flash_anyd.cu's kernels against their plain versions at
+# these head dims (every one outside the tuned table, so kernel_entry names
+# csrc/flash_anyd.cu there), N = 77 (one 64-row tile and 13 rows); peaked
+# and rising-max scores at N = 200 (four key tiles) at ANYD_STRESS_DIMS,
+# packed q/k/v views at ANYD_PACKED_DIMS
+ANYD_DIMS = (1, 12, 28, 56, 64, 96, 100, 128, 192, 200, 256, 384, 640, 1024)
+ANYD_STRESS_DIMS = (28, 100, 256, 1024)
+ANYD_PACKED_DIMS = (28, 100)
+# ... and timed at the DDPM shapes and at d = 64 and 128 beside them:
+# (name, (B, N, H, D))
+ANYD_TIMED = (("ddpm_n256_d64", (DDPM_BATCH, 256, 1, 64)),
+              ("ddpm_n256_d128", (DDPM_BATCH, 256, 1, 128)),
+              ("ddpm_n256", (DDPM_BATCH, 256, 1, 256)),
+              ("ddpm_mid_n16", (DDPM_BATCH, 16, 1, 256)))
+# phase 29's bf16 UNet against the fp32 one on the card: the output within
+# phase 6's bounds on the output's RMS in place of the image's [0, 1]
+# range (max 0.15, mean 0.02), the loss within phase 19's 1e-2 relative
+# and the parameter-gradient norm within its 5e-2 (its bound on d_weight,
+# a ratio of gradient norms); fp32 flash against fp32 plain and card
+# against CPU: the output within LEGACY_TOL of its RMS, the loss and the
+# gradient norm within phase 22's 1e-4 relative
+DDPM_BF16_TOL = {"max": 0.15, "mean": 0.02, "loss": 1e-2, "grad_norm": 5e-2}
+DDPM_F32_REL = 1e-4
+DDPM_STEPS = 5  # timed forward-plus-backward steps at each dtype
 
 
 def measured_row(measured: dict, fa, name: str, shape, replaces: str, rand) -> dict:
@@ -3960,11 +4017,11 @@ def phase_legacy(card: str, rows: list[dict]) -> dict:
     TextTransformer at LDM txt2img-1p4B's BERTEmbedder (1280 wide, 32
     layers, vocab 30522, 77 tokens, batch 2); vae_legacy.Model at DDPM's
     CIFAR-10 widths (128, mult (1,2,2,2), 2 res blocks, attention at 16,
-    32^2, batch 16), "plain" (its 256-wide heads have no kernel: "flash"
-    there raises); LatentRescaler (1.0, 4 -> 512 -> 4, depth 2) on a 64^2
-    latent at batch 2 with "flash" (K2 at LATENT_RESCALER_SHAPE), against
-    "plain" on the card too; MergedRescaleEncoder/Decoder at the v1 VAE's
-    widths at 256^2."""
+    32^2, batch 16), "plain", and "flash" on the same weights against it on
+    the card (its 256-wide heads run csrc/flash_anyd.cu); LatentRescaler
+    (1.0, 4 -> 512 -> 4, depth 2) on a 64^2 latent at batch 2 with "flash"
+    (K2 at LATENT_RESCALER_SHAPE), against "plain" on the card too;
+    MergedRescaleEncoder/Decoder at the v1 VAE's widths at 256^2."""
     import torch
 
     from pbe_tpu_torch.models import encoder_unet as eu
@@ -4009,18 +4066,27 @@ def phase_legacy(card: str, rows: list[dict]) -> dict:
                                            return_embeddings=True)
     del card_m, host
 
-    cifar = dict(ch=128, out_ch=3, num_res_blocks=2, resolution=32, in_channels=3,
-                 ch_mult=(1, 2, 2, 2), attn_resolutions=(16,))
-    card_m, host = _legacy_pair(lambda: vl.Model(**cifar), 3)
+    card_m, host = _legacy_pair(lambda: vl.Model(**DDPM_CIFAR), 3)
+    x16 = torch.randn((16, 3, 32, 32), generator=g)
+    t16 = torch.randint(0, 1000, (16,), generator=g)
     out["ddpm_model"] = _card_vs_cpu("vae_legacy.Model (DDPM CIFAR-10), batch 16", card_m, host,
-                                     (torch.randn((16, 3, 32, 32), generator=g),
-                                      torch.randint(0, 1000, (16,), generator=g)), fails)
-    del card_m, host
-    try:
-        vl.Model(**cifar, attn_impl="flash")
-        fails.append("vae_legacy.Model at 256-wide heads built with attn_impl='flash'")
-    except ValueError as e:
-        log(f"[legacy] vae_legacy.Model(attn_impl='flash') at CIFAR widths raises: {e}")
+                                     (x16, t16), fails)
+    # the same weights with "flash": its 256-wide heads run csrc/flash_anyd.cu
+    with torch.device("cuda"):
+        flash_m = vl.Model(**DDPM_CIFAR, attn_impl="flash").eval()
+    flash_m.load_state_dict(card_m.state_dict())
+    with torch.no_grad():
+        got, _, _ = counted_all(fa, lambda: flash_m(x16.cuda(), t16.cuda()))
+        want = card_m(x16.cuda(), t16.cuda())
+    by_kernel = dict(fa.flash_fwd.launches_by_kernel)
+    flash_vs_plain = float((got - want).abs().max() / want.square().mean().sqrt())
+    log(f"[legacy] vae_legacy.Model (DDPM CIFAR-10) batch 16 with 'flash': launches "
+        f"{by_kernel} {dict(fa.flash_fwd.launches_by_shape)}; against 'plain' on the card "
+        f"max|diff| / RMS {flash_vs_plain:.3e} (tol {LEGACY_TOL:g})")
+    if by_kernel != {"flash_fwd_anyd": 6} or flash_vs_plain > LEGACY_TOL:
+        fails.append(f"DDPM Model flash: launches {by_kernel}, vs plain {flash_vs_plain}")
+    out["ddpm_model"]["flash_vs_plain"] = flash_vs_plain
+    del card_m, host, flash_m, got, want
 
     card_m, host = _legacy_pair(lambda: vl.LatentRescaler(1.0, 4, 512, 4, depth=2,
                                                           attn_impl="flash"), 4)
@@ -4066,6 +4132,224 @@ def phase_legacy(card: str, rows: list[dict]) -> dict:
     return out
 
 
+def ddpm_xt(sched, x0, t, noise):
+    """DDPM's forward process at the given timesteps and noise (injected, so
+    the card and the CPU draw nothing): sqrt(abar_t) x0 + sqrt(1 - abar_t)
+    noise."""
+    import torch
+
+    coef = lambda a: torch.as_tensor(a, dtype=torch.float32, device=x0.device)[t].view(-1, 1, 1, 1)
+    return coef(sched.sqrt_alphas_cumprod) * x0 + coef(sched.sqrt_one_minus_alphas_cumprod) * noise
+
+
+def ddpm_loss(model, x0, t, noise, sched):
+    """DDPM's epsilon-MSE loss: the mean of (model(x_t, t) - noise)^2 in fp32."""
+    return (model(ddpm_xt(sched, x0, t, noise), t).float() - noise).square().mean()
+
+
+def ddpm_grad(model, x0, t, noise, sched) -> tuple[float, float]:
+    """One backward of ddpm_loss -> (the loss, the parameter gradients' global
+    L2 norm, in float64)."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    loss = ddpm_loss(model, x0, t, noise, sched)
+    loss.backward()
+    norm = torch.stack([p.grad.double().square().sum() for p in model.parameters()
+                        if p.grad is not None]).sum().sqrt()
+    return float(loss.detach()), float(norm)
+
+
+def anyd_counted(fa, fn):
+    """counted_all(fa, fn) -> (fn's result, {wrapper: (launches by kernel, by
+    shape)}, forward launches with the LSE)."""
+    out, _, lse = counted_all(fa, fn)
+    return out, {name: (dict(getattr(fa, name).launches_by_kernel),
+                        dict(getattr(fa, name).launches_by_shape)) for name in KERNELS}, lse
+
+
+def expect_ddpm_launches(counts: dict, lse: int, grad: bool, label: str) -> None:
+    """Every flash launch of one DDPM UNet forward (and, with ``grad``, its
+    backward) is csrc/flash_anyd.cu's, DDPM_ATTN's by shape, the forward's
+    with the LSE where a gradient follows; no other kernel runs."""
+    want = {name: ({}, {}) for name in KERNELS}
+    want["flash_fwd"] = ({"flash_fwd_anyd": 6}, DDPM_ATTN)
+    if grad:
+        want["flash_bwd_dq"] = ({"flash_bwd_dq_anyd": 6}, DDPM_ATTN)
+        want["flash_bwd_dkv"] = ({"flash_bwd_dkv_anyd": 6}, DDPM_ATTN)
+    log(f"[ddpm] {label}: launches {counts}, {lse} with the LSE")
+    if counts != want or lse != (6 if grad else 0):
+        raise AssertionError(f"the DDPM UNet's {label} launched {counts} ({lse} with the LSE), "
+                             f"expected {want} ({6 if grad else 0})")
+
+
+@clocked
+def phase_ddpm(card: str, rows: list[dict]) -> dict:
+    """Phase 29: csrc/flash_anyd.cu and the DDPM CIFAR-10 UNet with
+    attn_impl="flash". (a) the forward, dQ and dK/dV kernels at both
+    dtypes against their plain versions at ANYD_DIMS (ragged N = 77),
+    on peaked and rising-max scores and packed q/k/v views, each launched
+    twice and compared bitwise, no other kernel launched; d = 1025
+    refused. (b) vae_legacy.Model at DDPM_CIFAR, batch 128, seeded weights:
+    a forward and the gradient of the epsilon-MSE loss at injected
+    timesteps and noise, at fp32 and bf16,
+    each run's launches counted from 0 (expect_ddpm_launches); fp32 flash
+    against fp32 plain on the card (LEGACY_TOL, DDPM_F32_REL), bf16 flash
+    against it (DDPM_BF16_TOL); forward-plus-backward p50 and peak memory at
+    each dtype; card fp32 flash against the CPU at batch 16. (c) each kernel
+    at ANYD_TIMED against its plain version and timed beside it and SDPA,
+    its launches those of (b)'s runs at that shape: the kernels line's
+    *_anyd rows."""
+    import torch
+
+    from pbe_tpu_torch.models import vae_legacy as vl
+    from pbe_tpu_torch.ops import flash_attention as fa
+    from pbe_tpu_torch.schedules import DiffusionSchedule
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def checks():
+        for dtype in dtypes.values():
+            rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for d in ANYD_DIMS:
+                shape = (2, 77, 2, d)
+                q, k, v, do = (rand(shape) for _ in range(4))
+                check_flash_f32(fa, q, k, v, f"anyd {dtype} {shape}")
+                check_bwd(fa, q, k, v, do, f"anyd {dtype} {shape}")
+            for d in ANYD_STRESS_DIMS:
+                shape = (1, 200, 2, d)
+                q, k, v, do = (rand(shape) for _ in range(4))
+                check_flash_f32(fa, q * 8, k * 8, v, f"anyd peaked (q, k x8) {dtype} {shape}")
+                check_bwd(fa, q * 8, k * 8, v, do, f"anyd peaked (q, k x8) {dtype} {shape}")
+                qr, kr = rising_scores(shape, gen, dtype)
+                check_flash_f32(fa, qr, kr, v, f"anyd rising max {dtype} {shape}")
+                check_bwd(fa, qr, kr, v, do, f"anyd rising max {dtype} {shape}")
+            for d in ANYD_PACKED_DIMS:
+                q, k, v = rand((2, 77, 3, 2, d)).unbind(2)
+                label = f"anyd packed qkv views {dtype} {tuple(q.shape)} strides {q.stride()}"
+                check_flash_f32(fa, q, k, v, label)
+                check_bwd(fa, q, k, v, rand(q.shape), label)
+    # every head dim of ANYD_DIMS lies outside the tuned table: only
+    # csrc/flash_anyd.cu's kernels ran
+    _, by_kernel, _ = anyd_counted(fa, checks)
+    ran = {name for kernels, _ in by_kernel.values() for name in kernels}
+    log(f"[anyd] the checks launched {ran}")
+    if ran != {"flash_fwd_anyd", "flash_bwd_dq_anyd", "flash_bwd_dkv_anyd"}:
+        raise AssertionError(f"the any-head-dim checks launched {ran}")
+    wide = torch.zeros((1, 8, 1, fa.ANYD_MAX_HEAD_DIM + 1), device="cuda")
+    try:
+        fa.flash_fwd(wide, wide, wide)
+        raise AssertionError("flash_fwd took a head dim past ANYD_MAX_HEAD_DIM")
+    except ValueError as e:
+        log(f"[anyd] head dim {fa.ANYD_MAX_HEAD_DIM + 1} refused: {e}")
+    checks_s = time.perf_counter() - t_phase
+    log(f"[anyd] every check passed in {checks_s:.1f} s")
+
+    sched = DiffusionSchedule.create()
+    g = torch.Generator().manual_seed(29)
+    x0 = torch.randn((DDPM_BATCH, 3, 32, 32), generator=g)
+    t = torch.randint(0, sched.num_timesteps, (DDPM_BATCH,), generator=g)
+    noise = torch.randn(x0.shape, generator=g)
+    flash32, host = _legacy_pair(lambda: vl.Model(**DDPM_CIFAR, attn_impl="flash"), 29)
+    with torch.device("cuda"):
+        models = {"float32": flash32,
+                  "bfloat16": vl.Model(**DDPM_CIFAR, dtype=torch.bfloat16, attn_impl="flash"),
+                  "plain": vl.Model(**DDPM_CIFAR)}
+    for m in models.values():
+        m.load_state_dict(flash32.state_dict())
+    xc, tc, nc = x0.cuda(), t.cuda(), noise.cuda()
+    xt = ddpm_xt(sched, xc, tc, nc)
+    res, launches = {}, {}
+    for name, m in models.items():
+        with torch.no_grad():
+            y, counts, lse = anyd_counted(fa, lambda: m(xt, tc).float())
+        if name != "plain":
+            expect_ddpm_launches(counts, lse, False, f"{name} forward at batch {DDPM_BATCH}")
+        (loss, norm), gcounts, glse = anyd_counted(fa, lambda: ddpm_grad(m, xc, tc, nc, sched))
+        if name != "plain":
+            expect_ddpm_launches(gcounts, glse, True, f"{name} gradient at batch {DDPM_BATCH}")
+            # by kernel row: the forward's, the gradient's forward (with the
+            # LSE) and its backward pair's launches at each shape
+            launches[name] = {"flash_fwd": counts["flash_fwd"][1],
+                              "flash_fwd_lse": gcounts["flash_fwd"][1],
+                              "flash_bwd_dq": gcounts["flash_bwd_dq"][1],
+                              "flash_bwd_dkv": gcounts["flash_bwd_dkv"][1]}
+        elif any(sum(c[0].values()) for c in (*counts.values(), *gcounts.values())):
+            raise AssertionError(f"the plain DDPM UNet launched {counts} / {gcounts}")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DDPM_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ddpm_grad(m, xc, tc, nc, sched)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res[name] = {"y": y, "loss": loss, "grad_norm": norm,
+                     "step_p50_ms": 1e3 * float(np.median(times)),
+                     "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+        log(f"[ddpm] {name} batch {DDPM_BATCH}: loss {loss:.6f}, grad norm {norm:.6f}, "
+            f"forward+backward p50 {res[name]['step_p50_ms']:.2f} ms over {DDPM_STEPS} steps "
+            f"{['%.2f' % (1e3 * x) for x in times]}, peak {res[name]['peak_mb']:.0f} MB ({card})")
+    ref = res.pop("plain")
+    rms = float(ref["y"].square().mean().sqrt())
+    fails, out = [], {"checks_s": checks_s}
+    for name, r in res.items():
+        diff = (r["y"] - ref["y"]).abs()
+        cmp = {"max": float(diff.max()) / rms, "mean": float(diff.mean()) / rms,
+               "loss": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+               "grad_norm": abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]}
+        tol = (DDPM_BF16_TOL if name == "bfloat16" else
+               {"max": LEGACY_TOL, "mean": LEGACY_TOL, "loss": DDPM_F32_REL,
+                "grad_norm": DDPM_F32_REL})
+        log(f"[ddpm] {name} flash against fp32 plain on the card: output |diff| / RMS max "
+            f"{cmp['max']:.3e}, mean {cmp['mean']:.3e}; loss rel {cmp['loss']:.3e}; grad norm "
+            f"rel {cmp['grad_norm']:.3e} (tol {tol})")
+        if not (torch.isfinite(r["y"]).all() and all(cmp[k] <= tol[k] for k in tol)):
+            fails.append(f"{name} flash against fp32 plain: {cmp}")
+        out[name] = {**{f"{k}_rel": v for k, v in cmp.items()},
+                     **{k: r[k] for k in ("loss", "grad_norm", "step_p50_ms", "peak_mb")}}
+    out["plain_float32"] = {k: ref[k] for k in ("loss", "grad_norm", "step_p50_ms", "peak_mb")}
+    del models, res, ref, xt
+    torch.cuda.empty_cache()
+
+    # card (flash, fp32) against the CPU (the kernels' plain versions) at batch 16
+    args16 = (x0[:16], t[:16], noise[:16])
+    cpu = _card_vs_cpu("DDPM CIFAR-10 UNet flash fp32, batch 16", flash32, host,
+                       (ddpm_xt(sched, *args16), t[:16]), fails)
+    card_lg = ddpm_grad(flash32, *(a.cuda() for a in args16), sched)
+    host_lg = ddpm_grad(host, *args16, sched)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_lg, host_lg)]
+    log(f"[ddpm] batch 16 (loss, grad norm) card {card_lg}, CPU {host_lg}: rel {rel[0]:.3e}, "
+        f"{rel[1]:.3e} (tol {DDPM_F32_REL})")
+    if max(rel) > DDPM_F32_REL:
+        fails.append(f"card against CPU at batch 16: loss and grad norm rel {rel}")
+    out["card_vs_cpu"] = {**cpu, "loss_rel": rel[0], "grad_norm_rel": rel[1]}
+    del flash32, host
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("phase 29 (DDPM with flash): " + "; ".join(fails))
+
+    source = "pbe_tpu_torch/csrc/flash_anyd.cu"
+    for dname, dtype in dtypes.items():
+        rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        for name, shape in ANYD_TIMED:
+            per = DDPM_ATTN.get(shape, 0)
+            new = [{**kernel_row(fa, name, shape, K1, rand, source), "expected_launches": per},
+                   *bwd_rows(fa, name, shape, per, per, K1, rand, source)]
+            for row in new:
+                kname, rest = row["name"].split("/", 1)
+                row["name"] = f"{kname}_anyd/{rest}"
+                row["launches"] = launches[dname][kname].get(shape, 0)
+                row["run"] = (f"phase 29: one forward and one gradient of the DDPM CIFAR-10 UNet "
+                              f"at batch {DDPM_BATCH}, {dname}")
+            rows += new
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[ddpm] phase 29 {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def seeded_checkpoint(pipe, zero_names: list[str], root: str) -> str:
     """The tensors randomize_zero_params changed, as a checkpoint in
     ``root`` for the CLIs of phases 21, 23, 24 and 25 (the rest is
@@ -4078,7 +4362,8 @@ def seeded_checkpoint(pipe, zero_names: list[str], root: str) -> str:
     return ckpt
 
 
-ONLY = ("edit", "serving", "frozen-bf16", "frozen-int8", "test-split", "overfit", "legacy")
+ONLY = ("edit", "serving", "frozen-bf16", "frozen-int8", "test-split", "overfit", "legacy",
+        "ddpm")
 
 
 def run_only(only: list[str], card: str) -> dict:
@@ -4110,6 +4395,8 @@ def run_only(only: list[str], card: str) -> dict:
         out["overfit"] = phase_overfit(card, rows, {})
     if "legacy" in only:
         out["legacy"] = phase_legacy(card, rows)
+    if "ddpm" in only:
+        out["ddpm"] = phase_ddpm(card, rows)
     if rows:
         out["kernels"] = rows
     return out
@@ -4168,7 +4455,7 @@ def main(argv=None) -> int:
     cli = phase_cli(pipe, zero_names, card, cli_rows)
     serve_rows = []
     serving = phase_serving(pipe, card, serve_rows)
-    wait_fp32 = start_builds((LATE_BUILD,))
+    wait_late = start_builds(LATE_BUILDS)
     int8 = phase_int8(pipe, card)
     phase_profile(pipe.model)  # after the timed edits: the profiler slows the host
     seeded = tempfile.TemporaryDirectory()
@@ -4188,7 +4475,7 @@ def main(argv=None) -> int:
     phase_train_reference()
     phase_vae_train_reference()
     phase_reference_samplers()
-    wait_fp32()
+    wait_late()
     f32_rows = phase_fp32_kernels()
     variant_rows += phase_variants_f32()
     precision_full = phase_precision_full(ckpt, card, f32_rows)
@@ -4207,6 +4494,8 @@ def main(argv=None) -> int:
     seeded.cleanup()
     overfit = phase_overfit(card, slice_rows, measured)
     legacy = phase_legacy(card, slice_rows)
+    ddpm = phase_ddpm(card, slice_rows)
+    log(f"[clock] every phase done at {time.perf_counter() - _START:.1f} s (limit 1200 s)")
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
     log(f"[train-cli] summary {json.dumps(train_cli)}")
@@ -4222,6 +4511,7 @@ def main(argv=None) -> int:
     log(f"[test-split] summary {json.dumps(test_split)}")
     log(f"[overfit] summary {json.dumps(overfit)}")
     log(f"[legacy] summary {json.dumps(legacy)}")
+    log(f"[ddpm] summary {json.dumps(ddpm)}")
     kernels = (rows + train_rows + vae_rows + variant_rows + cli_rows + serve_rows + f32_rows
                + long_rows + slice_rows)
     for row in kernels:

@@ -1057,7 +1057,7 @@ cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, cons
 // `stream`; return the cudaError_t of the launch. Padded head dims: 48/80/160
 // serve configs/v1.yaml's UNet, 16/32 configs/tiny.yaml, 512 the VAE's mid
 // attention when the first stage is trained (ops/flash_attention.py
-// BWD_HEAD_DIMS lists the same).
+// SUPPORTED_HEAD_DIMS and tuned_head_dim; flash_anyd.cu takes the others).
 extern "C" int pbe_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* dd,
                                      void* dq, int B, int N, int H, int D,

@@ -2257,8 +2257,9 @@ extern "C" int pbe_flash_pipelined_f32(const void* q, const void* k, const void*
 // seq, head) of q, k, v, dout in `st` and a unit head-dim stride; lse, dd
 // fp32 (B*H, N) contiguous; outputs fp32 (B, N, H, D) contiguous.
 // scale_log2 = d^-1/2 * log2(e), scale = d^-1/2. Padded head dims:
-// ops/flash_attention.py BWD_HEAD_DIMS. The launch lines are <DP, row
-// groups of 16, warps a row group, streamed tile rows, ring stages>.
+// ops/flash_attention.py SUPPORTED_HEAD_DIMS (tuned_head_dim). The launch
+// lines are <DP, row groups of 16, warps a row group, streamed tile rows,
+// ring stages>.
 extern "C" int pbe_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* dd,
                                     void* dq, int B, int N, int H, int D,

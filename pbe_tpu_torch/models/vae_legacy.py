@@ -12,9 +12,12 @@ follows model.py:84-143, the temb projection added after conv1.
 Attention sits at the levels whose running resolution is in
 ``attn_resolutions`` (model.py:252-264). ``attn_impl`` is "plain" (the
 default) or "flash"; only ``Model`` and ``LatentRescaler`` take it, as in
-the JAX package. "flash" at a width the kernels have no head dim for
-raises ValueError when the module is built, before any launch. Resizes
-pick JAX's pixels (``ops.image.jax_resize``), not torch's.
+the JAX package. "flash" runs the flash kernels at any width up to
+``ops.flash_attention.ANYD_MAX_HEAD_DIM`` (the tuned kernels at their head
+dims, csrc/flash_anyd.cu's at every other: the DDPM CIFAR-10 UNet's 256);
+a wider one raises ValueError when the module is built, before any
+launch. Resizes pick JAX's pixels (``ops.image.jax_resize``), not
+torch's.
 
 NCHW modules with the reference state_dict keys; the JAX module's params
 load through ``convert.vae_legacy_state_dict_from_flax``.
@@ -37,8 +40,8 @@ from pbe_tpu_torch.ops.norms import GroupNorm32
 
 
 def attn_block(ch: int, attn_impl: str) -> AttnBlock:
-    """The single-head AttnBlock at width ``ch``; "flash" only where the
-    kernels have the head dim."""
+    """The single-head AttnBlock at width ``ch``; "flash" only up to the
+    flash kernels' widest head dim."""
     if attn_impl not in ("plain", "flash"):
         raise ValueError(f"unknown attention impl {attn_impl!r}")
     if attn_impl == "flash" and (err := head_dim_error(ch)):

@@ -31,6 +31,15 @@ four forward variants and the backward pair then launch the fp32 kernels of
 dtype). The resident and pipelined kernels' key blocks are instantiated per
 dtype (fp32 tiles are twice the bytes).
 
+The kernels above are tuned per padded head dim and take only
+:data:`SUPPORTED_HEAD_DIMS`. The Pallas kernels take any head dim (they pad
+it to 128 lanes), so the forward and the backward pair also have kernels
+with the head dim a run-time argument, ``csrc/flash_anyd.cu``
+(``flash_fwd_anyd``, ``flash_bwd_dq_anyd``, ``flash_bwd_dkv_anyd``, bf16 and
+fp32), which serve every other head dim up to :data:`ANYD_MAX_HEAD_DIM`:
+:func:`kernel_entry` names the kernel for a head dim and dtype, and the
+wrappers below launch the one it names.
+
 The kernels in ``csrc/`` are built with nvcc at first use and bound with
 ctypes. Layout: (B, N, H, D) with
 strides, as the attention projections produce it, so no transpose copy is
@@ -56,13 +65,17 @@ import torch.utils.flop_counter
 from pbe_tpu_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634  # log2(e): exp(x) == exp2(x * LOG2E)
-# padded head dims instantiated in csrc/flash_fwd.cu and csrc/flash_fp32.cu:
-# 48/80/160/512 serve configs/v1.yaml (d = 40, 80, 160 and the VAE's 512),
-# 16/32 configs/tiny.yaml
+# padded head dims instantiated in csrc/flash_fwd.cu, csrc/flash_bwd.cu and
+# csrc/flash_fp32.cu (forward and backward alike): 48/80/160/512 serve
+# configs/v1.yaml (d = 40, 80, 160 and the VAE's 512, first-stage training
+# too), 16/32 configs/tiny.yaml
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
-# ... and in csrc/flash_bwd.cu and csrc/flash_fp32.cu: the UNet's, and the
-# VAE's 512 for first-stage training (training/vae_train.py)
-BWD_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
+# csrc/flash_anyd.cu's forward, dQ and dK/dV kernels take every head dim
+# from 1 to this, read one element a load
+ANYD_MAX_HEAD_DIM = 1024
+# the passes that have both kinds of kernel, by the stem of their entries
+ANYD_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the operand dtypes every kernel takes
 # q tile of csrc/flash_variants.cu's resident kernel by padded head dim
 # (ResidentTile, ResidentWideTile): the cluster is planned over these tiles
 RESIDENT_BLOCK_Q = {**{dp: 64 for dp in (16, 32, 48, 80, 160)}, 512: 32}
@@ -180,22 +193,65 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def layout_error(x: torch.Tensor) -> str | None:
-    """Why the kernel cannot read x in place, or None: it takes a unit
-    head-dim stride and rows and base aligned to 8 elements (16 bytes of
-    bf16, 32 of fp32)."""
-    if x.dim() != 4:
-        return f"expected (B,N,H,D), got shape {tuple(x.shape)}"
-    if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-        return (f"needs a unit head-dim stride and rows and base aligned to 8 elements, "
-                f"got strides {x.stride()}")
-    return head_dim_error(x.shape[3])
+def tuned_head_dim(d: int) -> bool:
+    """Whether the kernels tuned per padded head dim (csrc/flash_fwd.cu,
+    flash_bwd.cu, flash_fp32.cu) instantiate head dim d: a multiple of 8
+    padding to one of :data:`SUPPORTED_HEAD_DIMS`."""
+    return d % 8 == 0 and _round_up(d, 16) in SUPPORTED_HEAD_DIMS
 
 
 def head_dim_error(d: int) -> str | None:
-    """Why the kernels have no instantiation for head dim d, or None."""
-    if d % 8 or _round_up(d, 16) not in SUPPORTED_HEAD_DIMS:
-        return f"head dim {d} unsupported (a multiple of 8 padding to one of {SUPPORTED_HEAD_DIMS})"
+    """Why no forward or backward kernel takes head dim d, or None: the tuned
+    kernels take theirs and csrc/flash_anyd.cu's every other d from 1 to
+    :data:`ANYD_MAX_HEAD_DIM`."""
+    if not 1 <= d <= ANYD_MAX_HEAD_DIM:
+        return f"head dim {d} unsupported (the flash kernels take 1 to {ANYD_MAX_HEAD_DIM})"
+    return None
+
+
+def kernel_entry(kind: str, d: int, dtype: torch.dtype) -> tuple[str, str]:
+    """(csrc source, C entry) of the kernel that runs pass ``kind`` ("fwd",
+    "bwd_dq" or "bwd_dkv") at head dim d on ``dtype`` operands: the tuned
+    kernel (flash_fwd.cu or flash_bwd.cu for bf16, flash_fp32.cu for fp32)
+    where it instantiates d, else csrc/flash_anyd.cu's. Raises ValueError
+    for a head dim past :data:`ANYD_MAX_HEAD_DIM` (or below 1), TypeError
+    for a dtype other than bfloat16 and float32."""
+    if kind not in ANYD_KINDS:
+        raise ValueError(f"unknown flash pass {kind!r} (one of {ANYD_KINDS})")
+    if err := head_dim_error(d):
+        raise ValueError(err)
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the flash kernels take bfloat16 or float32, got {dtype}")
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    if not tuned_head_dim(d):
+        return "flash_anyd", f"pbe_flash_{kind}_anyd_{suffix}"
+    lib = "flash_fp32" if suffix == "f32" else "flash_fwd" if kind == "fwd" else "flash_bwd"
+    return lib, f"pbe_flash_{kind}_{suffix}"
+
+
+def kernel_name(symbol: str) -> str:
+    """A C entry's kernel, as the launch counts name it: its symbol without
+    the prefix and the dtype ("flash_fwd", "flash_fwd_anyd", ...)."""
+    return symbol.removeprefix("pbe_").rsplit("_", 1)[0]
+
+
+def layout_error(x: torch.Tensor) -> str | None:
+    """Why the kernel that runs at x's head dim (:func:`kernel_entry`)
+    cannot read x in place, or None. The tuned kernels take a unit head-dim
+    stride and rows and base aligned to 8 elements (16 bytes of bf16, 32 of
+    fp32); csrc/flash_anyd.cu's read one element a load and take any
+    strides with a unit head-dim stride, at head dims 1 to
+    :data:`ANYD_MAX_HEAD_DIM`."""
+    if x.dim() != 4:
+        return f"expected (B,N,H,D), got shape {tuple(x.shape)}"
+    d = x.shape[3]
+    if not tuned_head_dim(d):
+        if x.stride(3) != 1 and d > 1:
+            return f"needs a unit head-dim stride, got strides {x.stride()}"
+        return head_dim_error(d)
+    if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+        return (f"needs a unit head-dim stride and rows and base aligned to 8 elements, "
+                f"got strides {x.stride()}")
     return None
 
 
@@ -282,40 +338,51 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 class _Kernel:
-    """A kernel's ctypes entry points by operand dtype, ``entries[dtype] =
-    (csrc/<lib>.cu, symbol)`` (``lib`` and ``symbol``: the bf16 one), each
-    loaded at its first launch, and the launch counts: ``launches`` in all,
-    ``launches_by_shape`` by (B, N, H, D) and ``launches_by_dtype`` by the
-    operands' dtype name ("bfloat16", "float32"); they change only where a
-    kernel is launched, and :meth:`reset` sets them to 0."""
+    """A kernel's ctypes entry points, each loaded at its first launch, and
+    the launch counts: ``launches`` in all, ``launches_by_shape`` by (B, N,
+    H, D), ``launches_by_dtype`` by the operands' dtype name ("bfloat16",
+    "float32") and ``launches_by_kernel`` by the kernel that ran
+    (:func:`kernel_name`); they change only where a kernel is launched, and
+    :meth:`reset` sets them to 0. A wrapper of a pass ``kind`` (one of
+    :data:`ANYD_KINDS`) launches at each head dim the kernel
+    :func:`kernel_entry` names; a resident or pipelined variant has one
+    entry a dtype, ``entries[dtype] = (csrc/<lib>.cu, symbol)``.
+    ``symbol`` is the bf16 entry (at a tuned head dim), for messages."""
 
-    def __init__(self, entries: dict, argtypes: list):
-        self.entries, self.argtypes = entries, argtypes
-        self.lib, self.symbol = entries[torch.bfloat16]
+    def __init__(self, argtypes: list, kind: str | None = None, entries: dict | None = None):
+        self.argtypes, self.kind, self.entries = argtypes, kind, entries
+        self.dtypes = tuple(entries) if entries else KERNEL_DTYPES
+        self.symbol = self.entry(torch.bfloat16, SUPPORTED_HEAD_DIMS[0])[1]
         self.launches = 0
         self.launches_by_shape: collections.Counter = collections.Counter()
         self.launches_by_dtype: collections.Counter = collections.Counter()
+        self.launches_by_kernel: collections.Counter = collections.Counter()
         self._fns: dict = {}
 
     def reset(self) -> None:
         self.launches = 0
         self.launches_by_shape.clear()
         self.launches_by_dtype.clear()
+        self.launches_by_kernel.clear()
+
+    def entry(self, dtype: torch.dtype, d: int) -> tuple[str, str]:
+        """(csrc source, C entry) this wrapper launches at head dim d."""
+        return kernel_entry(self.kind, d, dtype) if self.kind else self.entries[dtype]
 
     def _launch(self, dtype: torch.dtype, shape: tuple, *args) -> None:
-        fn = self._fns.get(dtype)
+        lib, symbol = self.entry(dtype, shape[3])
+        fn = self._fns.get(symbol)
         if fn is None:
-            lib, symbol = self.entries[dtype]
             fn = getattr(cuda_build.load(lib), symbol)
             fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
-            self._fns[dtype] = fn
+            self._fns[symbol] = fn
         err = fn(*args)
         if err != 0:
-            raise RuntimeError(f"{self.entries[dtype][1]} launch failed: CUDA error {err} at "
-                               f"(B,N,H,D)={shape}")
+            raise RuntimeError(f"{symbol} launch failed: CUDA error {err} at (B,N,H,D)={shape}")
         self.launches += 1
         self.launches_by_shape[shape] += 1
         self.launches_by_dtype[_dtype_name(dtype)] += 1
+        self.launches_by_kernel[kernel_name(symbol)] += 1
 
 
 def operand_dtype(kernel: str, dtypes, **xs: torch.Tensor) -> torch.dtype:
@@ -332,11 +399,12 @@ def operand_dtype(kernel: str, dtypes, **xs: torch.Tensor) -> torch.dtype:
     return dtype
 
 
-def _check_operands(kernel: str, head_dims: tuple, dtypes, **xs: torch.Tensor) -> torch.dtype:
+def _check_operands(kernel: str, dtypes, **xs: torch.Tensor) -> torch.dtype:
     """Raise unless every x is a (B,N,H,D) CUDA tensor of the first one's
     shape, device and dtype, that dtype one of ``dtypes``, which the kernel
-    can read in place; returns the dtype. The layout is checked first, so
-    a strided or misaligned view is refused for its layout on any device."""
+    can read in place (:func:`layout_error`); returns the dtype. The layout
+    is checked first, so a strided or misaligned view is refused for its
+    layout on any device."""
     first = next(iter(xs.values()))
     for name, x in xs.items():
         if x.shape != first.shape:
@@ -349,11 +417,7 @@ def _check_operands(kernel: str, head_dims: tuple, dtypes, **xs: torch.Tensor) -
         if x.device.type != "cuda" or x.device != first.device:
             raise ValueError(f"{kernel}: {name} must be on a CUDA device shared by all "
                              f"operands, got {x.device}")
-    dtype = operand_dtype(kernel, dtypes, **xs)
-    if _round_up(first.shape[3], 16) not in head_dims:
-        raise ValueError(f"{kernel}: head dim {first.shape[3]} unsupported (pads to one "
-                         f"of {head_dims})")
-    return dtype
+    return operand_dtype(kernel, dtypes, **xs)
 
 
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -362,23 +426,25 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 class FlashForward(_Kernel):
     """A forward kernel: (q, k, v) -> O [, LSE]. ``variant`` None is the
     models' kernels (K1/K2): ``pbe_flash_fwd_bf16`` (csrc/flash_fwd.cu) for
-    bf16 operands and ``pbe_flash_fwd_f32`` (csrc/flash_fp32.cu) for fp32;
+    bf16 operands and ``pbe_flash_fwd_f32`` (csrc/flash_fp32.cu) for fp32
+    at their head dims, ``pbe_flash_fwd_anyd_{bf16,f32}``
+    (csrc/flash_anyd.cu) at every other (:func:`kernel_entry`);
     "resident" (K3) and "pipelined" (K4) ``pbe_flash_{variant}_bf16``
     (csrc/flash_variants.cu) for bf16 and ``pbe_flash_{variant}_f32``
     (csrc/flash_fp32.cu) for fp32, which take a key block ``block``
-    (block_k or block_c; instantiated per dtype, :func:`block_table`), and
-    the resident kernel a ``cluster`` size."""
+    (block_k or block_c; instantiated per dtype, :func:`block_table`, which
+    refuses the head dims they lack), and the resident kernel a ``cluster``
+    size."""
 
     def __init__(self, variant: str | None = None):
         self.variant = variant
         self.lse_launches = 0  # the launches that also wrote the LSE
         # [key block [, cluster size]]
         extra = {None: [], "resident": [_I32] * 2, "pipelined": [_I32]}[variant]
-        entries = {torch.bfloat16: ("flash_variants" if variant else "flash_fwd",
-                                    f"pbe_flash_{variant or 'fwd'}_bf16"),
-                   torch.float32: ("flash_fp32", f"pbe_flash_{variant or 'fwd'}_f32")}
-        super().__init__(entries, [_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32]
-                         + extra + [_PTR])
+        entries = variant and {torch.bfloat16: ("flash_variants", f"pbe_flash_{variant}_bf16"),
+                               torch.float32: ("flash_fp32", f"pbe_flash_{variant}_f32")}
+        super().__init__([_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32] + extra
+                         + [_PTR], None if variant else "fwd", entries)
 
     def reset(self) -> None:
         super().reset()
@@ -402,8 +468,8 @@ class FlashForward(_Kernel):
                  cluster: int | None = None):
         b, n, h, d = q.shape
         # the operands first: the dtype picks the entry and the block table
-        dtype = _check_operands(f"{self.variant or 'flash'} kernel", SUPPORTED_HEAD_DIMS,
-                                tuple(self.entries), q=q, k=k, v=v)
+        dtype = _check_operands(f"{self.variant or 'flash'} kernel", self.dtypes,
+                                q=q, k=k, v=v)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         extra = self.plan(q.shape, block, cluster, sms, dtype)
         out = torch.empty((b, n, h, d), device=q.device, dtype=q.dtype)
@@ -421,22 +487,22 @@ class FlashForward(_Kernel):
 class FlashBackward(_Kernel):
     """``pbe_flash_bwd_dq_bf16`` or ``pbe_flash_bwd_dkv_bf16``
     (csrc/flash_bwd.cu) for bf16 operands, ``pbe_flash_bwd_dq_f32`` or
-    ``pbe_flash_bwd_dkv_f32`` (csrc/flash_fp32.cu) for fp32: (q, k, v, dO,
-    LSE, D) -> dQ, or (dK, dV). At d = 512 the bf16 kernels read q, k, v
-    and dO by TMA tensor copies, which take a unit head-dim stride, other
-    strides in multiples of 16 bytes and a 16-byte aligned base: the
-    layout check (:func:`layout_error`) refuses anything else."""
+    ``pbe_flash_bwd_dkv_f32`` (csrc/flash_fp32.cu) for fp32, at their head
+    dims, and ``pbe_flash_bwd_{dq,dkv}_anyd_{bf16,f32}``
+    (csrc/flash_anyd.cu) at every other (:func:`kernel_entry`):
+    (q, k, v, dO, LSE, D) -> dQ, or (dK, dV). At d = 512 the bf16 kernels
+    read q, k, v and dO by TMA tensor copies, which take a unit head-dim
+    stride, other strides in multiples of 16 bytes and a 16-byte aligned
+    base: the layout check (:func:`layout_error`) refuses anything else."""
 
     def __init__(self, which: str):
         self.outputs = {"dq": 1, "dkv": 2}[which]
-        super().__init__({torch.bfloat16: ("flash_bwd", f"pbe_flash_bwd_{which}_bf16"),
-                          torch.float32: ("flash_fp32", f"pbe_flash_bwd_{which}_f32")},
-                         [_PTR] * (6 + self.outputs) + [_I32] * 4
-                         + [ctypes.POINTER(_I64), _F32, _F32, _PTR])
+        super().__init__([_PTR] * (6 + self.outputs) + [_I32] * 4
+                         + [ctypes.POINTER(_I64), _F32, _F32, _PTR], f"bwd_{which}")
 
     def __call__(self, q, k, v, do, lse, dd):
-        dtype = _check_operands(f"flash backward ({self.symbol})", BWD_HEAD_DIMS,
-                                tuple(self.entries), q=q, k=k, v=v, do=do)
+        dtype = _check_operands(f"flash backward ({self.symbol})", self.dtypes,
+                                q=q, k=k, v=v, do=do)
         b, n, h, d = q.shape
         for name, x in (("lse", lse), ("D", dd)):
             if (x.dtype != torch.float32 or x.shape != (b * h, n)

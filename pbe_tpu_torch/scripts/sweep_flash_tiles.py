@@ -133,8 +133,10 @@ def variant_source(spec: str, source: str = "flash_fwd") -> str:
 def ptxas_report(log: str) -> str:
     """One line per instantiation of the flash kernels (forward, its
     resident and pipelined variants, backward, and their fp32 kernels: the
-    forward at d <= 160 and at 512, resident, pipelined, dQ, dK/dV) in a
-    -Xptxas -v log: its template arguments, registers and spill bytes."""
+    forward at d <= 160 and at 512, resident, pipelined, dQ, dK/dV; the
+    any-head-dim forward, dQ and dK/dV at bf16 and fp32) in a -Xptxas -v
+    log: its template arguments (the operand type of the any-head-dim
+    kernels), registers and spill bytes."""
     lines = log.splitlines()
     report = []
     for i, line in enumerate(lines):
@@ -143,9 +145,11 @@ def ptxas_report(log: str) -> str:
                       r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|fwd_wide_f32|bwd_dq_f32"
                       r"|bwd_dkv_f32"
                       r"|resident_f32|pipelined_f32)"
-                      r"_kernel)(I\w+?EE)?", line)
+                      r"_kernel|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd)(I\w+?EE)?", line)
         if m and i + 3 < len(lines):
-            args = ", ".join(re.findall(r"L[ib](\d+)E", m[2] or "")) or "-"
+            targs = m[2] or ""
+            args = (", ".join(re.findall(r"L[ib](\d+)E", targs))
+                    or ("bf16" if "bfloat16" in targs else "fp32" if targs.startswith("If") else "-"))
             report.append(f"  {m[1]}<{args}>: {lines[i + 2].strip()}; "
                           f"{lines[i + 3].split(':', 1)[1].strip()}")
     return "\n".join(report)

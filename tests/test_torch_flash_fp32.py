@@ -39,7 +39,7 @@ TWINS = {"fwd": ("fwd", "flash_fwd"), "dq": ("bwd_dq", "flash_bwd"),
 def test_cuda_dtype_check_accepts_bf16_and_fp32(which, dtype):
     x = torch.zeros(1, 8, 1, 40, dtype=dtype)
     kern = WRAPPERS[which]
-    assert fa.operand_dtype("k", tuple(kern.entries), q=x, k=x, v=x) == dtype
+    assert fa.operand_dtype("k", kern.dtypes, q=x, k=x, v=x) == dtype
 
 
 @pytest.mark.parametrize("which", list(WRAPPERS))
@@ -49,7 +49,7 @@ def test_cuda_dtype_check_rejects_other_and_mixed_dtypes(which, case):
     others = {"fp16": (x.half(), x.half()), "mixed": (x, x.bfloat16()),
               "fp64": (x.double(), x.double())}[case]
     with pytest.raises(TypeError, match="share one dtype" if case == "mixed" else "takes"):
-        fa.operand_dtype("k", tuple(WRAPPERS[which].entries), q=others[0], k=others[1])
+        fa.operand_dtype("k", WRAPPERS[which].dtypes, q=others[0], k=others[1])
 
 
 @pytest.mark.parametrize("which", list(WRAPPERS))

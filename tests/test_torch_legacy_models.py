@@ -227,20 +227,26 @@ def test_resize_picks_jax_pixels(mode, factor):
 
 
 def test_latent_rescaler_flash_matches_jax_and_refuses_a_head_dim_without_kernel():
-    """On the CPU "flash" runs the kernel's plain version; at a width the
-    kernels have no head dim for it raises before anything runs."""
-    jm = jvl.LatentRescaler(factor=2.0, in_channels=4, mid_channels=16, out_channels=4, depth=1)
+    """On the CPU "flash" runs the kernels' plain version, at a head dim of
+    the tuned kernels (16) and at one only csrc/flash_anyd.cu takes (64);
+    the DDPM CIFAR-10 UNet (256-wide heads) builds with "flash"; a width
+    past every kernel's (1024) raises before anything runs."""
     x = np.random.default_rng(7).standard_normal((1, 4, 4, 4)).astype(np.float32)
-    variables = jax_variables(jm, jnp.asarray(x))
-    tm = load(tvl.LatentRescaler(2.0, 4, 16, 4, depth=1, attn_impl="flash"),
-              convert.vae_legacy_state_dict_from_flax(variables["params"]))
-    with torch.no_grad():
-        close(tm(nchw(x)).numpy().transpose(0, 2, 3, 1), run_jax(jm, variables, jnp.asarray(x)))
-    with pytest.raises(ValueError, match="head dim 64"):
-        tvl.LatentRescaler(2.0, 4, 64, 4, attn_impl="flash")
-    with pytest.raises(ValueError, match="head dim 256"):
-        tvl.Model(ch=128, out_ch=3, num_res_blocks=2, resolution=32, in_channels=3,
-                  ch_mult=(1, 2, 2, 2), attn_resolutions=(16,), attn_impl="flash")
+    for width in (16, 64):
+        jm = jvl.LatentRescaler(factor=2.0, in_channels=4, mid_channels=width, out_channels=4,
+                                depth=1)
+        variables = jax_variables(jm, jnp.asarray(x))
+        tm = load(tvl.LatentRescaler(2.0, 4, width, 4, depth=1, attn_impl="flash"),
+                  convert.vae_legacy_state_dict_from_flax(variables["params"]))
+        with torch.no_grad():
+            close(tm(nchw(x)).numpy().transpose(0, 2, 3, 1),
+                  run_jax(jm, variables, jnp.asarray(x)))
+    ddpm = tvl.Model(ch=128, out_ch=3, num_res_blocks=2, resolution=32, in_channels=3,
+                     ch_mult=(1, 2, 2, 2), attn_resolutions=(16,), attn_impl="flash")
+    assert [m.attn_impl for m in ddpm.modules() if isinstance(m, tvl.AttnBlock)] == ["flash"] * 6
+    assert tvl.attn_block(1024, "flash").attn_impl == "flash"
+    with pytest.raises(ValueError, match="head dim 2048 unsupported"):
+        tvl.attn_block(2048, "flash")
 
 
 # ---- text_transformer ------------------------------------------------------------------
