@@ -104,10 +104,11 @@ Serving and int8 (the eighth slice), on phase 4's v1 pipeline:
      kernel against its plain version and timed at bucket 8's shapes.
  14. w8a8 int8: at three v1 ops in bf16 the card's int8 operands and int32
      accumulators equal the CPU's, each op within rel L2 0.02 of the fp op;
-     a 512^2 dynamic and a calibrated static int8 edit, each within mean
-     abs 0.05 of the fp edit and not equal to it, every eligible op of the
-     51 UNet calls through the int8 product; fp/dynamic/static edit p50; a
-     single-bucket int8 server reproducible bit for bit.
+     a 512^2 dynamic and a calibrated static int8 edit at 10 PLMS steps
+     (INT8_STEPS), each within mean abs 0.05 of the fp edit and not equal
+     to it, every eligible op of the 11 UNet calls through the int8
+     product; fp/dynamic/static edit p50; a single-bucket int8 server
+     reproducible bit for bit.
 
 The training CLI (the ninth slice), after phase 9 has freed its model:
  15. a synthetic OpenImages tree (16 + 4 images at 512², seed 0, the port's
@@ -201,8 +202,9 @@ The frozen edit program (the sixteenth slice):
      params load, the live and frozen first and warm call seconds, MB)
      printed with the card line, and the FLOPs of one CFG UNet call (torch.utils.flop_counter,
      the flash ops by their formulas) with the flash share. The int8
-     program at v1 width runs beside it (two processes started together
-     on one params.npz) at 10 PLMS steps (FROZEN_STEPS).
+     program at v1's widths, its UNet cut to one res block a level
+     (FROZEN_INT8_RES_BLOCKS) with its own seeded weights, runs beside it
+     (two processes started together) at 10 PLMS steps (FROZEN_STEPS).
 
 The remaining user scripts and the legacy models (the seventeenth slice):
  26. on phase 4's weights (its seeded checkpoint), pbe_tpu_torch.scripts.test
@@ -232,28 +234,36 @@ The remaining user scripts and the legacy models (the seventeenth slice):
      Decoder at the v1 VAE's widths at 256^2.
 
 The flash kernels at any head dim (the eighteenth slice):
- 29. csrc/flash_anyd.cu's forward, dQ and dK/dV kernels, bf16 and fp32,
+ 29. csrc/flash_anyd.cu's build seconds, each kernel's ptxas registers
+     and spills, and the tensor-core instructions (HMMA) of the bf16
+     forward and dK/dV in the library's SASS (cuobjdump; the phase fails
+     without them); its forward, dQ and dK/dV kernels, bf16 and fp32,
      against their plain versions at d = 1 ... 1024 (ANYD_DIMS; N = 77),
      on peaked and rising-max scores and packed q/k/v views, each launched
-     twice and compared bitwise; then the DDPM CIFAR-10 UNet
+     twice and compared bitwise, and the bf16 forward and dK/dV at the
+     DDPM shape on operands at odd offsets (load pieces of 8, 4, 2, 1
+     elements), checked and timed; then the DDPM CIFAR-10 UNet
      (vae_legacy.Model, Ho et al. 2020's widths, attn_impl="flash") at
      batch 128: a forward and the gradient of its epsilon-MSE loss at fp32
      and bf16, each run 6 flash_fwd_anyd launches (5 at (128, 256, 1,
      256), 1 at (128, 16, 1, 256)) and the gradient 6 of each backward
      kernel, nothing else; held against plain attention on the card and
      the CPU at batch 16; step p50 and peak memory; each kernel timed at
-     the DDPM shapes and at d = 64 and 128 beside its plain version and
-     SDPA (rows named *_anyd).
+     the DDPM shapes and at d = 64 and 128 beside its plain version,
+     SDPA (rows named *_anyd), each row's log line with the time recorded
+     before the bf16 forward and dK/dV moved to mma.sync (ANYD_BEFORE_MS).
 
 A run takes them in the order 1, 2, 7, 17, 11's bf16 part, 3, 4, 12, 13,
-14, 5, 8, 9, 15, 16, 18, 6, 10, 19, 12's tiny edits, then 20, 11's fp32
-part, 21, 22, 23, 24, 25, 26, 27, 28, 29: kernels first, the timed edits
+14, 5, 8, 9, 15, 16, 18, 6, 10, 19, 12's tiny edits, 27, then 20, 11's
+fp32 part, 21, 22, 23, 24, 25, 26, 28, 29: kernels first, the timed edits
 before the profiler, the card-vs-CPU comparisons last. csrc/flash_fp32.cu,
 the slowest build (minutes, one host core), and csrc/flash_anyd.cu start
 after phase 13, so that no nvcc runs beside the host-bound timings of
 phases 4, 12 and 13; they build beside phases 14, 5, 8, 9, 15, 16, 18, 6,
-10, 19 and 12's tiny edits, and phase 20 waits for them. Every phase logs
-its seconds ("[clock]"), and the run its total.
+10, 19, 12's tiny edits and 27 (which needs neither), and phase 20 waits
+for them. Phase 26 runs the runbook in a thread beside scripts.test, and
+12's tiny edits their CPU side in a second process beside the card's.
+Every phase logs its seconds ("[clock]"), and the run its total.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -314,6 +324,16 @@ LAUNCHES_PER_EDIT = sum(s[3] for s in FLASH_SHAPES)  # 818
 # at 10 (the run's clock: its export, save and load, a host core each for
 # minutes, do not shrink with the steps, but its eight timed calls do)
 FROZEN_STEPS = {"bf16": 50, "int8": 10}
+# ... and the int8 one's UNet depth: v1's widths at this many res blocks a
+# level (v1: 2), its own seeded weights, since its export, save and program
+# load (~350 s of one host core at full depth on a slow host) set the run's
+# clock and shrink only with the model's depth
+FROZEN_INT8_RES_BLOCKS = 1
+# phase 14's int8 edits (dynamic, static, their timed turns beside fp and
+# the server's) run this many PLMS steps: the checks hold every eligible
+# op of every UNet call, and the steps only repeat them on a host-bound
+# clock (a slow host took ~100 s at 50)
+INT8_STEPS = 10
 # a 50-step DDIM edit: 50 UNet calls of 16 self-attentions, 2 VAE ones
 DDIM_LAUNCHES = 50 * 16 + 2  # 802
 # phase 12, the CLIs: (name, (B, N, H, D), TPU kernel, CLI run, launches in
@@ -493,6 +513,7 @@ def graph_ms(fn, iters: int, stream=None) -> float:
 # csrc/flash_anyd.cu, which only phases 28 and 29 run
 LATE_BUILDS = ("flash_fp32", "flash_anyd")
 _START = time.perf_counter()
+BUILD_SECONDS: dict = {}  # each source's nvcc seconds, as start_builds timed it
 
 
 def clocked(phase):
@@ -520,7 +541,8 @@ def start_builds(names: tuple):
     def timed_build(name):
         t = time.perf_counter()
         cuda_build.build(name)
-        return f"{name}.cu {time.perf_counter() - t:.1f} s"
+        BUILD_SECONDS[name] = time.perf_counter() - t
+        return f"{name}.cu {BUILD_SECONDS[name]:.1f} s"
 
     t0 = time.perf_counter()
     pool = ThreadPoolExecutor(len(names))
@@ -2042,9 +2064,10 @@ def phase_int8(pipe, card: str) -> dict:
     accumulators equal the CPU's bit for bit, per-row and static, and each
     op is within rel L2 0.02 of the fp op; (b) a 512^2 dynamic int8 edit,
     (c) calibrate_int8 at 512^2 and the static edit, each within mean abs
-    0.05 of the fp edit and not equal to it, every eligible op of the 51
-    UNet calls through the int8 product; (d) fp, dynamic and static edit
-    p50 of 3 warm edits; (e) a single-bucket int8 server twice, one seed."""
+    0.05 of the fp edit and not equal to it, every eligible op of the
+    INT8_STEPS + 1 UNet calls through the int8 product; (d) fp, dynamic
+    and static edit p50 of 3 warm edits; (e) a single-bucket int8 server
+    twice, one seed. Every edit runs INT8_STEPS PLMS steps."""
     import torch
     import torch.nn.functional as F
 
@@ -2101,7 +2124,7 @@ def phase_int8(pipe, card: str) -> dict:
         torch.cuda.empty_cache()
 
     # count the int8 products: each edit must run every eligible op of its
-    # 51 UNet calls through them (no op the gates admit may stay fp)
+    # INT8_STEPS + 1 UNet calls through them (no op the gates admit may stay fp)
     calls = {"n": 0}
     real_mm = quant._int_mm
 
@@ -2117,7 +2140,8 @@ def phase_int8(pipe, card: str) -> dict:
     static = EditPipeline(pipe.model, quantize="int8", quant_scales=scales)
     log(f"[int8] (c) calibrate_int8 at 512^2 (8 CFG UNet calls): {len(scales)} static op "
         f"scales in {calib_s:.3f} s")
-    ekw = dict(steps=50, scale=5.0, seed=3)
+    ekw = dict(steps=INT8_STEPS, scale=5.0, seed=3)
+    unet_calls = INT8_STEPS + 1  # PLMS: two UNet calls at its first step
     fp_img = pipe.edit_batch(image, mask, ref, **ekw)
     summary = {"n_scales": len(scales)}
     for name, p in (("dynamic", dyn), ("static", static)):
@@ -2128,10 +2152,11 @@ def phase_int8(pipe, card: str) -> dict:
         finally:
             quant._int_mm = real_mm
         diff = np.abs(got - fp_img)
-        log(f"[int8] ({'b' if name == 'dynamic' else 'c'}) {name} int8 512^2 PLMS 50 edit: "
-            f"int8 products {calls['n']} (expected 51 x {len(scales)}); mean|int8 - fp| "
-            f"{diff.mean():.5f} (tol 0.05, > 0), max {diff.max():.4f}")
-        if calls["n"] != 51 * len(scales) or not 0 < diff.mean() < 0.05:
+        log(f"[int8] ({'b' if name == 'dynamic' else 'c'}) {name} int8 512^2 PLMS "
+            f"{INT8_STEPS} edit: int8 products {calls['n']} (expected {unet_calls} x "
+            f"{len(scales)}); mean|int8 - fp| {diff.mean():.5f} (tol 0.05, > 0), max "
+            f"{diff.max():.4f}")
+        if calls["n"] != unet_calls * len(scales) or not 0 < diff.mean() < 0.05:
             raise AssertionError(f"the {name} int8 edit is off")
         summary[f"{name}_mean_abs_vs_fp"] = float(diff.mean())
 
@@ -2141,16 +2166,16 @@ def phase_int8(pipe, card: str) -> dict:
         for name, p in (("fp", pipe), ("dynamic", dyn), ("static", static)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p.edit_batch(image, mask, ref, steps=50, scale=5.0, seed=10 + i)
+            p.edit_batch(image, mask, ref, steps=INT8_STEPS, scale=5.0, seed=10 + i)
             times[name].append(time.perf_counter() - t0)
     p50 = {k: float(np.median(v)) for k, v in times.items()}
-    log(f"[int8] (d) 512^2 PLMS 50 edit p50 of 3 warm edits: fp {p50['fp']:.4f} s, dynamic "
+    log(f"[int8] (d) 512^2 PLMS {INT8_STEPS} edit p50 of 3 warm edits: fp {p50['fp']:.4f} s, dynamic "
         f"int8 {p50['dynamic']:.4f} s, static int8 {p50['static']:.4f} s "
         f"({json.dumps({k: [round(t, 4) for t in v] for k, v in times.items()})}) ({card})")
-    summary["edit_p50_s"] = p50
+    summary[f"plms{INT8_STEPS}_edit_p50_s"] = p50
 
     # (e) a single-bucket int8 server, one seed twice
-    with EditServer(static, buckets=(1,), steps=50, output_uint8=True) as srv:
+    with EditServer(static, buckets=(1,), steps=INT8_STEPS, output_uint8=True) as srv:
         a = srv.edit(image[0], mask[0], ref[0], seed=9)
         b = srv.edit(image[0], mask[0], ref[0], seed=9)
     log(f"[int8] (e) single-bucket static int8 server, seed 9 twice: bitwise equal "
@@ -2166,16 +2191,17 @@ def phase_reference_samplers() -> None:
     full 1000-step DDPM chain: bf16 with the flash kernel on the card
     against fp32 with plain attention on the CPU, the same seeded weights
     (zero-init heads at 0.02) and the same injected x_T and per-step
-    noise."""
+    noise. The CPU edits run in a second process (reference_edits_cpu)
+    while the card's run here."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
 
     gpu, _ = load_pipeline("configs/tiny.yaml", device="cuda", verbose=False)
     randomize_zero_params(gpu.model, seed=0, scale=0.02)
-    cpu, _ = load_pipeline("configs/tiny.yaml", device="cpu", dtype=torch.float32,
-                           attn_impl="plain", verbose=False)
-    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
     image, mask, ref = edit_inputs(16, gpu.ref_size, seed=15)
     n = 16 // gpu.model.latent_downsample
     g = np.random.default_rng(16)
@@ -2187,22 +2213,46 @@ def phase_reference_samplers() -> None:
     # row off by one step moves the DDIM mean by 0.048 but the DDPM mean by
     # only 0.014, under bf16's drift: the CPU tests hold the DDPM chain to
     # JAX at 1e-5
+    runs = []
     for sampler, steps, eta, tol in (("ddim", 10, 0.5, (0.15, 0.02)),
                                      ("ddpm", None, 0.0, (0.35, 0.05))):
         rows = steps if sampler == "ddim" else gpu.model.schedule.num_timesteps
         noise = g.standard_normal((rows, 1, n, n, 4)).astype(np.float32)
-        kw = dict(steps=steps, scale=5.0, sampler=sampler, eta=eta, x_T=x_T,
-                  det_first_stage=True, noise=noise)
-        t0 = time.perf_counter()
-        got = gpu.edit_batch(image, mask, ref, **kw)
-        t_gpu = time.perf_counter() - t0
-        want = cpu.edit_batch(image, mask, ref, **kw)
-        diff = np.abs(got - want)
+        runs.append((sampler, rows, tol, dict(steps=steps, scale=5.0, sampler=sampler, eta=eta,
+                                              x_T=x_T, det_first_stage=True, noise=noise)))
+    with tempfile.TemporaryDirectory() as root:
+        state = os.path.join(root, "tiny.pt")
+        torch.save({k: v.cpu() for k, v in gpu.model.state_dict().items()}, state)
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            cpu = pool.submit(reference_edits_cpu, state, (image, mask, ref),
+                              [kw for *_, kw in runs])
+            got = []
+            for sampler, _, _, kw in runs:
+                t0 = time.perf_counter()
+                got.append((gpu.edit_batch(image, mask, ref, **kw), time.perf_counter() - t0))
+            want = cpu.result(timeout=900)
+    for (sampler, rows, tol, kw), (img, t_gpu), ref_img in zip(runs, got, want):
+        eta = kw["eta"]
+        diff = np.abs(img - ref_img)
         log(f"[reference] tiny 16^2 {sampler} ({rows} steps{', eta 0.5' if eta else ''}), "
             f"card bf16 ({t_gpu:.1f} s) vs CPU fp32: max|diff| {diff.max():.4f} (tol "
             f"{tol[0]}), mean {diff.mean():.5f} (tol {tol[1]})")
-        if not (np.isfinite(got).all() and diff.max() <= tol[0] and diff.mean() <= tol[1]):
+        if not (np.isfinite(img).all() and diff.max() <= tol[0] and diff.mean() <= tol[1]):
             raise AssertionError(f"card {sampler} edit disagrees with the CPU fp32 reference")
+
+
+def reference_edits_cpu(state: str, inputs: tuple, runs: list[dict]) -> list:
+    """phase_reference_samplers' CPU side, in its own process: configs/tiny.yaml
+    at fp32 with plain attention on the card model's weights (the state
+    dict saved at ``state``), each of ``runs`` an edit_batch of ``inputs``."""
+    import torch
+
+    from pbe_tpu_torch.pipelines.loading import load_pipeline
+
+    cpu, _ = load_pipeline("configs/tiny.yaml", device="cpu", dtype=torch.float32,
+                           attn_impl="plain", verbose=False)
+    cpu.model.load_state_dict(torch.load(state))
+    return [cpu.edit_batch(*inputs, **kw) for kw in runs]
 
 
 def build_v1_for_training():
@@ -3547,13 +3597,42 @@ def unet_call_flops(config: str = "configs/v1.yaml") -> dict:
             "flash_share": flash / total}
 
 
+def int8_model(root: str) -> list[str]:
+    """Phase 25's int8 model in ``root``: v1's YAML with the UNet cut to
+    FROZEN_INT8_RES_BLOCKS res blocks a level (its widths unchanged), its
+    zero-init tensors seeded as phase 4 seeds v1's, as a checkpoint ->
+    verify_frozen_program's --config and --ckpt arguments."""
+    import torch
+
+    from pbe_tpu_torch.pipelines.loading import load_pipeline, randomize_zero_params
+
+    with open("configs/v1.yaml") as f:
+        v1_yaml = f.read()
+    unet_blocks = "        num_res_blocks: 2\n        channel_mult: [ 1, 2, 4, 4 ]\n"
+    if v1_yaml.count(unet_blocks) != 1:
+        raise AssertionError("configs/v1.yaml's UNet geometry moved")
+    config = os.path.join(root, "v1_int8.yaml")
+    with open(config, "w") as f:
+        f.write(v1_yaml.replace(unet_blocks, unet_blocks.replace(
+            "2", str(FROZEN_INT8_RES_BLOCKS), 1)))
+    pipe, _ = load_pipeline(config, device="cuda", verbose=False)
+    zero = [n for n, p in pipe.model.named_parameters() if not torch.any(p)]
+    randomize_zero_params(pipe.model, seed=0)
+    ckpt = seeded_checkpoint(pipe, zero, root)
+    del pipe
+    torch.cuda.empty_cache()
+    return ["--config", config, "--ckpt", ckpt]
+
+
 @clocked
 def phase_frozen(ckpt: str, card: str, precisions=("bf16", "int8")) -> dict:
     """Phase 25: the frozen edit on the card, by
-    scripts.verify_frozen_program at v1 width on phase 4's weights: bf16 and
-    int8 at FROZEN_STEPS, the two runs started together (each exports on
-    one host core for minutes) on one params.npz written first; or one of
-    them alone."""
+    scripts.verify_frozen_program: bf16 at v1 on phase 4's weights (one
+    params.npz written first), int8 at v1's widths with
+    FROZEN_INT8_RES_BLOCKS res blocks a level on its own seeded weights,
+    each at FROZEN_STEPS, the two runs started together (each exports on
+    one host core for minutes; int8, the longer, first), the FLOPs of a UNet
+    call traced meanwhile; or one of them alone."""
     import subprocess
 
     import torch
@@ -3561,37 +3640,43 @@ def phase_frozen(ckpt: str, card: str, precisions=("bf16", "int8")) -> dict:
     from pbe_tpu_torch.export_runtime import save_params_npz
     from pbe_tpu_torch.pipelines.loading import load_pipeline
 
-    flops = unet_call_flops()
-    log(f"[frozen] one CFG UNet call: {flops['unet_call_tflop']:.4f} TFLOP "
-        f"(torch.utils.flop_counter), flash ops {flops['flash_tflop']:.4f} TFLOP, "
-        f"share {flops['flash_share']:.4f}")
     want = {shape: n for _, shape, _, n in FLASH_SHAPES}
-    out = {"unet_call": flops}
+    out = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        params = os.path.join(root, "params.npz")
-        pipe, _ = load_pipeline("configs/v1.yaml", ckpt, device="cuda", verbose=False)
-        with torch.no_grad():
-            save_params_npz(params, pipe.model.state_dict())
-        del pipe
-        torch.cuda.empty_cache()
-        out["params_write_s"] = time.perf_counter() - t0
-        log(f"[frozen] v1 params.npz ({os.path.getsize(params) / 1e6:.1f} MB) written in "
-            f"{out['params_write_s']:.1f} s")
         env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
         procs = {}
         try:
-            for name in precisions:
-                extra = ["--quantize", "int8"] if name == "int8" else []
+            # the int8 run starts first: its export, save and load take longest
+            for name in sorted(precisions, key=lambda name: name != "int8"):
+                if name == "bf16":
+                    params = os.path.join(root, "params.npz")
+                    pipe, _ = load_pipeline("configs/v1.yaml", ckpt, device="cuda",
+                                            verbose=False)
+                    with torch.no_grad():
+                        save_params_npz(params, pipe.model.state_dict())
+                    del pipe
+                    torch.cuda.empty_cache()
+                    out["params_write_s"] = time.perf_counter() - t0
+                    log(f"[frozen] v1 params.npz ({os.path.getsize(params) / 1e6:.1f} MB) "
+                        f"written in {out['params_write_s']:.1f} s")
+                    model = ["--config", "configs/v1.yaml", "--ckpt", ckpt, "--params", params]
+                else:
+                    model = [*int8_model(root), "--quantize", "int8"]
                 procs[name] = subprocess.Popen(
                     [sys.executable, "-m", "pbe_tpu_torch.scripts.verify_frozen_program",
-                     "--outdir", os.path.join(root, name), "--config", "configs/v1.yaml",
-                     "--ckpt", ckpt, "--params", params, "--H", "512", "--W", "512",
+                     "--outdir", os.path.join(root, name), *model, "--H", "512", "--W", "512",
                      "--steps", str(FROZEN_STEPS[name]), "--scale", "5",
-                     "--det_first_stage", "1", "--device", "cuda", *extra],
+                     "--det_first_stage", "1", "--device", "cuda"],
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
                     start_new_session=True)
-            for name, proc in procs.items():
+            # traced on the host while the runs export
+            out["unet_call"] = flops = unet_call_flops()
+            log(f"[frozen] one CFG UNet call: {flops['unet_call_tflop']:.4f} TFLOP "
+                f"(torch.utils.flop_counter), flash ops {flops['flash_tflop']:.4f} TFLOP, "
+                f"share {flops['flash_share']:.4f}")
+            for name in precisions:
+                proc = procs[name]
                 stdout, stderr = proc.communicate(timeout=900)
                 if proc.returncode != 0:
                     raise AssertionError(f"verify_frozen_program ({name}) exited "
@@ -3669,8 +3754,12 @@ DDPM_ATTN = {(DDPM_BATCH, 256, 1, 256): 5, (DDPM_BATCH, 16, 1, 256): 1}
 # these head dims (every one outside the tuned table, so kernel_entry names
 # csrc/flash_anyd.cu there), N = 77 (one 64-row tile and 13 rows); peaked
 # and rising-max scores at N = 200 (four key tiles) at ANYD_STRESS_DIMS,
-# packed q/k/v views at ANYD_PACKED_DIMS
-ANYD_DIMS = (1, 12, 28, 56, 64, 96, 100, 128, 192, 200, 256, 384, 640, 1024)
+# packed q/k/v views at ANYD_PACKED_DIMS; the edges of the bf16 launch
+# plans (csrc/flash_anyd.cu launch_fwd_bf16, launch_dkv_bf16) among them:
+# 128 | 129 (the output slice and the dK/dV warp split), 672 | 673 (dK/dV's
+# 64 key rows a block | 32), 784 | 785 (the forward's 8 warps | 4)
+ANYD_DIMS = (1, 12, 28, 56, 64, 96, 100, 128, 129, 192, 200, 256, 384, 640, 672, 673, 784,
+             785, 1024)
 ANYD_STRESS_DIMS = (28, 100, 256, 1024)
 ANYD_PACKED_DIMS = (28, 100)
 # ... and timed at the DDPM shapes and at d = 64 and 128 beside them:
@@ -3679,6 +3768,32 @@ ANYD_TIMED = (("ddpm_n256_d64", (DDPM_BATCH, 256, 1, 64)),
               ("ddpm_n256_d128", (DDPM_BATCH, 256, 1, 128)),
               ("ddpm_n256", (DDPM_BATCH, 256, 1, 256)),
               ("ddpm_mid_n16", (DDPM_BATCH, 16, 1, 256)))
+# the times of csrc/flash_anyd.cu's kernels at ANYD_TIMED before their
+# bf16 forward and dK/dV moved to mma.sync (all SIMT then), by (kernel row,
+# shape name, dtype): the d = 256 rows from phase 29's run then (H100 80GB
+# HBM3, 700 W), the bf16 d = 64 and 128 rows from `sweep_flash_tiles --anyd
+# --baseline` on that kernel source (the mean of its two timings, the same
+# card); the kernels not redesigned since (dQ, fp32) run the same code
+ANYD_BEFORE_MS = {
+    ("flash_fwd", "ddpm_n256", "bfloat16"): 0.4818, ("flash_fwd", "ddpm_mid_n16", "bfloat16"): 0.0346,
+    ("flash_fwd", "ddpm_n256_d64", "bfloat16"): 0.2051,
+    ("flash_fwd", "ddpm_n256_d128", "bfloat16"): 0.2876,
+    ("flash_bwd_dkv", "ddpm_n256_d64", "bfloat16"): 0.4643,
+    ("flash_bwd_dkv", "ddpm_n256_d128", "bfloat16"): 0.7564,
+    ("flash_bwd_dq", "ddpm_n256", "bfloat16"): 0.8196,
+    ("flash_bwd_dq", "ddpm_mid_n16", "bfloat16"): 0.0424,
+    ("flash_bwd_dkv", "ddpm_n256", "bfloat16"): 1.2527,
+    ("flash_bwd_dkv", "ddpm_mid_n16", "bfloat16"): 0.0519,
+    ("flash_fwd", "ddpm_n256", "float32"): 0.4608, ("flash_fwd", "ddpm_mid_n16", "float32"): 0.0327,
+    ("flash_bwd_dq", "ddpm_n256", "float32"): 0.6717,
+    ("flash_bwd_dq", "ddpm_mid_n16", "float32"): 0.0395,
+    ("flash_bwd_dkv", "ddpm_n256", "float32"): 0.9116,
+    ("flash_bwd_dkv", "ddpm_mid_n16", "float32"): 0.0492,
+}
+# the bf16 mma.sync kernels at the DDPM shape on operands at these element
+# offsets from 16-byte aligned buffers: pieces of 8, 4, 2 and 1 elements
+# (load_log2), checked and timed
+ANYD_OFFSETS = (0, 4, 2, 1)
 # phase 29's bf16 UNet against the fp32 one on the card: the output within
 # phase 6's bounds on the output's RMS in place of the image's [0, 1]
 # range (max 0.15, mean 0.02), the loss within phase 19's 1e-2 relative
@@ -3708,9 +3823,12 @@ def phase_test_split(ckpt: str, card: str, rows: list[dict], measured: dict) -> 
     over a synthetic OpenImages tree (dotlist overrides point the test
     split at it), --limit 2 --ddim_steps 50 --scale 5, the FID trio on
     random Inception, every kernel's count set to 0 just before and read
-    just after; then weights_runbook --dry_run on configs/tiny.yaml (its
-    steps subprocesses on the card, each exiting 0). ``measured`` (shape ->
-    row) holds the forward kernel's rows timed earlier in this run."""
+    just after; beside it, in a thread, weights_runbook --dry_run on
+    configs/tiny.yaml (its steps subprocesses on the card, each exiting 0,
+    their launches not this process's). ``measured`` (shape -> row) holds
+    the forward kernel's rows timed earlier in this run."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from pbe_tpu_torch.ops import flash_attention as fa
@@ -3720,7 +3838,11 @@ def phase_test_split(ckpt: str, card: str, rows: list[dict], measured: dict) -> 
 
     t_phase = time.perf_counter()
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        t_book = time.perf_counter()
+        book = pool.submit(weights_runbook.main, [
+            "--dry_run", "--config", "configs/tiny.yaml", "--skip_int8", "--skip_frozen",
+            "--bench_size", "64", "--outdir", os.path.join(tmp, "runbook")])
         tree = os.path.join(tmp, "tree")
         make_synthetic_openimages.make_tree(tree, n_train=0, n_val=4 * TEST_SPLIT_BATCHES,
                                             size=512, seed=26)
@@ -3734,7 +3856,8 @@ def phase_test_split(ckpt: str, card: str, rows: list[dict], measured: dict) -> 
         out["test_s"] = time.perf_counter() - t0
         by_shape = counts["flash_fwd"][1]
         log(f"[test-split] scripts.test v1 512^2 bf16, {TEST_SPLIT_BATCHES} batches of 4, "
-            f"DDIM 50 at CFG 5, FID trio on random Inception: {out['test_s']:.1f} s; "
+            f"DDIM 50 at CFG 5, FID trio on random Inception: {out['test_s']:.1f} s (beside "
+            f"the runbook); "
             f"results {json.dumps(results)}")
         log(f"[test-split] launches: {json.dumps({k: v[0] for k, v in counts.items()})}, "
             f"by shape {by_shape}, with the LSE {lse}")
@@ -3751,15 +3874,12 @@ def phase_test_split(ckpt: str, card: str, rows: list[dict], measured: dict) -> 
         out.update(results=results, launches=sum(by_shape.values()),
                    launches_per_batch=sum(by_shape.values()) / TEST_SPLIT_BATCHES)
 
-        t0 = time.perf_counter()
-        book = weights_runbook.main(["--dry_run", "--config", "configs/tiny.yaml",
-                                     "--skip_int8", "--skip_frozen", "--bench_size", "64",
-                                     "--outdir", os.path.join(tmp, "runbook")])
-        out["runbook_s"] = time.perf_counter() - t0
+        book = book.result(timeout=900)
+        out["runbook_s"] = time.perf_counter() - t_book
         log(f"[test-split] weights_runbook --dry_run --config configs/tiny.yaml --skip_int8 "
-            f"--skip_frozen --bench_size 64: steps {book['steps']} each exited 0, read "
-            f"{json.dumps(book['measured'])} (random weights: mechanics only), "
-            f"{out['runbook_s']:.1f} s")
+            f"--skip_frozen --bench_size 64 (beside scripts.test): steps {book['steps']} each "
+            f"exited 0, read {json.dumps(book['measured'])} (random weights: mechanics "
+            f"only), {out['runbook_s']:.1f} s")
         steps = ["synthetic bench", "bench (fp)", "FID (fp)", "CLIP score (fp)"]
         if book["steps"] != steps or set(book["measured"]["fp"]) != {"FID", "CLIP"}:
             fails.append(f"the runbook ran {book['steps']} and read {book['measured']}")
@@ -4183,14 +4303,89 @@ def expect_ddpm_launches(counts: dict, lse: int, grad: bool, label: str) -> None
                              f"expected {want} ({6 if grad else 0})")
 
 
+def anyd_build_report() -> dict:
+    """csrc/flash_anyd.cu's build (here, timed, where no earlier phase
+    built it) and its kernels: each one's ptxas registers and spills, and
+    its tensor-core instructions (HMMA) in the built library's SASS
+    (cuobjdump -sass). Raises unless every instantiation of the bf16
+    forward and dK/dV (flash_fwd_anyd_mma, flash_bwd_dkv_anyd_mma) holds
+    HMMA."""
+    import re
+    import shutil
+    import subprocess
+
+    from pbe_tpu_torch.ops import cuda_build
+    from pbe_tpu_torch.scripts.sweep_flash_tiles import kernel_label, ptxas_report
+
+    if "flash_anyd" not in BUILD_SECONDS:
+        t = time.perf_counter()
+        cuda_build.build("flash_anyd")
+        BUILD_SECONDS["flash_anyd"] = time.perf_counter() - t
+    lib = cuda_build.build("flash_anyd")
+    report = ptxas_report(cuda_build.build_log("flash_anyd"))
+    log(f"[anyd] flash_anyd.cu built in {BUILD_SECONDS['flash_anyd']:.1f} s; registers and "
+        f"spills (ptxas):\n{report}")
+    spills = [line.strip() for line in report.splitlines()
+              if "_mma<" in line and re.search(r"[1-9]\d* bytes spill", line)]
+    if spills:
+        log(f"[anyd] the mma.sync kernels spill: {spills}")
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build.find_nvcc()),
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    hmma, label = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = kernel_label(m[1]) or m[1]
+            hmma[label] = 0
+        elif label is not None and "HMMA" in line:
+            hmma[label] += 1
+    log(f"[anyd] HMMA instructions by kernel (cuobjdump -sass): {hmma}")
+    mma = {k: v for k, v in hmma.items() if "_anyd_mma<" in k}
+    kinds = {k.split("<")[0] for k in mma}
+    if kinds != {"flash_fwd_anyd_mma", "flash_bwd_dkv_anyd_mma"} or not all(mma.values()):
+        raise AssertionError(f"the bf16 forward and dK/dV of flash_anyd.cu are not on the "
+                             f"tensor cores: HMMA by kernel {hmma}")
+    return {"build_s": BUILD_SECONDS["flash_anyd"], "hmma": hmma, "spills": spills}
+
+
+def anyd_offsets(fa, gen) -> dict:
+    """The bf16 mma.sync kernels at the DDPM shape on q, k, v and dO that
+    start ANYD_OFFSETS elements past 16-byte aligned buffers (pieces of 8,
+    4, 2, 1 elements), each against its plain version (phase 7's
+    tolerances) and timed -> {offset: (forward ms, dK/dV ms)}."""
+    import torch
+
+    shape = (DDPM_BATCH, 256, 1, 256)
+    numel = int(np.prod(shape))
+    out = {}
+    for off in ANYD_OFFSETS:
+        q, k, v, do = (torch.randn(numel + 8, generator=gen, device="cuda")
+                       .to(torch.bfloat16)[off:off + numel].view(shape) for _ in range(4))
+        label = f"anyd bf16 {shape} at offset {off}"
+        check_flash_f32(fa, q, k, v, label)
+        check_bwd(fa, q, k, v, do, label)
+        lse = fa.flash_fwd(q, k, v, return_lse=True)[1]
+        dd = fa.rowsum_do_o(do, fa.flash_fwd(q, k, v))
+        out[off] = (graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
+                    graph_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd), 20))
+        log(f"[anyd] {label}: forward {out[off][0]:.4f} ms, dK/dV {out[off][1]:.4f} ms")
+        del q, k, v, do, lse, dd
+    torch.cuda.empty_cache()
+    return out
+
+
 @clocked
 def phase_ddpm(card: str, rows: list[dict]) -> dict:
     """Phase 29: csrc/flash_anyd.cu and the DDPM CIFAR-10 UNet with
-    attn_impl="flash". (a) the forward, dQ and dK/dV kernels at both
-    dtypes against their plain versions at ANYD_DIMS (ragged N = 77),
-    on peaked and rising-max scores and packed q/k/v views, each launched
-    twice and compared bitwise, no other kernel launched; d = 1025
-    refused. (b) vae_legacy.Model at DDPM_CIFAR, batch 128, seeded weights:
+    attn_impl="flash". (a) the build, ptxas and SASS report
+    (anyd_build_report: HMMA in the bf16 forward and dK/dV or the phase
+    fails); the forward, dQ and dK/dV kernels at both dtypes against their
+    plain versions at ANYD_DIMS (ragged N = 77), on peaked and rising-max
+    scores and packed q/k/v views, each launched twice and compared
+    bitwise, and the bf16 ones at ANYD_OFFSETS (anyd_offsets), no other
+    kernel launched; d = 1025 refused. (b) vae_legacy.Model at DDPM_CIFAR, batch 128, seeded weights:
     a forward and the gradient of the epsilon-MSE loss at injected
     timesteps and noise, at fp32 and bf16,
     each run's launches counted from 0 (expect_ddpm_launches); fp32 flash
@@ -4199,7 +4394,8 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
     each dtype; card fp32 flash against the CPU at batch 16. (c) each kernel
     at ANYD_TIMED against its plain version and timed beside it and SDPA,
     its launches those of (b)'s runs at that shape: the kernels line's
-    *_anyd rows."""
+    *_anyd rows; ANYD_BEFORE_MS's time, recorded before the redesign, is
+    printed in each row's log line and not put in the row."""
     import torch
 
     from pbe_tpu_torch.models import vae_legacy as vl
@@ -4207,6 +4403,7 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
     from pbe_tpu_torch.schedules import DiffusionSchedule
 
     t_phase = time.perf_counter()
+    build = anyd_build_report()
     gen = torch.Generator(device="cuda").manual_seed(29)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -4231,9 +4428,13 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
                 label = f"anyd packed qkv views {dtype} {tuple(q.shape)} strides {q.stride()}"
                 check_flash_f32(fa, q, k, v, label)
                 check_bwd(fa, q, k, v, rand(q.shape), label)
+    def all_checks():
+        checks()
+        return anyd_offsets(fa, gen)
+
     # every head dim of ANYD_DIMS lies outside the tuned table: only
     # csrc/flash_anyd.cu's kernels ran
-    _, by_kernel, _ = anyd_counted(fa, checks)
+    offsets, by_kernel, _ = anyd_counted(fa, all_checks)
     ran = {name for kernels, _ in by_kernel.values() for name in kernels}
     log(f"[anyd] the checks launched {ran}")
     if ran != {"flash_fwd_anyd", "flash_bwd_dq_anyd", "flash_bwd_dkv_anyd"}:
@@ -4246,6 +4447,7 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
         log(f"[anyd] head dim {fa.ANYD_MAX_HEAD_DIM + 1} refused: {e}")
     checks_s = time.perf_counter() - t_phase
     log(f"[anyd] every check passed in {checks_s:.1f} s")
+    out_build = {**build, "offsets": offsets}
 
     sched = DiffusionSchedule.create()
     g = torch.Generator().manual_seed(29)
@@ -4294,7 +4496,7 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
             f"{['%.2f' % (1e3 * x) for x in times]}, peak {res[name]['peak_mb']:.0f} MB ({card})")
     ref = res.pop("plain")
     rms = float(ref["y"].square().mean().sqrt())
-    fails, out = [], {"checks_s": checks_s}
+    fails, out = [], {"checks_s": checks_s, "build": out_build}
     for name, r in res.items():
         diff = (r["y"] - ref["y"]).abs()
         cmp = {"max": float(diff.max()) / rms, "mean": float(diff.mean()) / rms,
@@ -4342,6 +4544,14 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
                 kname, rest = row["name"].split("/", 1)
                 row["name"] = f"{kname}_anyd/{rest}"
                 row["launches"] = launches[dname][kname].get(shape, 0)
+                before = ANYD_BEFORE_MS.get((kname, name, dname))
+                redesigned = dname == "bfloat16" and kname in ("flash_fwd", "flash_fwd_lse",
+                                                               "flash_bwd_dkv")
+                log(f"[anyd] {row['name']} {dname}: {row['ms']:.4f} ms (before "
+                    + (f"{before:.4f}" if before else
+                       "not recorded" if redesigned else "the same kernel")
+                    + f"), plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound "
+                    f"{row['bound_ms']:.4f} ms ({card})")
                 row["run"] = (f"phase 29: one forward and one gradient of the DDPM CIFAR-10 UNet "
                               f"at batch {DDPM_BATCH}, {dname}")
             rows += new
@@ -4475,6 +4685,14 @@ def main(argv=None) -> int:
     phase_train_reference()
     phase_vae_train_reference()
     phase_reference_samplers()
+    # the forward kernel's rows timed above, by shape (bf16)
+    measured = {shape: row for shapes, shape_rows in ((FLASH_SHAPES, rows),
+                                                      (CLI_SHAPES, cli_rows),
+                                                      (SERVE_SHAPES, serve_rows))
+                for (_, shape, *_), row in zip(shapes, shape_rows)}
+    # needs no late build: it runs while flash_fp32.cu may still build
+    overfit_rows = []
+    overfit = phase_overfit(card, overfit_rows, measured)
     wait_late()
     f32_rows = phase_fp32_kernels()
     variant_rows += phase_variants_f32()
@@ -4485,14 +4703,9 @@ def main(argv=None) -> int:
     safety = phase_safety(ckpt, card)
     frozen = phase_frozen(ckpt, card)
     slice_rows = []
-    # the forward kernel's rows timed above, by shape (bf16)
-    measured = {shape: row for shapes, shape_rows in ((FLASH_SHAPES, rows),
-                                                      (CLI_SHAPES, cli_rows),
-                                                      (SERVE_SHAPES, serve_rows))
-                for (_, shape, *_), row in zip(shapes, shape_rows)}
     test_split = phase_test_split(ckpt, card, slice_rows, measured)
     seeded.cleanup()
-    overfit = phase_overfit(card, slice_rows, measured)
+    slice_rows += overfit_rows
     legacy = phase_legacy(card, slice_rows)
     ddpm = phase_ddpm(card, slice_rows)
     log(f"[clock] every phase done at {time.perf_counter() - _START:.1f} s (limit 1200 s)")

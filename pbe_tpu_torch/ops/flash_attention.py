@@ -71,7 +71,7 @@ LOG2E = 1.4426950408889634  # log2(e): exp(x) == exp2(x * LOG2E)
 # too), 16/32 configs/tiny.yaml
 SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
 # csrc/flash_anyd.cu's forward, dQ and dK/dV kernels take every head dim
-# from 1 to this, read one element a load
+# from 1 to this
 ANYD_MAX_HEAD_DIM = 1024
 # the passes that have both kinds of kernel, by the stem of their entries
 ANYD_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
@@ -239,9 +239,10 @@ def layout_error(x: torch.Tensor) -> str | None:
     """Why the kernel that runs at x's head dim (:func:`kernel_entry`)
     cannot read x in place, or None. The tuned kernels take a unit head-dim
     stride and rows and base aligned to 8 elements (16 bytes of bf16, 32 of
-    fp32); csrc/flash_anyd.cu's read one element a load and take any
-    strides with a unit head-dim stride, at head dims 1 to
-    :data:`ANYD_MAX_HEAD_DIM`."""
+    fp32); csrc/flash_anyd.cu's take any strides with a unit head-dim
+    stride, at head dims 1 to :data:`ANYD_MAX_HEAD_DIM` (its bf16 forward
+    and dK/dV copy the widest pieces of 8, 4, 2 or 1 elements that the
+    head dim, base and strides allow; the rest read one element a load)."""
     if x.dim() != 4:
         return f"expected (B,N,H,D), got shape {tuple(x.shape)}"
     d = x.shape[3]

@@ -2,10 +2,12 @@
 (csrc/flash_fwd.cu ``flash_fwd_kernel``), with ``--bwd`` the backward
 (csrc/flash_bwd.cu ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``),
 with ``--variants`` the resident and pipelined kernels
-(csrc/flash_variants.cu).
+(csrc/flash_variants.cu), with ``--anyd`` the bf16 forward and dK/dV of
+csrc/flash_anyd.cu (``flash_fwd_anyd_mma``, ``flash_bwd_dkv_anyd_mma``).
 
-    python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--bwd | --variants]
+    python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--bwd | --variants | --anyd]
         [--repeats 50] [--settings "first:48=4x64,80=4x64,160=2x32" ...]
+        [--baseline OTHER/pbe_tpu_torch/csrc/flash_anyd.cu]
 
 ``pbe_flash_fwd_bf16`` picks (warps, key tile) by padded head dim in its
 ``launch_fwd<DP, WARPS, BK>`` lines. Each setting rewrites some of those
@@ -22,7 +24,14 @@ and consumer warps at d <= 160) and ``warps16=DP``
 pipelined kernel runs 16 warps a block), and each
 setting's kernels are timed by CUDA graph at the attention benchmark's
 shapes (the pipelined kernel at every key chunk, the resident one at its
-default key block and every cluster size). The settings are
+default key block and every cluster size). With ``--anyd`` a setting
+rewrites flash_anyd.cu's ``fwarps=N``, ``fslice=N``, ``split=N`` and
+``stages=N`` (``kFwdWarps``, ``kFwdSlice``, ``kDkvSplit``, ``STAGES``), and
+``--baseline`` adds another checkout's flash_anyd.cu as one more setting;
+each setting's bf16 forward and dK/dV are timed by CUDA graph at
+ANYD_SHAPES (the DDPM CIFAR-10 UNet's two attention shapes at batch 128,
+and d = 64, 128 and 1024 at N = 256), twice, the settings in turn and
+then in reverse order. The settings are
 built side by side with nvcc into ``csrc/build/sweep/`` (the shipped
 library is not touched). Each is checked against its plain version (rel
 L2 <= 1e-2 for every output) and timed at the UNet shapes of the edit and
@@ -86,6 +95,18 @@ VARIANT_SETTINGS = (
 )
 VARIANT_CONSTANTS = {"stages": "kResidentStages", "rwarps": "kResidentWarps",
                      "warps16": "kPipelined16WarpsDP"}
+# flash_anyd.cu's settings, the shipped constants first
+ANYD_SETTINGS = (
+    "shipped:",
+    "fw4:fwarps=4",
+    "st4:stages=4",
+    "fs128:fslice=128,split=1",
+)
+ANYD_CONSTANTS = {"fwarps": "kFwdWarps", "fslice": "kFwdSlice", "split": "kDkvSplit",
+                  "stages": "STAGES"}
+ANYD_SHAPES = {"ddpm_n256": (128, 256, 1, 256), "ddpm_mid_n16": (128, 16, 1, 256),
+               "d64": (128, 256, 1, 64), "d128": (128, 256, 1, 128),
+               "d1024": (128, 256, 1, 1024)}
 # template arguments after the head dim of each backward launch line
 BWD_ARGS = {"dq": ("warps", "bk", "hold", "minb"),
             "dkv": ("warps", "bq", "hold", "split", "minb")}
@@ -102,14 +123,17 @@ FTZ_EXP2 = """__device__ __forceinline__ float ex2_ftz(float x) {
 
 def variant_source(spec: str, source: str = "flash_fwd") -> str:
     """csrc/<source>.cu with the tiles (and exp2) of one setting."""
+    if spec.startswith("file="):  # another checkout's source, as it is
+        return open(spec.removeprefix("file=")).read()
     src = (cuda_build.CSRC / f"{source}.cu").read_text()
     for item in filter(None, spec.split(",")):
-        if source == "flash_variants":
+        if source in ("flash_variants", "flash_anyd"):
             key, val = item.split("=")
-            src, n = re.subn(rf"constexpr int {VARIANT_CONSTANTS[key]} = \d+;",
-                             f"constexpr int {VARIANT_CONSTANTS[key]} = {int(val)};", src)
+            name = (VARIANT_CONSTANTS if source == "flash_variants" else ANYD_CONSTANTS)[key]
+            src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {int(val)};",
+                             src)
             if n != 1:
-                raise ValueError(f"no constant {VARIANT_CONSTANTS[key]} in {source}.cu")
+                raise ValueError(f"no constant {name} in {source}.cu")
             continue
         if item == "ftz":
             src = src.replace('#include "mma_sm90.cuh"', FTZ_EXP2 + '#include "mma_sm90.cuh"')
@@ -134,25 +158,36 @@ def ptxas_report(log: str) -> str:
     """One line per instantiation of the flash kernels (forward, its
     resident and pipelined variants, backward, and their fp32 kernels: the
     forward at d <= 160 and at 512, resident, pipelined, dQ, dK/dV; the
-    any-head-dim forward, dQ and dK/dV at bf16 and fp32) in a -Xptxas -v
-    log: its template arguments (the operand type of the any-head-dim
-    kernels), registers and spill bytes."""
+    any-head-dim SIMT forward, dQ and dK/dV and the bf16 forward and dK/dV
+    on mma.sync) in a -Xptxas -v log: its template arguments (the operand
+    type of the SIMT any-head-dim kernels), registers and spill bytes."""
     lines = log.splitlines()
     report = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '_Z\w*?"
-                      r"(flash_(?:fwd|fwd_wide|resident|resident_wide|pipelined|pipelined_wide"
-                      r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|fwd_wide_f32|bwd_dq_f32"
-                      r"|bwd_dkv_f32"
-                      r"|resident_f32|pipelined_f32)"
-                      r"_kernel|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd)(I\w+?EE)?", line)
-        if m and i + 3 < len(lines):
-            targs = m[2] or ""
-            args = (", ".join(re.findall(r"L[ib](\d+)E", targs))
-                    or ("bf16" if "bfloat16" in targs else "fp32" if targs.startswith("If") else "-"))
-            report.append(f"  {m[1]}<{args}>: {lines[i + 2].strip()}; "
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
+        label = m and kernel_label(m[1])
+        if label and i + 3 < len(lines):
+            report.append(f"  {label}: {lines[i + 2].strip()}; "
                           f"{lines[i + 3].split(':', 1)[1].strip()}")
     return "\n".join(report)
+
+
+def kernel_label(mangled: str) -> str | None:
+    """``name<template arguments>`` of a flash kernel's mangled symbol (the
+    operand type of the SIMT any-head-dim kernels), or None for any other
+    symbol."""
+    m = re.search(r"(flash_(?:fwd|fwd_wide|resident|resident_wide|pipelined|pipelined_wide"
+                  r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|fwd_wide_f32|bwd_dq_f32"
+                  r"|bwd_dkv_f32"
+                  r"|resident_f32|pipelined_f32)"
+                  r"_kernel|flash_(?:fwd|bwd_dkv)_anyd_mma|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd)"
+                  r"(I\w+?EE)?", mangled)
+    if m is None:
+        return None
+    targs = m[2] or ""
+    args = (", ".join(re.findall(r"L[ib](\d+)E", targs))
+            or ("bf16" if "bfloat16" in targs else "fp32" if targs.startswith("If") else "-"))
+    return f"{m[1]}<{args}>"
 
 
 def build(name: str, spec: str, source: str = "flash_fwd") -> tuple[str, str]:
@@ -286,6 +321,57 @@ def sweep_variants(built: dict, settings: dict, repeats: int) -> None:
                                         q.device) / 1e3}), flush=True)
 
 
+def sweep_anyd(built: dict, settings: dict, repeats: int) -> None:
+    """Each setting's bf16 forward and dK/dV of flash_anyd.cu at
+    ANYD_SHAPES, checked against their plain versions (rel L2 <= 1e-2) and
+    timed by CUDA graph, the settings in turn and then in reverse."""
+    from pbe_tpu_torch.scripts.bench_attention import time_us
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kerns = {"fwd": fa.FlashForward(), "dkv": fa.FlashBackward("dkv")}
+    fns = {}
+    for name, (lib, report) in built.items():
+        print(f"[{name}] {settings[name] or 'as shipped'}\n{report}", flush=True)
+        fns[name] = {}
+        for which, kern in kerns.items():
+            symbol = kern.entry(torch.bfloat16, 256)[1]
+            fn = getattr(ctypes.CDLL(lib), symbol)
+            fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+            fns[name][which] = (symbol, fn)
+
+    def use(name):
+        for which, kern in kerns.items():
+            symbol, fn = fns[name][which]
+            kern._fns[symbol] = fn
+
+    order = list(built) + list(built)[::-1]
+    for sname, shape in ANYD_SHAPES.items():
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+        dd = fa.rowsum_do_o(do, out)
+        want_dkv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd)
+        times = {name: {"fwd": [], "dkv": []} for name in built}
+        for name in order:
+            use(name)
+            calls = {"fwd": lambda: kerns["fwd"](q, k, v),
+                     "dkv": lambda: kerns["dkv"](q, k, v, do, lse, dd)}
+            for which, call in calls.items():
+                got, want = call(), (out,) if which == "fwd" else want_dkv
+                got = (got,) if which == "fwd" else got
+                rel_l2 = max(((g.float() - w.float()).norm() / w.float().norm()).item()
+                             for g, w in zip(got, want))
+                if rel_l2 > 1e-2:
+                    raise AssertionError(f"setting {name} {which} disagrees with the plain "
+                                         f"version at {sname}: rel L2 {rel_l2:.3e}")
+                times[name][which].append(time_us(call, repeats, q.device) / 1e3)
+        for name in built:
+            print(json.dumps({"setting": name, "shape": sname,
+                              **{f"{w}_ms": t for w, t in times[name].items()}}), flush=True)
+        del q, k, v, do, out, lse, dd, want_dkv
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     which = p.add_mutually_exclusive_group()
@@ -293,6 +379,10 @@ def main(argv=None) -> None:
                        help="sweep the backward kernels (csrc/flash_bwd.cu)")
     which.add_argument("--variants", action="store_true",
                        help="sweep the resident and pipelined kernels (csrc/flash_variants.cu)")
+    which.add_argument("--anyd", action="store_true",
+                       help="sweep the bf16 mma.sync kernels of csrc/flash_anyd.cu")
+    p.add_argument("--baseline", default=None,
+                   help="with --anyd: another checkout's flash_anyd.cu, timed as a setting")
     p.add_argument("--repeats", type=int, default=50)
     p.add_argument("--settings", nargs="+", default=None,
                    help="name:DP=WARPSxBK,... or name:ftz (forward); "
@@ -301,10 +391,13 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sweep_flash_tiles: no CUDA device; the sweep runs on the card")
     print(card_line(), flush=True)
-    source = "flash_bwd" if args.bwd else "flash_variants" if args.variants else "flash_fwd"
+    source = ("flash_bwd" if args.bwd else "flash_variants" if args.variants
+              else "flash_anyd" if args.anyd else "flash_fwd")
     settings = dict(s.split(":", 1) for s in args.settings or {
         "flash_fwd": SETTINGS, "flash_bwd": BWD_SETTINGS,
-        "flash_variants": VARIANT_SETTINGS}[source])
+        "flash_variants": VARIANT_SETTINGS, "flash_anyd": ANYD_SETTINGS}[source])
+    if args.baseline:
+        settings["baseline"] = f"file={args.baseline}"
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(settings)) as pool:
         built = dict(zip(settings, pool.map(build, settings, settings.values(),
@@ -312,7 +405,8 @@ def main(argv=None) -> None:
     print(f"built {len(built)} settings of {source}.cu side by side in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     {"flash_fwd": sweep_forward, "flash_bwd": sweep_backward,
-     "flash_variants": sweep_variants}[source](built, settings, args.repeats)
+     "flash_variants": sweep_variants, "flash_anyd": sweep_anyd}[source](built, settings,
+                                                                        args.repeats)
 
 
 if __name__ == "__main__":

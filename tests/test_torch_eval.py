@@ -5,6 +5,7 @@ the CLIP embedder on a tiny tower with the JAX weights carried across, the
 mask-box crop, the region CLIP score; then each CLI in-process on a few
 64^2 images against the port's own library call on the same inputs (the
 library calls are the ones held against JAX above)."""
+import contextlib
 import pickle
 
 import jax
@@ -35,10 +36,17 @@ TINY_CLIP = dict(hidden_size=64, num_layers=2, num_heads=2, mlp_dim=32, patch_si
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
-    """Six test workers share the CPU: two intra-op threads each."""
+    """Six test workers share the CPU: two intra-op threads each, and two
+    BLAS threads for numpy (the FID trio's float64 eigendecompositions,
+    which with a thread per core stall behind the other workers)."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
-    yield
+    try:  # scikit-learn's dependency, there wherever tests/test_torch_eval.py runs
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        threadpool_limits = lambda n: contextlib.nullcontext()
+    with threadpool_limits(2):
+        yield
     torch.set_num_threads(n)
 
 

@@ -186,17 +186,32 @@ def test_wrappers_refuse_cpu_tensors_at_any_head_dim():
 
 def test_source_defines_every_anyd_entry_with_its_twins_arguments():
     """csrc/flash_anyd.cu exports the six symbols the wrappers load, each
-    with its tuned twin's parameter list (the wrappers share argtypes)."""
-    def params(path, symbol):
+    with its tuned twin's parameter list (the wrappers share argtypes); the
+    bf16 forward and dK/dV entries launch the mma.sync kernels, every other
+    entry its SIMT kernel, and the SIMT forward and dK/dV exist at fp32
+    only."""
+    def entry(path, symbol):
         src = (CSRC / path).read_text()
-        m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+        m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\) \{(.*?)\n\}", src, re.S)
         assert m, (path, symbol)
-        return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+        return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")], m.group(2)
 
+    body = {}
     for kind, twin in (("fwd", "flash_fwd"), ("bwd_dq", "flash_bwd"), ("bwd_dkv", "flash_bwd")):
         for sfx in ("bf16", "f32"):
-            assert (params("flash_anyd.cu", f"pbe_flash_{kind}_anyd_{sfx}")
-                    == params(f"{twin}.cu", f"pbe_flash_{kind}_bf16"))
+            params, body[kind, sfx] = entry("flash_anyd.cu", f"pbe_flash_{kind}_anyd_{sfx}")
+            assert params == entry(f"{twin}.cu", f"pbe_flash_{kind}_bf16")[0]
+    assert "launch_fwd_bf16(a" in body["fwd", "bf16"]
+    assert "launch_dkv_bf16(a" in body["bwd_dkv", "bf16"]
+    for kind, sfx, run in (("fwd", "f32", "run_fwd<float>"), ("bwd_dq", "bf16", "run_dq<bf16>"),
+                           ("bwd_dq", "f32", "run_dq<float>"),
+                           ("bwd_dkv", "f32", "run_dkv<float>")):
+        assert run in body[kind, sfx], (kind, sfx)
+    src = (CSRC / "flash_anyd.cu").read_text()
+    assert "run_fwd<bf16>" not in src and "run_dkv<bf16>" not in src
+    for kern in ("flash_fwd_anyd_mma<", "flash_bwd_dkv_anyd_mma<"):
+        assert f"auto kern = {kern}" in src
+    assert '#include "mma_sm90.cuh"' in src and "mma_bf16(" in src
     assert cuda_build.library_path("flash_anyd").name.startswith("libflash_anyd-")
 
 
@@ -287,14 +302,24 @@ def test_ptxas_report_names_the_anyd_kernels_by_operand_type():
     operand type, as nvcc mangles the template's one argument."""
     from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
 
+    def compiled(mangled):
+        return [f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+                "ptxas info    : Function properties for x",
+                "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                "ptxas info    : Used 168 registers, used 1 barriers"]
+
     log, want = [], []
-    for name in ("flash_fwd_anyd", "flash_bwd_dq_anyd", "flash_bwd_dkv_anyd"):
-        for mangled, sfx in (("I13__nv_bfloat16EE", "bf16"), ("IfEE", "fp32")):
-            log += [f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(name)}{name}"
-                    f"{mangled}vNS_4ArgsIT_EE' for 'sm_90a'",
-                    "ptxas info    : Function properties for x",
-                    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-                    "ptxas info    : Used 168 registers, used 1 barriers"]
+    for name, types in (("flash_fwd_anyd", ("fp32",)), ("flash_bwd_dq_anyd", ("bf16", "fp32")),
+                        ("flash_bwd_dkv_anyd", ("fp32",))):
+        for sfx in types:
+            mangled = "I13__nv_bfloat16EE" if sfx == "bf16" else "IfEE"
+            log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}{mangled}vNS_4ArgsIT_EE")
             want.append(f"  {name}<{sfx}>: 0 bytes stack frame")
+    # the bf16 forward and dK/dV on mma.sync, by their tile arguments
+    for name, args in (("flash_fwd_anyd_mma", (4, 128)), ("flash_fwd_anyd_mma", (4, 256)),
+                       ("flash_bwd_dkv_anyd_mma", (4, 1)), ("flash_bwd_dkv_anyd_mma", (2, 2))):
+        targs = "".join(f"Li{a}E" for a in args)
+        log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvNS_4ArgsI13__nv_bfloat16EE")
+        want.append(f"  {name}<{', '.join(map(str, args))}>: 0 bytes stack frame")
     report = ptxas_report("\n".join(log)).splitlines()
     assert [line[:len(w)] for line, w in zip(report, want)] == want and len(report) == len(want)

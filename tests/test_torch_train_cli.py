@@ -5,6 +5,7 @@ to the trainer, on the CPU: bf16-moment AdamW against optax's
 --resume restores), the loss ``Trainer.fit`` reaches on the data module's
 first batch against the JAX loss on the same draws, ``log_images`` against
 ``infer_batch``, --train_from_scratch's key filter and the refusals."""
+import contextlib
 import copy
 import glob
 import json
@@ -37,10 +38,17 @@ SIZE = 64
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
-    """Six test workers share the CPU: two intra-op threads each."""
+    """Six test workers share the CPU: two intra-op threads each, and two
+    BLAS threads for numpy (the FID trio's float64 eigendecompositions,
+    which with a thread per core stall behind the other workers)."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
-    yield
+    try:  # scikit-learn's dependency, there wherever tests/test_torch_eval.py runs
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        threadpool_limits = lambda n: contextlib.nullcontext()
+    with threadpool_limits(2):
+        yield
     torch.set_num_threads(n)
 
 
