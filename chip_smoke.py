@@ -236,13 +236,15 @@ The remaining user scripts and the legacy models (the seventeenth slice):
 The flash kernels at any head dim (the eighteenth slice):
  29. csrc/flash_anyd.cu's build seconds, each kernel's ptxas registers
      and spills, and the tensor-core instructions (HMMA) of the bf16
-     forward and dK/dV in the library's SASS (cuobjdump; the phase fails
-     without them); its forward, dQ and dK/dV kernels, bf16 and fp32,
-     against their plain versions at d = 1 ... 1024 (ANYD_DIMS; N = 77),
-     on peaked and rising-max scores and packed q/k/v views, each launched
-     twice and compared bitwise, and the bf16 forward and dK/dV at the
-     DDPM shape on operands at odd offsets (load pieces of 8, 4, 2, 1
-     elements), checked and timed; then the DDPM CIFAR-10 UNet
+     forward, dQ and dK/dV and the fp32 dK/dV in the library's SASS
+     (cuobjdump; the phase fails without them, with no SIMT kernel left in
+     their place, or where the dQ or fp32 dK/dV spills); its forward, dQ
+     and dK/dV kernels, bf16 and fp32, against their plain versions at
+     d = 1 ... 1024 (ANYD_DIMS; N = 77), on peaked and rising-max scores
+     and packed q/k/v views, each launched twice and compared bitwise, and
+     the bf16 forward, dQ and dK/dV and the fp32 dK/dV at the DDPM shape
+     on operands at odd offsets (load pieces of 8, 4, 2, 1 elements),
+     checked and timed; then the DDPM CIFAR-10 UNet
      (vae_legacy.Model, Ho et al. 2020's widths, attn_impl="flash") at
      batch 128: a forward and the gradient of its epsilon-MSE loss at fp32
      and bf16, each run 6 flash_fwd_anyd launches (5 at (128, 256, 1,
@@ -250,8 +252,8 @@ The flash kernels at any head dim (the eighteenth slice):
      kernel, nothing else; held against plain attention on the card and
      the CPU at batch 16; step p50 and peak memory; each kernel timed at
      the DDPM shapes and at d = 64 and 128 beside its plain version,
-     SDPA (rows named *_anyd), each row's log line with the time recorded
-     before the bf16 forward and dK/dV moved to mma.sync (ANYD_BEFORE_MS).
+     SDPA (rows named *_anyd), the log lines of the bf16 dQ and fp32
+     dK/dV rows with their times before their redesign (ANYD_BEFORE_MS).
 
 A run takes them in the order 1, 2, 7, 17, 11's bf16 part, 3, 4, 12, 13,
 14, 5, 8, 9, 15, 16, 18, 6, 10, 19, 12's tiny edits, 27, then 20, 11's
@@ -3754,12 +3756,16 @@ DDPM_ATTN = {(DDPM_BATCH, 256, 1, 256): 5, (DDPM_BATCH, 16, 1, 256): 1}
 # these head dims (every one outside the tuned table, so kernel_entry names
 # csrc/flash_anyd.cu there), N = 77 (one 64-row tile and 13 rows); peaked
 # and rising-max scores at N = 200 (four key tiles) at ANYD_STRESS_DIMS,
-# packed q/k/v views at ANYD_PACKED_DIMS; the edges of the bf16 launch
-# plans (csrc/flash_anyd.cu launch_fwd_bf16, launch_dkv_bf16) among them:
-# 128 | 129 (the output slice and the dK/dV warp split), 672 | 673 (dK/dV's
-# 64 key rows a block | 32), 784 | 785 (the forward's 8 warps | 4)
-ANYD_DIMS = (1, 12, 28, 56, 64, 96, 100, 128, 129, 192, 200, 256, 384, 640, 672, 673, 784,
-             785, 1024)
+# packed q/k/v views at ANYD_PACKED_DIMS; the edges of the launch plans
+# (csrc/flash_anyd.cu launch_fwd_bf16, launch_dq_bf16, launch_dkv_bf16,
+# launch_dkv_f32) among them: 128 | 129 (the output slices, the bf16 dK/dV
+# warp split, the fp32 dK/dV's 128 columns a warp | 256), 256 | 257 (one
+# column split | two), 304 | 305 (the fp32 dK/dV's 64 key rows a block |
+# 32), 336 | 337 (dQ's 8 warps | 4), 656 | 657 (the fp32 dK/dV's 32 key
+# rows | 16), 672 | 673 (the bf16 dK/dV's 64 key rows | 32, dQ's 4 warps |
+# 2), 784 | 785 (the forward's 8 warps | 4)
+ANYD_DIMS = (1, 12, 28, 56, 64, 96, 100, 128, 129, 192, 200, 256, 257, 304, 305, 336, 337, 384,
+             640, 656, 657, 672, 673, 784, 785, 1024)
 ANYD_STRESS_DIMS = (28, 100, 256, 1024)
 ANYD_PACKED_DIMS = (28, 100)
 # ... and timed at the DDPM shapes and at d = 64 and 128 beside them:
@@ -3768,32 +3774,26 @@ ANYD_TIMED = (("ddpm_n256_d64", (DDPM_BATCH, 256, 1, 64)),
               ("ddpm_n256_d128", (DDPM_BATCH, 256, 1, 128)),
               ("ddpm_n256", (DDPM_BATCH, 256, 1, 256)),
               ("ddpm_mid_n16", (DDPM_BATCH, 16, 1, 256)))
-# the times of csrc/flash_anyd.cu's kernels at ANYD_TIMED before their
-# bf16 forward and dK/dV moved to mma.sync (all SIMT then), by (kernel row,
-# shape name, dtype): the d = 256 rows from phase 29's run then (H100 80GB
-# HBM3, 700 W), the bf16 d = 64 and 128 rows from `sweep_flash_tiles --anyd
-# --baseline` on that kernel source (the mean of its two timings, the same
-# card); the kernels not redesigned since (dQ, fp32) run the same code
+# the times of the kernels csrc/flash_anyd.cu's twentieth slice redesigned
+# (the bf16 dQ on mma.sync, the fp32 dK/dV on 3xTF32) at ANYD_TIMED before
+# it, by (kernel row, shape name, dtype): phase 29's final run of the slice
+# before (H100 80GB HBM3, 700 W; SIMT fp32 FMA then), the fp32 d = 64 and
+# 128 rows from `sweep_flash_tiles --anyd --baseline` on that kernel source
+# (the mean of its two timings, the same card); for log lines only
 ANYD_BEFORE_MS = {
-    ("flash_fwd", "ddpm_n256", "bfloat16"): 0.4818, ("flash_fwd", "ddpm_mid_n16", "bfloat16"): 0.0346,
-    ("flash_fwd", "ddpm_n256_d64", "bfloat16"): 0.2051,
-    ("flash_fwd", "ddpm_n256_d128", "bfloat16"): 0.2876,
-    ("flash_bwd_dkv", "ddpm_n256_d64", "bfloat16"): 0.4643,
-    ("flash_bwd_dkv", "ddpm_n256_d128", "bfloat16"): 0.7564,
-    ("flash_bwd_dq", "ddpm_n256", "bfloat16"): 0.8196,
-    ("flash_bwd_dq", "ddpm_mid_n16", "bfloat16"): 0.0424,
-    ("flash_bwd_dkv", "ddpm_n256", "bfloat16"): 1.2527,
-    ("flash_bwd_dkv", "ddpm_mid_n16", "bfloat16"): 0.0519,
-    ("flash_fwd", "ddpm_n256", "float32"): 0.4608, ("flash_fwd", "ddpm_mid_n16", "float32"): 0.0327,
-    ("flash_bwd_dq", "ddpm_n256", "float32"): 0.6717,
-    ("flash_bwd_dq", "ddpm_mid_n16", "float32"): 0.0395,
-    ("flash_bwd_dkv", "ddpm_n256", "float32"): 0.9116,
-    ("flash_bwd_dkv", "ddpm_mid_n16", "float32"): 0.0492,
+    ("flash_bwd_dq", "ddpm_n256", "bfloat16"): 0.8264,
+    ("flash_bwd_dq", "ddpm_mid_n16", "bfloat16"): 0.0427,
+    ("flash_bwd_dq", "ddpm_n256_d64", "bfloat16"): 0.2857,
+    ("flash_bwd_dq", "ddpm_n256_d128", "bfloat16"): 0.4713,
+    ("flash_bwd_dkv", "ddpm_n256", "float32"): 0.9231,
+    ("flash_bwd_dkv", "ddpm_mid_n16", "float32"): 0.0499,
+    ("flash_bwd_dkv", "ddpm_n256_d64", "float32"): 0.4208,
+    ("flash_bwd_dkv", "ddpm_n256_d128", "float32"): 0.5811,
 }
-# the bf16 mma.sync kernels at the DDPM shape on operands at these element
+# the tensor-core kernels at the DDPM shape on operands at these element
 # offsets from 16-byte aligned buffers: pieces of 8, 4, 2 and 1 elements
-# (load_log2), checked and timed
-ANYD_OFFSETS = (0, 4, 2, 1)
+# at bf16 (load_log2), of 4, 2 and 1 at fp32, checked and timed
+ANYD_OFFSETS = {"bfloat16": (0, 4, 2, 1), "float32": (0, 2, 1)}
 # phase 29's bf16 UNet against the fp32 one on the card: the output within
 # phase 6's bounds on the output's RMS in place of the image's [0, 1]
 # range (max 0.15, mean 0.02), the loss within phase 19's 1e-2 relative
@@ -4308,8 +4308,11 @@ def anyd_build_report() -> dict:
     built it) and its kernels: each one's ptxas registers and spills, and
     its tensor-core instructions (HMMA) in the built library's SASS
     (cuobjdump -sass). Raises unless every instantiation of the bf16
-    forward and dK/dV (flash_fwd_anyd_mma, flash_bwd_dkv_anyd_mma) holds
-    HMMA."""
+    forward, dQ and dK/dV (flash_fwd_anyd_mma, flash_bwd_dq_anyd_mma,
+    flash_bwd_dkv_anyd_mma) and of the fp32 dK/dV (flash_bwd_dkv_anyd_tf32)
+    holds HMMA, the library holds no SIMT kernel in their place (a bf16
+    flash_bwd_dq_anyd, an fp32 flash_bwd_dkv_anyd), and the dQ and fp32
+    dK/dV spill nothing."""
     import re
     import shutil
     import subprocess
@@ -4326,9 +4329,9 @@ def anyd_build_report() -> dict:
     log(f"[anyd] flash_anyd.cu built in {BUILD_SECONDS['flash_anyd']:.1f} s; registers and "
         f"spills (ptxas):\n{report}")
     spills = [line.strip() for line in report.splitlines()
-              if "_mma<" in line and re.search(r"[1-9]\d* bytes spill", line)]
+              if ("_mma<" in line or "_tf32<" in line) and re.search(r"[1-9]\d* bytes spill", line)]
     if spills:
-        log(f"[anyd] the mma.sync kernels spill: {spills}")
+        log(f"[anyd] the tensor-core kernels spill: {spills}")
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build.find_nvcc()),
                                                      "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
@@ -4342,36 +4345,52 @@ def anyd_build_report() -> dict:
         elif label is not None and "HMMA" in line:
             hmma[label] += 1
     log(f"[anyd] HMMA instructions by kernel (cuobjdump -sass): {hmma}")
-    mma = {k: v for k, v in hmma.items() if "_anyd_mma<" in k}
+    mma = {k: v for k, v in hmma.items() if "_anyd_mma<" in k or "_anyd_tf32<" in k}
     kinds = {k.split("<")[0] for k in mma}
-    if kinds != {"flash_fwd_anyd_mma", "flash_bwd_dkv_anyd_mma"} or not all(mma.values()):
-        raise AssertionError(f"the bf16 forward and dK/dV of flash_anyd.cu are not on the "
-                             f"tensor cores: HMMA by kernel {hmma}")
+    want = {"flash_fwd_anyd_mma", "flash_bwd_dq_anyd_mma", "flash_bwd_dkv_anyd_mma",
+            "flash_bwd_dkv_anyd_tf32"}
+    simt = {"flash_bwd_dq_anyd<bf16>", "flash_bwd_dkv_anyd<fp32>"} & set(hmma)
+    if kinds != want or not all(mma.values()) or simt:
+        raise AssertionError(f"the bf16 forward, dQ and dK/dV and the fp32 dK/dV of "
+                             f"flash_anyd.cu are not all on the tensor cores (or a SIMT "
+                             f"kernel {simt} is left): HMMA by kernel {hmma}")
+    new_spills = [line for line in spills if "flash_bwd_dq_anyd_mma<" in line
+                  or "flash_bwd_dkv_anyd_tf32<" in line]
+    if new_spills:
+        raise AssertionError(f"the dQ or fp32 dK/dV of flash_anyd.cu spills: {new_spills}")
     return {"build_s": BUILD_SECONDS["flash_anyd"], "hmma": hmma, "spills": spills}
 
 
 def anyd_offsets(fa, gen) -> dict:
-    """The bf16 mma.sync kernels at the DDPM shape on q, k, v and dO that
+    """The tensor-core kernels at the DDPM shape on q, k, v and dO that
     start ANYD_OFFSETS elements past 16-byte aligned buffers (pieces of 8,
-    4, 2, 1 elements), each against its plain version (phase 7's
-    tolerances) and timed -> {offset: (forward ms, dK/dV ms)}."""
+    4, 2, 1 elements at bf16, 4, 2, 1 at fp32), each against its plain
+    version (phase 7's or phase 20's tolerances) and timed -> {dtype:
+    {offset: {kernel: ms}}}: the bf16 forward, dQ and dK/dV, the fp32
+    dK/dV."""
     import torch
 
     shape = (DDPM_BATCH, 256, 1, 256)
     numel = int(np.prod(shape))
     out = {}
-    for off in ANYD_OFFSETS:
-        q, k, v, do = (torch.randn(numel + 8, generator=gen, device="cuda")
-                       .to(torch.bfloat16)[off:off + numel].view(shape) for _ in range(4))
-        label = f"anyd bf16 {shape} at offset {off}"
-        check_flash_f32(fa, q, k, v, label)
-        check_bwd(fa, q, k, v, do, label)
-        lse = fa.flash_fwd(q, k, v, return_lse=True)[1]
-        dd = fa.rowsum_do_o(do, fa.flash_fwd(q, k, v))
-        out[off] = (graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
-                    graph_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd), 20))
-        log(f"[anyd] {label}: forward {out[off][0]:.4f} ms, dK/dV {out[off][1]:.4f} ms")
-        del q, k, v, do, lse, dd
+    for dname, offsets in ANYD_OFFSETS.items():
+        dtype = getattr(torch, dname)
+        out[dname] = {}
+        for off in offsets:
+            q, k, v, do = (torch.randn(numel + 8, generator=gen, device="cuda")
+                           .to(dtype)[off:off + numel].view(shape) for _ in range(4))
+            label = f"anyd {dname} {shape} at offset {off}"
+            check_flash_f32(fa, q, k, v, label)
+            check_bwd(fa, q, k, v, do, label)
+            lse = fa.flash_fwd(q, k, v, return_lse=True)[1]
+            dd = fa.rowsum_do_o(do, fa.flash_fwd(q, k, v))
+            ms = {"flash_bwd_dkv": graph_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd), 20)}
+            if dname == "bfloat16":
+                ms["flash_fwd"] = graph_ms(lambda: fa.flash_fwd(q, k, v), 20)
+                ms["flash_bwd_dq"] = graph_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd), 20)
+            out[dname][off] = ms
+            log(f"[anyd] {label}: " + ", ".join(f"{k_} {t:.4f} ms" for k_, t in ms.items()))
+            del q, k, v, do, lse, dd
     torch.cuda.empty_cache()
     return out
 
@@ -4380,12 +4399,13 @@ def anyd_offsets(fa, gen) -> dict:
 def phase_ddpm(card: str, rows: list[dict]) -> dict:
     """Phase 29: csrc/flash_anyd.cu and the DDPM CIFAR-10 UNet with
     attn_impl="flash". (a) the build, ptxas and SASS report
-    (anyd_build_report: HMMA in the bf16 forward and dK/dV or the phase
-    fails); the forward, dQ and dK/dV kernels at both dtypes against their
+    (anyd_build_report: HMMA in the bf16 forward, dQ and dK/dV and the
+    fp32 dK/dV, no SIMT kernel in their place, no spills in the dQ and
+    fp32 dK/dV, or the phase fails); the forward, dQ and dK/dV kernels at both dtypes against their
     plain versions at ANYD_DIMS (ragged N = 77), on peaked and rising-max
     scores and packed q/k/v views, each launched twice and compared
-    bitwise, and the bf16 ones at ANYD_OFFSETS (anyd_offsets), no other
-    kernel launched; d = 1025 refused. (b) vae_legacy.Model at DDPM_CIFAR, batch 128, seeded weights:
+    bitwise, and the tensor-core ones at ANYD_OFFSETS (anyd_offsets), no
+    other kernel launched; d = 1025 refused. (b) vae_legacy.Model at DDPM_CIFAR, batch 128, seeded weights:
     a forward and the gradient of the epsilon-MSE loss at injected
     timesteps and noise, at fp32 and bf16,
     each run's launches counted from 0 (expect_ddpm_launches); fp32 flash
@@ -4394,8 +4414,9 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
     each dtype; card fp32 flash against the CPU at batch 16. (c) each kernel
     at ANYD_TIMED against its plain version and timed beside it and SDPA,
     its launches those of (b)'s runs at that shape: the kernels line's
-    *_anyd rows; ANYD_BEFORE_MS's time, recorded before the redesign, is
-    printed in each row's log line and not put in the row."""
+    *_anyd rows; ANYD_BEFORE_MS's time of the bf16 dQ and fp32 dK/dV,
+    recorded before their redesign, is printed in their rows' log lines
+    and not put in the rows."""
     import torch
 
     from pbe_tpu_torch.models import vae_legacy as vl
@@ -4545,11 +4566,8 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
                 row["name"] = f"{kname}_anyd/{rest}"
                 row["launches"] = launches[dname][kname].get(shape, 0)
                 before = ANYD_BEFORE_MS.get((kname, name, dname))
-                redesigned = dname == "bfloat16" and kname in ("flash_fwd", "flash_fwd_lse",
-                                                               "flash_bwd_dkv")
-                log(f"[anyd] {row['name']} {dname}: {row['ms']:.4f} ms (before "
-                    + (f"{before:.4f}" if before else
-                       "not recorded" if redesigned else "the same kernel")
+                log(f"[anyd] {row['name']} {dname}: {row['ms']:.4f} ms ("
+                    + (f"before the redesign {before:.4f}" if before else "not redesigned")
                     + f"), plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound "
                     f"{row['bound_ms']:.4f} ms ({card})")
                 row["run"] = (f"phase 29: one forward and one gradient of the DDPM CIFAR-10 UNet "

@@ -22,56 +22,55 @@
 //     dS)^T Q), D = rowsum(dO * O) given (a torch pass, as for the tuned
 //     kernels).
 // Scores: at fp32 (every round_T does nothing) every score, in all three
-// kernels, is one fmaf chain over the head dim from column 0 (score_chunk),
-// so the backward recomputes P from the forward's S bit for bit, and every
-// output element one fmaf chain over the streamed rows in order. At bf16
-// the forward and dK/dV take S on the tensor cores (mma.sync, fp32
-// accumulate) in one k-order, chunk by chunk and k16 step by k16 step from
-// column 0, so dK/dV's P^T is the forward's P bit for bit; dQ's S stays an
-// fmaf chain, so its P = exp2(S - LSE) differs from the forward's P by the
-// fp32 rounding of S only, orders below the bf16 rounding of q.
+// kernels, is one fmaf chain over the head dim from column 0 (score_chunk
+// in the SIMT kernels, scores_fma in the fp32 dK/dV), so the backward
+// recomputes P from the forward's S bit for bit. At bf16 all three take S
+// on the tensor cores (mma.sync, fp32 accumulate) in one k-order, chunk by
+// chunk and k16 step by k16 step from column 0 (chunk_scores), so dQ's P
+// and dK/dV's P^T are the forward's P bit for bit.
 //
 // Layout: q, k, v (and dO) are (B, N, H, D) with any (batch, seq, head)
 // strides and a unit head-dim stride, read in place: a packed q at d = 28
-// has rows of 28 elements. The fp32 kernels and dQ read one element a
-// load. The bf16 forward and dK/dV copy pieces of 8, 4, 2 or 1 elements
-// (16-, 8- or 4-byte cp.async, or a 2-byte load): the widest that divides
-// d and every operand's base and strides (load_log2; a packed view at
-// d = 28 or 100 reads 8-byte pieces, a contiguous d = 256 16-byte ones).
-// Outputs are (B, N, H, D) contiguous. Rows past N are read as zeros and
-// their keys (or queries) masked (P = 0); columns past d are zeros.
+// has rows of 28 elements. The SIMT kernels read one element a load. The
+// tensor-core kernels copy pieces of at most 16 bytes (8, 4, 2 or 1 bf16
+// elements, 4, 2 or 1 fp32: 16-, 8- or 4-byte cp.async, or a 2-byte load):
+// the widest that divides d and every operand's base and strides
+// (load_log2; a packed bf16 view at d = 28 or 100 reads 8-byte pieces, a
+// contiguous d = 256 16-byte ones). Outputs are (B, N, H, D) contiguous.
+// Rows past N are read as zeros and their keys (or queries) masked (P =
+// 0); columns past d are zeros.
 //
-// The SIMT kernels (fp32: all three; bf16: dQ, whose mma.sync form is
-// later work, as are the fp32 products at fp32 accuracy). A block of 256
-// threads owns 64 rows (queries for the forward and dQ, keys for dK/dV:
-// the JAX pair's grid order, the other side streamed in tiles of 64) and
-// up to 256 output columns; a wider head is split over grid.z, each split
+// The SIMT kernels (the fp32 forward and dQ: the fp32 dQ keeps cuBLAS's
+// summation order, which phase 20's rising-max dQ check allows alone,
+// PERF.md section 7). A block of 256 threads owns 64 query rows, the keys
+// streamed in tiles of 64 (the JAX pair's grid order), and up to 256
+// output columns; a wider head is split over grid.z, each split
 // recomputing S. Thread (tr, tc) = (tid / 16, tid % 16) holds rows 4 tr +
-// i (i < 4) and, of S, the streamed rows 4 tc + j (j < 4), of the output
-// columns 4 tc + 64 g + e (g, e < 4): each operand of a product step is
-// one 16-byte shared-memory load (8 FMA a load in S, 12.8 in P V). S (and
-// dP) build over the head dim in chunks of 32 columns staged transposed in
-// shared memory, the next chunk's loads in flight (in registers) while the
+// i (i < 4) and, of S, the keys 4 tc + j (j < 4), of the output columns 4
+// tc + 64 g + e (g, e < 4): each operand of a product step is one 16-byte
+// shared-memory load (8 FMA a load in S, 12.8 in P V). S (and dP) build
+// over the head dim in chunks of 32 columns staged transposed in shared
+// memory, the next chunk's loads in flight (in registers) while the
 // current one is multiplied; the row statistics are taken over the 16
 // threads of a row by shuffles; P (or dS) goes to shared memory, and the
-// output tile (or dK and dV), in registers for the whole kernel (64 rows x
-// 256 columns: 64 a thread), takes P V in steps of 16 streamed rows, every
-// column group alike (columns past d are zeros: branching on d cost more
-// than the products it skipped). The forward fits 128 registers, two
-// blocks an SM; dQ (S and dP) and dK/dV (two accumulators) run one.
+// output tile, in registers for the whole kernel (64 rows x 256 columns:
+// 64 a thread), takes P V (dS K) in steps of 16 keys, every column group
+// alike (columns past d are zeros: branching on d cost more than the
+// products it skipped). The forward fits 128 registers, two blocks an SM;
+// dQ (S and dP) runs one.
 //
-// The bf16 forward and dK/dV (flash_fwd_anyd_mma, flash_bwd_dkv_anyd_mma)
-// follow the tuned kernels' FlashAttention-2 on mma.sync.m16n8k16 (bf16
-// in, fp32 accumulate) with their register layouts (csrc/mma_sm90.cuh):
-// a warp owns 16 whole rows, so the row statistics are taken over the
-// quad and m and l sit in registers; P (and dS) are rounded to bf16 and
-// fed straight back as A fragments (the C layout of two n8 tiles is the A
-// layout of a k16 step). The head dim stays a run-time argument, padded to
-// a multiple of 16 in shared memory only: the streamed operands come in
-// chunks of KC = 64 columns through a cp.async ring of 3 slots (one
-// __syncthreads a chunk; the copies of chunk i + 2 in flight while chunk
-// i is multiplied), so a slot's size does not grow with d, and S builds
-// over the chunks in order.
+// The bf16 kernels (flash_fwd_anyd_mma, flash_bwd_dq_anyd_mma,
+// flash_bwd_dkv_anyd_mma) follow the tuned kernels' FlashAttention-2 on
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with their register layouts
+// (csrc/mma_sm90.cuh): a warp owns 16 whole rows, so the row statistics are
+// taken over the quad and m and l sit in registers; P (and dS) are rounded
+// to bf16 and fed straight back as A fragments (the C layout of two n8
+// tiles is the A layout of a k16 step). The head dim stays a run-time
+// argument, padded to a multiple of 16 in shared memory only: the streamed
+// operands come in chunks of KC = 64 columns through a cp.async ring of 3
+// slots (one __syncthreads a chunk; the copies of chunk i + 2 in flight
+// while chunk i is multiplied), so a slot's size does not grow with d, and
+// S builds over the chunks in order.
 //   * forward: a block of kFwdWarps warps (4 at N <= 64, or where the q
 //     tile does not fit: d > 784) owns 16 kFwdWarps query rows, its q2 tile
 //     resident at the padded head dim (made once, by the threads that
@@ -80,6 +79,19 @@
 //     over grid.z, each split recomputing S). Per key tile of 64: K's
 //     chunks, S in registers, the online-softmax step, then the slice's V
 //     chunks, P V into the chunk's O tiles.
+//   * dQ: the forward's shape with two score products. A block of kDqWarps
+//     warps (4 at N <= 64 or where the tiles do not fit: d > 336; 2 past d
+//     = 672) owns 16 kDqWarps query rows, its q2 and dO tiles resident at
+//     the padded head dim, and an output slice of 128 columns (d <= 128) or
+//     kDqSlice. Per key tile of 64: each slot brings chunk c of K and of V,
+//     S = q2 K^T and dP = dO V^T in registers (S in the forward's k-order);
+//     dS = P (dP - D) d^-1/2 with P = exp2(S - L2), L2 and D of the warp's
+//     rows in registers for the whole kernel, rounded to bf16 as A
+//     fragments; then the slice's K chunks come again through the ring
+//     (re-streamed: keeping a key tile's K chunks for both uses would take
+//     64 (dp + 8) more bf16 a block, 34 KB at d = 256, and the warps or the
+//     ring with it), and dQ += dS K through ldmatrix.trans. dQ stays in
+//     registers across the loop (256 columns: 128 a thread).
 //   * dK/dV: a block owns 16 RT key rows, each row tile shared by SPLIT
 //     warps that own 128 columns of dK and dV each (kDkvSplit past d = 128,
 //     1 below; grid.z splits a wider head), and loops over q tiles of 32.
@@ -97,28 +109,77 @@
 //     copies take compile-time indices): a first build with the copy code
 //     inlined at every unrolled chunk ran ~19K instructions a kernel and
 //     stalled on the instruction cache.
+//
+// The fp32 dK/dV (flash_bwd_dkv_anyd_tf32), flash_fp32.cu's dK/dV
+// (flash_bwd_dkv_f32_kernel) at any head dim: S^T on the SIMT cores' FMA,
+// the three products on the tensor cores in 3xTF32 (csrc/mma_sm90.cuh:
+// each operand split into hi = tf32(x) and lo = x - hi, a product lo hi +
+// hi lo + hi hi with fp32 accumulation; 1xTF32 keeps ~3 decimal digits,
+// past phase 29's fp32 tolerances, tests/test_torch_flash_anyd.py).
+//   * S^T stays one fmaf chain a score over the head dim (scores_fma, in
+//     mma_tf32's C layout), so P^T is the fp32 forward's P bit for bit and
+//     meets dP^T in registers. dP^T = V dO^T runs in 3xTF32 too: its
+//     emulation in the kernel's order stays within a third of phase 29's
+//     tolerances on the randn, peaked and rising-max inputs at d = 28 to
+//     1024, so it takes the tensor cores beside dV and dK (decided once,
+//     by that test).
+//   * The tensor cores add with truncation, so every product sums a
+//     bounded run of k8 steps into a zeroed partial that then joins its
+//     result in fp32: dP^T one pair of partials (hi hi; lo hi and hi lo)
+//     a chunk of KC = 64 columns, dV and dK one partial (all three terms)
+//     a q tile of 32 queries.
+//   * A block owns 16 RT key rows; each row tile has two warps, warp kind
+//     0 owning dK's and kind 1 dV's columns [CW z, + CW) (CW = 128 up to
+//     d = 128, 256 past it; grid.z splits a wider head), and loops over q
+//     tiles of 32. K and V of the block's rows stay in shared memory at
+//     pitch dp + 4 (dp = d padded to 8; RT = kDkvF32Rows = 4, 2 past d =
+//     304, 1 past 656). Per q tile, through the ring of 3 slots of
+//     q and dO panels of KC columns (pieces of 16, 8 or 4 bytes): the score
+//     chunks, each warp scoring half the queries (S^T and dP^T for 16
+//     queries: the row tile's scores are computed once); P^T and dS^T go
+//     to shared memory, where the next barrier shows each warp the
+//     fragment it multiplies (dS^T for kind 0, P^T for kind 1, over all 32
+//     queries); then the chunks of the block's columns, dK += dS^T Q (q
+//     unscaled) or dV += P^T dO. The C fragment of P^T or dS^T is the A
+//     fragment of a k8 step as it stands (slot t takes query 2t, slot t +
+//     4 query 2t + 1), split into hi and lo at each use: held split, it
+//     spilled beside the 128 accumulator registers of a 256-column warp.
+//   * FFMA and TF32 mma.sync share issue slots on this card (PR 13), so
+//     S's FMA does not hide behind the products; one warp owning one
+//     output keeps its working set to one A fragment.
+//
 // Nothing is atomic: each output element has one owner, so a launch is
 // bitwise repeatable.
 // The tiles are the fastest of `python -m pbe_tpu_torch.scripts
 // .sweep_flash_tiles --anyd` at the DDPM shape and at d = 64, 128 and
-// 1024 (N = 256, batch 128; PERF.md section 6 has the times): 8 warps
-// against 4 tie at d = 256 and win by ~9% at d = 128 (each K and V chunk
-// serves twice the query rows); 4 ring slots against 3 tie; a 128-column slice
-// against 256 costs 1.4x at d = 256 (S twice) and split 1 against 2 saves
-// ~2% of dK/dV at d = 256 but costs 2.2x at 1024 (S per 128 columns).
-// What bounds them: at the DDPM UNet's (128, 256, 1, 256) the forward is
-// 8.6 GFLOP of products and 67 MB of bf16 operands (0.020 ms at 3.35
-// TB/s), dK/dV 17.2 GFLOP and 101 MB: bytes bind both on this card. These
-// kernels run several times their byte bound: every warp reads its
-// operands through ldmatrix from shared memory (all warps of a block the
-// same K chunk), 128 accumulator registers a thread leave 8 warps an SM to
-// hide the ldmatrix and mma.sync latencies, each split recomputes S, and
-// every block of a head re-reads the streamed operands from L2 (K and V
-// each q block, q and dO each key block), which stalls the cp.async issue.
-// wgmma (operands read from shared memory once a warpgroup, accumulators
-// of 64 rows) is the next step. The SIMT kernels
-// are bound by the fp32 FMA rate (67 TFLOP/s). chip_smoke.py phase 29
-// times each kernel beside its bound, its plain version and SDPA, and logs
+// 1024 (N = 256, batch 128; PERF.md section 6 has the times): 8 forward
+// warps against 4 tie at d = 256 and win by ~9% at d = 128 (each K and V
+// chunk serves twice the query rows); 4 ring slots against 3 tie; a
+// 128-column slice against 256 costs 1.4x at d = 256 (S twice) and split 1
+// against 2 saves ~2% of dK/dV at d = 256 but costs 2.2x at 1024 (S per
+// 128 columns). dQ: 8 warps against 4 win by 1.65x at d = 256 (0.127
+// against 0.209 ms) and a 256-column slice against 128 by 1.45x (S and dP
+// twice). The fp32 dK/dV: 4 row tiles against 2 win by 1.6x at d = 256 (2
+// with 2 ring slots, two blocks an SM, by 1.1x); 2 or 4 ring slots against
+// 3 tie; q tiles of 16 (no spills with held A fragments) cost 1.28x.
+// What bounds them: at the DDPM UNet's (128, 256, 1, 256) the bf16
+// forward is 8.6 GFLOP of products and 67 MB of bf16 operands (0.020 ms at
+// 3.35 TB/s), dQ 12.9 GFLOP and 84 MB, dK/dV 17.2 GFLOP and 101 MB: bytes
+// bind them on this card. They run several times their byte bound: every
+// warp reads its operands through ldmatrix from shared memory (all warps
+// of a block the same K chunk), 128 accumulator registers a thread leave 8
+// warps an SM to hide the ldmatrix and mma.sync latencies, each split
+// recomputes S, and every block of a head re-reads the streamed operands
+// from L2 (K and V each q block, q and dO each key block), which stalls the
+// cp.async issue. wgmma (operands read from shared memory once a
+// warpgroup, accumulators of 64 rows) is the next step. The fp32 dK/dV is
+// bound by S on FMA (4.3 GFLOP, 0.064 ms at 67 TFLOP/s) beside 3 x 12.9
+// GFLOP of TF32 products (0.078 ms at 495 TFLOP/s); on the card its time
+// splits (ablations, PERF.md section 6) into the ring and its barriers with
+// q and dO streamed twice from L2 a key block (~0.19 ms), S on FMA
+// (~0.17), dP^T (~0.10) and the two products (~0.18). The SIMT kernels are
+// bound by the fp32 FMA rate (67 TFLOP/s). chip_smoke.py phase 29 times
+// each kernel beside its bound, its plain version and SDPA, and logs
 // ptxas's registers and spills, the build time and the HMMA count.
 
 #include <cuda_bf16.h>
@@ -144,8 +205,7 @@ constexpr int NJ = 16, COLS = 16 * NJ;
 // streamed rows of the output step
 constexpr size_t FWD_SMEM = (2 * DC * LD + BT * LD + SUB * COLS) * sizeof(float);
 constexpr size_t DQ_SMEM = (4 * DC * LD + BT * LD + SUB * COLS) * sizeof(float);
-constexpr size_t DKV_SMEM = (4 * DC * LD + 2 * BT * LD + 2 * SUB * COLS) * sizeof(float);
-static_assert(DKV_SMEM <= 232448, "shared memory per block");
+static_assert(DQ_SMEM <= 232448, "shared memory per block");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -169,7 +229,7 @@ struct Args {
   T* out[2];         // O | dQ | dK, dV: (B, N, H, D) contiguous
   float* lse_out;    // forward: the LSE, or null
   int B, N, H, D;
-  int lw;            // bf16 mma kernels: log2 of the elements a copied piece (load_log2)
+  int lw;            // mma kernels: log2 of the elements a copied piece (load_log2)
   float scale_log2;  // d^-1/2 log2(e): the q prescale
   float scale;       // d^-1/2: dS's factor
 };
@@ -501,79 +561,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_anyd(const Args<T> a)
   store_rows<T>(acc, one, a.out[0], a, bh, r0, c0);
 }
 
-// dK and dV (K6): key rows r0 = 64 blockIdx.x, query tiles streamed, output
-// columns from 256 blockIdx.z
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_anyd(const Args<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;           // the score chunks, transposed [DC][LD]: q2, K, dO, V
-  float* sK = sQ + DC * LD;
-  float* sO = sK + DC * LD;
-  float* sV = sO + DC * LD;
-  float* sP = sV + DC * LD;   // round_T(P), query-major [BT][LD]
-  float* sS = sP + BT * LD;   // round_T(dS), query-major
-  float* sXo = sS + BT * LD;  // dO rows [SUB][COLS]
-  float* sXq = sXo + SUB * COLS;  // q rows (unscaled)
-  const int bh = blockIdx.y, r0 = blockIdx.x * BR, c0 = blockIdx.z * COLS;
-  const int n = a.N, d = a.D;
-  const Head<T> q(a, 0, bh), k(a, 1, bh), v(a, 2, bh), dout(a, 3, bh);
-  float dk[4][NJ], dv[4][NJ];
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-  for (int t0 = 0; t0 < n; t0 += BT) {
-    float s[4][4], dp[4][4];
-    // i over the query tile's rows t0 + 4 tr + i, j over this block's keys
-    // r0 + 4 tc + j: the forward's S, element for element; s and dp become
-    // round_T(P) and round_T(dS)
-    scores_and_dp(s, dp, a, q, k, v, dout, t0, r0, sQ, sK, sO, sV);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = t0 + row_of(i);
-      const float lse = row < n ? a.lse[(long long)bh * n + row] : 0.f;
-      const float dd = row < n ? a.dd[(long long)bh * n + row] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = 0.f, ds = 0.f;
-        if (row < n && r0 + key_of(j) < n) {
-          p = exp2f(s[i][j] - lse);
-          ds = p * (dp[i][j] - dd) * a.scale;
-        }
-        s[i][j] = round_to<T>(p);
-        dp[i][j] = round_to<T>(ds);
-      }
-      st4(sP + row_of(i) * LD + key_of(0), s[i][0], s[i][1], s[i][2], s[i][3]);
-      st4(sS + row_of(i) * LD + key_of(0), dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
-    }
-    // dV += P^T dO, dK += dS^T Q, 16 queries a step
-    Stage<T, SUB, COLS> xo, xq;
-    xo.fetch(dout, t0, c0, n, d, 0.f);
-    xq.fetch(q, t0, c0, n, d, 0.f);
-    for (int u = 0; u < BT; u += SUB) {
-      __syncthreads();  // sP and sS are whole (u = 0); every thread is done with sXo, sXq
-      xo.put(sXo);
-      xq.put(sXq);
-      __syncthreads();
-      if (u + SUB < BT) {
-        xo.fetch(dout, t0 + u + SUB, c0, n, d, 0.f);
-        xq.fetch(q, t0 + u + SUB, c0, n, d, 0.f);
-      }
-      out_step(dv, sP + u * LD, sXo);
-      out_step(dk, sS + u * LD, sXq);
-    }
-  }
-  store_rows<T>(dk, one, a.out[0], a, bh, r0, c0);
-  store_rows<T>(dv, one, a.out[1], a, bh, r0, c0);
-}
-
-// log2 of the widest piece (8, 4, 2 or 1 elements) that divides d and
-// every operand's base (in elements) and (batch, seq, head) strides; the
-// stride of a dimension of size 1 is never stepped and does not count
+// log2 of the widest piece of at most 16 bytes (8, 4, 2 or 1 bf16
+// elements; 4, 2 or 1 fp32) that divides d and every operand's base (in
+// elements) and (batch, seq, head) strides; the stride of a dimension of
+// size 1 is never stepped and does not count
 template <typename T>
 int load_log2(const Args<T>& a, int nin) {
-  for (int lw = 3; lw > 0; --lw) {
+  for (int lw = sizeof(T) == 2 ? 3 : 2; lw > 0; --lw) {
     const long long w = 1LL << lw;
     bool ok = a.D % w == 0;
     for (int i = 0; i < nin && ok; ++i)
@@ -651,21 +645,7 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout, const 
   return (int)launch<T>(flash_bwd_dq_anyd<T>, attr, DQ_SMEM, a, stream);
 }
 
-template <typename T>
-int run_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-            const void* dd, void* dk, void* dv, int B, int N, int H, int D, const long long* st,
-            float scale_log2, float scale, void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_anyd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
-  const void* in[4] = {q, k, v, dout};
-  Args<T> a;
-  const cudaError_t err = make_args(&a, in, 4, st, lse, dd, dk, dv, nullptr, B, N, H, D,
-                                    scale_log2, scale);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch<T>(flash_bwd_dkv_anyd<T>, attr, DKV_SMEM, a, stream);
-}
-
-// --- bf16: the forward and dK/dV on mma.sync tensor cores ---------------------
+// --- bf16: the forward, dQ and dK/dV on mma.sync tensor cores ---------------
 
 constexpr int KC = 64;           // head-dim columns of a chunk
 constexpr int PITCH = KC + 8;    // bf16 row pitch of a chunk's panel: conflict-free ldmatrix
@@ -678,6 +658,10 @@ constexpr size_t SMEM_MAX = 232448;  // bytes of shared memory a block can use
 constexpr int kFwdWarps = 8;
 constexpr int kFwdSlice = 256;
 constexpr int kDkvSplit = 2;
+// dQ's warps of 16 query rows a block and its output columns a block past
+// d = 128 (128 up to it)
+constexpr int kDqWarps = 8;
+constexpr int kDqSlice = 256;
 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
@@ -696,28 +680,30 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [r0, r0 + rows) and columns [c0, c0 + cols) of one head (row stride
-// rs) into a (rows x pitch) bf16 tile at dst, in pieces of 1 << lw
+// rs) into a (rows x pitch) tile of T at dst, in pieces of 1 << lw
 // elements shared by nthr threads: cp.async of 16, 8 or 4 bytes, or a
-// plain 2-byte copy at lw = 0. Rows >= n and columns >= d are zero (d is a
-// multiple of the piece, so a piece is all in or all out). For the rows a
-// block holds (the forward's q, dK/dV's K and V), once a block.
-__device__ __forceinline__ void copy_tile(bf16* dst, int pitch, const bf16* src, long long rs,
-                                          int r0, int rows, int c0, int cols, int n, int d,
-                                          int lw, int nthr) {
-  const int per_row = cols >> lw, total = rows * per_row;
+// plain 2-byte copy (a bf16 at lw = 0). Rows >= n and columns >= d are
+// zero (d is a multiple of the piece, so a piece is all in or all out).
+// For the rows a block holds (the forward's q, dQ's q and dO, dK/dV's K
+// and V), once a block.
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* dst, int pitch, const T* src, long long rs, int r0,
+                                          int rows, int c0, int cols, int n, int d, int lw,
+                                          int nthr) {
+  const int per_row = cols >> lw, total = rows * per_row, bytes = int(sizeof(T)) << lw;
   for (int i = threadIdx.x; i < total; i += nthr) {
     const int r = i / per_row, c = (i - r * per_row) << lw;
     const bool valid = r0 + r < n && c0 + c < d;
-    const bf16* s = valid ? src + (long long)(r0 + r) * rs + c0 + c : src;
-    bf16* t = dst + r * pitch + c;
-    if (lw == 3)
+    const T* s = valid ? src + (long long)(r0 + r) * rs + c0 + c : src;
+    T* t = dst + r * pitch + c;
+    if (bytes == 16)
       cp_async16(t, s, valid);
-    else if (lw == 2)
+    else if (bytes == 8)
       cp_async8(t, s, valid);
-    else if (lw == 1)
+    else if (bytes == 4)
       cp_async4(t, s, valid);
     else
-      *t = valid ? *s : __float2bfloat16_rn(0.f);
+      *t = valid ? *s : from_f<T>(0.f);
   }
 }
 
@@ -736,62 +722,66 @@ __device__ __forceinline__ void prescale_tile(bf16* tile, int pitch, int rows, i
   }
 }
 
-// A (ROWS x PITCH) panel of KC columns of one head, rows [r0, r0 + ROWS)
-// from column c0, by THREADS threads, in copy_tile's pieces: piece i = tid
-// + e THREADS is piece i % P of row i / P (P = KC >> lw pieces a row), so
-// the indices are shifts, and the 16-byte case (lw = 3) unrolls at
-// compile time
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void copy_panel(bf16* dst, const bf16* src, long long rs, int r0,
-                                           int c0, int n, int d, int lw) {
-  if (lw == 3) {
-    constexpr int STEP = THREADS / 8;
-    static_assert(THREADS % 8 == 0 && ROWS % STEP == 0, "panel");
-    const int r = threadIdx.x / 8, c = (threadIdx.x % 8) * 8;
+// A panel of KC columns of one head, rows [r0, r0 + ROWS) from column
+// c0, at the pitch KC + 16 bytes (PITCH for bf16, PF for fp32), by THREADS
+// threads, in copy_tile's pieces: piece i = tid + e THREADS is piece i % P
+// of row i / P (P = KC >> lw pieces a row), so the indices are shifts, and
+// the 16-byte case unrolls at compile time
+template <int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void copy_panel(T* dst, const T* src, long long rs, int r0, int c0,
+                                           int n, int d, int lw) {
+  constexpr int W = 16 / sizeof(T), LD = KC + W;  // elements a 16-byte piece; the pitch
+  if (lw == (W == 8 ? 3 : 2)) {
+    constexpr int PER = KC / W, STEP = THREADS / PER;
+    static_assert(THREADS % PER == 0 && ROWS % STEP == 0, "panel");
+    const int r = threadIdx.x / PER, c = (threadIdx.x % PER) * W;
     const bool col = c0 + c < d;
-    const bf16* s = src + (long long)(r0 + r) * rs + c0 + c;
+    const T* s = src + (long long)(r0 + r) * rs + c0 + c;
 #pragma unroll
     for (int e = 0; e < ROWS / STEP; ++e) {
       const bool valid = col && r0 + r + e * STEP < n;
-      cp_async16(dst + (r + e * STEP) * PITCH + c, valid ? s + e * STEP * rs : src, valid);
+      cp_async16(dst + (r + e * STEP) * LD + c, valid ? s + e * STEP * rs : src, valid);
     }
     return;
   }
-  const int shift = 6 - lw;  // log2 of the pieces a row
+  const int shift = 6 - lw, bytes = int(sizeof(T)) << lw;  // log2 of the pieces a row
   for (int i = threadIdx.x; i < (ROWS << shift); i += THREADS) {
     const int r = i >> shift, c = (i & ((1 << shift) - 1)) << lw;
     const bool valid = r0 + r < n && c0 + c < d;
-    const bf16* s = valid ? src + (long long)(r0 + r) * rs + c0 + c : src;
-    bf16* t = dst + r * PITCH + c;
-    if (lw == 2)
+    const T* s = valid ? src + (long long)(r0 + r) * rs + c0 + c : src;
+    T* t = dst + r * LD + c;
+    if (bytes == 8)
       cp_async8(t, s, valid);
-    else if (lw == 1)
+    else if (bytes == 4)
       cp_async4(t, s, valid);
     else
-      *t = valid ? *s : __float2bfloat16_rn(0.f);
+      *t = valid ? *s : from_f<T>(0.f);
   }
 }
 
-// prescale_tile over a (ROWS x PITCH) panel of KC columns that this thread
-// copied with copy_panel<ROWS, THREADS>, in its shift-indexed pieces
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void prescale_own(bf16* panel, int lw, float scale) {
+// q2 = round_T(q * scale) in place over the pieces of a panel that this
+// thread copied with copy_panel<ROWS, THREADS> (the same shift-indexed
+// pieces): bit for bit the forward's q2
+template <int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void prescale_own(T* panel, int lw, float scale) {
+  constexpr int LD = KC + 16 / sizeof(T);
   const int shift = 6 - lw;
   for (int i = threadIdx.x; i < (ROWS << shift); i += THREADS) {
-    bf16* t = panel + (i >> shift) * PITCH + ((i & ((1 << shift) - 1)) << lw);
-    if (lw == 3) {
-      uint4 val = *reinterpret_cast<const uint4*>(t);
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
+    T* t = panel + (i >> shift) * LD + ((i & ((1 << shift) - 1)) << lw);
+    if constexpr (sizeof(T) == 2) {
+      if (lw == 3) {
+        uint4 val = *reinterpret_cast<const uint4*>(t);
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h2[j]);
-        h2[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(h2[j]);
+          h2[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        }
+        *reinterpret_cast<uint4*>(t) = val;
+        continue;
       }
-      *reinterpret_cast<uint4*>(t) = val;
-    } else {
-      for (int e = 0; e < (1 << lw); ++e)
-        t[e] = __float2bfloat16_rn(__bfloat162float(t[e]) * scale);
     }
+    for (int e = 0; e < (1 << lw); ++e) t[e] = from_f<T>(to_f(t[e]) * scale);
   }
 }
 
@@ -867,30 +857,37 @@ __device__ __forceinline__ void zero(float (&x)[NT][4]) {
   for (int i = 0; i < NT; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
 }
 
+// two adjacent output elements at p (even index): one 4- or 8-byte store
+__device__ __forceinline__ void store_pair(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
 // rows row0 + g and row0 + g + 8 (lane (g, t)) of head bh of out, (B, N,
 // H, D) contiguous, columns c0 + 8 j + 2 t and + 1 of the NO n8 tiles:
-// round_bf16(x / div[i]) for the rows below n and the columns below d (a
-// 4-byte store of the pair where d is even, so every pair is aligned)
-template <int NO>
-__device__ __forceinline__ void store_tiles(const float (&x)[NO][4], const float (&div)[2],
-                                            bf16* out, const Args<bf16>& a, int bh, int row0,
-                                            int c0) {
+// round_T(x / div[i]) for the rows below n and the columns below d (one
+// store of the pair where d is even, so every pair is aligned)
+template <int NO, typename T>
+__device__ __forceinline__ void store_tiles(const float (&x)[NO][4], const float (&div)[2], T* out,
+                                            const Args<T>& a, int bh, int row0, int c0) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, d = a.D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + g + 8 * i;
     if (row >= a.N) continue;
-    bf16* dst = out + ((long long)(bh / a.H) * a.N + row) * a.H * d + (long long)(bh % a.H) * d;
+    T* dst = out + ((long long)(bh / a.H) * a.N + row) * a.H * d + (long long)(bh % a.H) * d;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const int col = c0 + 8 * j + 2 * t;
       if (col >= d) break;
       const float lo = x[j][2 * i] / div[i], hi = x[j][2 * i + 1] / div[i];
       if (d % 2 == 0) {
-        *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(lo, hi);
+        store_pair(dst + col, lo, hi);
       } else {
-        dst[col] = __float2bfloat16_rn(lo);
-        if (col + 1 < d) dst[col + 1] = __float2bfloat16_rn(hi);
+        dst[col] = from_f<T>(lo);
+        if (col + 1 < d) dst[col + 1] = from_f<T>(hi);
       }
     }
   }
@@ -1143,6 +1140,377 @@ __global__ void __launch_bounds__(32 * RT * SPLIT, 1) flash_bwd_dkv_anyd_mma(con
   store_tiles<T::NO>(dv, one, a.out[1], a, bh, k0 + rt * 16, cw0);
 }
 
+// dQ's tiles: WARPS warps of 16 query rows, key tiles of BK, output
+// columns [CS z, CS z + CS) of block z. Shared memory: the block's q2 and
+// dO rows at the padded head dim (pitch dp + 8), then the ring, whose slots
+// hold the K and V panels of a score chunk, or the K panel of a chunk of
+// the slice.
+template <int WARPS, int CS>
+struct DqMma {
+  static constexpr int THREADS = 32 * WARPS, BQ = 16 * WARPS, BK = 64;
+  static constexpr int NT = BK / 8;   // n8 tiles of S and dP
+  static constexpr int NO = CS / 8;   // n8 tiles of dQ
+  static constexpr int NV = CS / KC;  // K chunks of a whole slice
+  static constexpr int SLOT = 2 * BK * PITCH;  // bf16 elements
+  static_assert(CS % KC == 0, "tile");
+  static __host__ __device__ constexpr size_t smem(int dp) {
+    return (2 * size_t(BQ) * (dp + 8) + size_t(STAGES) * SLOT) * 2;
+  }
+};
+
+template <int WARPS, int CS>
+__global__ void __launch_bounds__(32 * WARPS, 1) flash_bwd_dq_anyd_mma(const Args<bf16> a) {
+  using T = DqMma<WARPS, CS>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, c0 = blockIdx.z * CS;
+  const int n = a.N, d = a.D, lw = a.lw, dp = (d + 15) / 16 * 16, pq = dp + 8;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sO = sQ + T::BQ * pq;
+  bf16* ring = sO + T::BQ * pq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const Head<bf16> q(a, 0, bh), k(a, 1, bh), v(a, 2, bh), dout(a, 3, bh);
+  const int nc = (d + KC - 1) / KC;                // score chunks of a key tile
+  const int nv = (min(CS, d - c0) + KC - 1) / KC;  // K chunks of this slice
+  const int per_tile = nc + nv, tiles = (n + T::BK - 1) / T::BK;
+  // L2 and D of this lane's rows g and g + 8 (0 past n, where q2 and dO are
+  // zeros and dS comes out 0)
+  const int row0 = q0 + warp * 16;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + lane / 4 + 8 * i;
+    l2[i] = row < n ? a.lse[(long long)bh * n + row] : 0.f;
+    dd[i] = row < n ? a.dd[(long long)bh * n + row] : 0.f;
+  }
+  float o[T::NO][4];
+  zero(o);
+  const int arow = (warp * 16 + lane % 16) * pq + (lane / 16) * 8;
+  // The ring as the forward's: chunk pc of key tile pj, K and V of a score
+  // chunk (the first nc), then K of chunk pc - nc of the slice, into slot
+  // ps; consumed from slot cs
+  int pj = 0, pc = 0, ps = 0, cs = 0;
+  auto issue = [&]() {
+    if (pj < tiles) {
+      bf16* slot = ring + ps * T::SLOT;
+      if (pc < nc) {
+        copy_panel<T::BK, T::THREADS>(slot, k.p, k.rs, pj * T::BK, pc * KC, n, d, lw);
+        copy_panel<T::BK, T::THREADS>(slot + T::BK * PITCH, v.p, v.rs, pj * T::BK, pc * KC, n,
+                                      d, lw);
+      } else {
+        copy_panel<T::BK, T::THREADS>(slot, k.p, k.rs, pj * T::BK, c0 + (pc - nc) * KC, n, d,
+                                      lw);
+      }
+      if (++pc == per_tile) pc = 0, ++pj;
+    }
+    ps = ps + 1 == STAGES ? 0 : ps + 1;
+    cp_async_commit();
+  };
+  auto arrive = [&]() {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    issue();
+    const bf16* slot = ring + cs * T::SLOT;
+    cs = cs + 1 == STAGES ? 0 : cs + 1;
+    return slot;
+  };
+
+  // q and dO land with the first item; each thread makes q2 of the pieces
+  // it copied (bit for bit the forward's q2), which the first item's
+  // barrier shows every thread
+  copy_tile(sQ, pq, q.p, q.rs, q0, T::BQ, 0, dp, n, d, lw, T::THREADS);
+  copy_tile(sO, pq, dout.p, dout.rs, q0, T::BQ, 0, dp, n, d, lw, T::THREADS);
+#pragma unroll 1
+  for (int i = 0; i < STAGES - 1; ++i) issue();
+  cp_async_wait<STAGES - 2>();
+  prescale_tile(sQ, pq, T::BQ, dp, lw, T::THREADS, a.scale_log2);
+  for (int j = 0; j < tiles; ++j) {
+    float s[T::NT][4], dps[T::NT][4];
+    zero(s);
+    zero(dps);
+    for (int c = 0; c < nc; ++c) {
+      const bf16* slot = arrive();
+      const int ks = min(KC, dp - c * KC) / 16;
+      chunk_scores<T::NT>(s, sQ + arow + c * KC, slot, ks);                  // S = q2 K^T
+      chunk_scores<T::NT>(dps, sO + arow + c * KC, slot + T::BK * PITCH, ks);  // dP = dO V^T
+    }
+    // P = exp2(S - L2), 0 at keys past n; dS = P (dP - D) d^-1/2, rounded
+    // to bf16 as the A fragments of dS K (rows the lane's g, g + 8)
+    const int kv = n - j * T::BK;
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[nt][e] - l2[e / 2]);
+        if (nt * 8 + 2 * t + (e & 1) >= kv) p = 0.f;
+        s[nt][e] = p * (dps[nt][e] - dd[e / 2]) * a.scale;
+      }
+    uint32_t dsf[T::NT / 2][4];
+    pack_a<T::NT>(dsf, s);
+    for (int vc = 0; vc < nv; ++vc) {  // dQ += dS K, a chunk of the slice at a time
+      const bf16* slot = arrive();
+      const int dv = d - c0 - vc * KC;
+#pragma unroll
+      for (int u = 0; u < T::NV; ++u)  // chunk vc's dQ tiles, at compile-time indices
+        if (u == vc) pv_chunk<T::NT / 2, T::NO>(o, dsf, slot, u * (KC / 8), dv);
+    }
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_tiles<T::NO>(o, one, a.out[0], a, bh, row0, c0);
+}
+
+// --- fp32: dK/dV with S^T on FMA and the products on 3xTF32 mma.sync ------
+
+constexpr int PF = KC + 4;  // fp32 row pitch of a chunk's panel: conflict-free loads
+// the fp32 dK/dV's row tiles of 16 keys a block where K and V fit beside
+// the ring (chosen by timing, the file's header)
+constexpr int kDkvF32Rows = 4;
+
+__device__ __forceinline__ void fma4(float& acc, const float4& x, const float4& y) {
+  acc = fmaf(x.x, y.x, acc);
+  acc = fmaf(x.y, y.y, acc);
+  acc = fmaf(x.z, y.z, acc);
+  acc = fmaf(x.w, y.w, acc);
+}
+
+// s += A B^T over the chunk's kn columns (a multiple of 4) on FMA, in
+// mma_tf32's C layout: s[nt][e] += A[g + 8 (e / 2)][c] B[8 nt + 2t + e % 2][c]
+// for 16 rows of A (pitch lda) and 8 NT rows of B (a panel), one fmaf a
+// column in column order: with s at 0 before column 0, each score is one
+// fmaf chain over the head dim, score_chunk's order, so S^T is the fp32
+// forward's S bit for bit
+template <int NT>
+__device__ __forceinline__ void scores_fma(float (&s)[NT][4], const float* A, int lda,
+                                           const float* B, int kn) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* a0 = A + g * lda;
+  const float* b = B + 2 * t * PF;
+  auto step = [&](int c) {
+    const float4 x0 = ld4(a0 + c), x1 = ld4(a0 + 8 * lda + c);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float4 y0 = ld4(b + 8 * nt * PF + c), y1 = ld4(b + (8 * nt + 1) * PF + c);
+      fma4(s[nt][0], x0, y0);
+      fma4(s[nt][1], x0, y1);
+      fma4(s[nt][2], x1, y0);
+      fma4(s[nt][3], x1, y1);
+    }
+  };
+  if (kn == KC) {
+#pragma unroll
+    for (int c = 0; c < KC; c += 4) step(c);
+  } else {
+    for (int c = 0; c < kn; c += 4) step(c);
+  }
+}
+
+// s += A B^T over the chunk's kn columns (k8 steps) in 3xTF32, into one
+// pair of zeroed partials that then join s in fp32 (at most KC / 8 = 8
+// steps a partial: the tensor cores add with truncation); operands and
+// result as scores_fma's
+template <int NT>
+__device__ __forceinline__ void scores_tf32(float (&s)[NT][4], const float* A, int lda,
+                                            const float* B, int kn) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* a = A + g * lda + t;
+  const float* b = B + g * PF + t;
+  float big[NT][4], small[NT][4];
+  zero(big);
+  zero(small);
+  auto step = [&](int k) {
+    uint32_t ah[4], al[4];
+    split_tf32(a[k], ah[0], al[0]);
+    split_tf32(a[8 * lda + k], ah[1], al[1]);
+    split_tf32(a[k + 4], ah[2], al[2]);
+    split_tf32(a[8 * lda + k + 4], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t bh[2], bl[2];
+      split_tf32(b[8 * nt * PF + k], bh[0], bl[0]);
+      split_tf32(b[8 * nt * PF + k + 4], bh[1], bl[1]);
+      mma_3xtf32(big[nt], small[nt], ah, al, bh, bl);
+    }
+  };
+  if (kn == KC) {
+#pragma unroll
+    for (int k = 0; k < KC; k += 8) step(k);
+  } else {
+    for (int k = 0; k < kn; k += 8) step(k);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] += big[nt][e] + small[nt][e];
+}
+
+// o[base + j] += A X for the KC / 8 n8 tiles j of one chunk in 3xTF32: A
+// a C-layout tile of NT n8 tiles (x), X an (8 NT x PF) panel of those
+// rows. Slot t of k8 step ks takes column 8 ks + 2t and slot t + 4 column
+// 8 ks + 2t + 1, so the C fragment is the A fragment as it stands (the B
+// rows follow the same order); A splits into hi and lo at each use, and
+// all three products of the NT steps go into one zeroed partial a tile
+// (lo hi, hi lo, hi hi), then joined in fp32: held split, or in two
+// partials, A spilled beside the 128 registers of a 256-column o. Columns
+// past d are zeros in X, never stored.
+template <int NT, int NO>
+__device__ __forceinline__ void pv_tf32(float (&o)[NO][4], const float (&x)[NT][4],
+                                        const float* panel, int base) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* r = panel + 2 * t * PF + g;
+#pragma unroll
+  for (int j = 0; j < KC / 8; ++j) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      uint32_t bh[2], bl[2];
+      split_tf32(r[8 * ks * PF + 8 * j], bh[0], bl[0]);
+      split_tf32(r[(8 * ks + 1) * PF + 8 * j], bh[1], bl[1]);
+      uint32_t ah[4], al[4];
+      split_tf32(x[ks][0], ah[0], al[0]);  // row g, column 2t
+      split_tf32(x[ks][2], ah[1], al[1]);  // row g + 8, column 2t
+      split_tf32(x[ks][1], ah[2], al[2]);  // row g, column 2t + 1
+      split_tf32(x[ks][3], ah[3], al[3]);  // row g + 8, column 2t + 1
+      mma_3xtf32(part, part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[base + j][e] += part[e];
+  }
+}
+
+// The fp32 dK/dV's tiles: RT row tiles of 16 keys, two warps each: warp
+// (rt, kind) scores queries [16 kind, + 16) of each q tile of BQ = 32 and
+// owns columns [CW z, + CW) of dK (kind 0) or dV (kind 1). Shared memory
+// (floats): K and V of the block's rows at pitch dp + 4 (dp = d padded to
+// 8), the ring (a slot: the q and dO panels of a chunk), L2 and D of a q
+// tile by tile parity, and dS^T and P^T of the block's rows, where a row
+// tile's two warps meet.
+template <int RT, int CW>
+struct DkvTf32 {
+  static constexpr int WARPS = 2 * RT, THREADS = 32 * WARPS, BKV = 16 * RT, BQ = 32;
+  static constexpr int QW = BQ / 2, NTW = QW / 8;  // queries a warp scores, their n8 tiles
+  static constexpr int NT = BQ / 8;                 // k8 steps of a q tile
+  static constexpr int NO = CW / 8, NCW = CW / KC;  // n8 tiles and chunks of a warp's columns
+  static constexpr int SLOT = 2 * BQ * PF;
+  static constexpr int STATS = 2 * 2 * BQ;
+  static constexpr int LDX = BQ + 8;  // pitch of dS^T and P^T
+  static constexpr int XCH = 2 * BKV * LDX;
+  static_assert(CW % KC == 0, "tile");
+  static __host__ __device__ constexpr size_t smem(int dp) {
+    return (2 * size_t(BKV) * (dp + 4) + size_t(STAGES) * SLOT + STATS + XCH) * 4;
+  }
+};
+
+template <int RT, int CW>
+__global__ void __launch_bounds__(64 * RT, 1) flash_bwd_dkv_anyd_tf32(const Args<float> a) {
+  using T = DkvTf32<RT, CW>;
+  constexpr int BQ = T::BQ;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int n = a.N, d = a.D, lw = a.lw, dp = (d + 7) / 8 * 8, pk = dp + 4;
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + T::BKV * pk;
+  float* ring = sV + T::BKV * pk;
+  float* stats = ring + STAGES * T::SLOT;  // [parity][L2, D][BQ]
+  float* sX = stats + T::STATS;            // [dS^T, P^T][BKV][LDX]
+  const int bh = blockIdx.y, c0 = blockIdx.z * CW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int rt = warp / 2, kind = warp % 2;
+  const int nc = (d + KC - 1) / KC;                 // score chunks
+  const int nv = (min(CW, d - c0) + KC - 1) / KC;   // chunks of the columns
+  const int tiles = (n + BQ - 1) / BQ;
+  // the loops' state stays small (the score phase runs beside the 128
+  // accumulators of a 256-column warp): the heads and the statistics'
+  // rows are found again at each copy, from the launch's arguments
+  auto copy_stats = [&](int j) {
+    float* st = stats + (j & 1) * 2 * BQ;
+    for (int i = threadIdx.x; i < 2 * BQ; i += T::THREADS) {
+      const int r = j * BQ + i % BQ;
+      const float* src = (i < BQ ? a.lse : a.dd) + (long long)bh * n;
+      cp_async4(st + i, r < n ? src + r : src, r < n);
+    }
+  };
+  float acc[T::NO][4];  // dK or dV
+  zero(acc);
+
+  {  // K and V of the block's rows land with the first item
+    const Head<float> k(a, 1, bh), v(a, 2, bh);
+    const int k0 = blockIdx.x * T::BKV;
+    copy_tile(sK, pk, k.p, k.rs, k0, T::BKV, 0, dp, n, d, lw, T::THREADS);
+    copy_tile(sV, pk, v.p, v.rs, k0, T::BKV, 0, dp, n, d, lw, T::THREADS);
+  }
+  // The ring: the q and dO panels of chunk pc of q tile pj, a score chunk
+  // for the first nc (the first also brings L2 and D), then chunk pc - nc
+  // of the block's columns, into slot ps; consumed from slot cs
+  const int per_tile = nc + nv;
+  int pj = 0, pc = 0, ps = 0, cs = 0;
+  auto issue = [&]() {
+    if (pj < tiles) {
+      const Head<float> q(a, 0, bh), dout(a, 3, bh);
+      float* slot = ring + ps * T::SLOT;
+      const int col = pc < nc ? pc * KC : c0 + (pc - nc) * KC;
+      copy_panel<BQ, T::THREADS>(slot, q.p, q.rs, pj * BQ, col, n, d, lw);
+      copy_panel<BQ, T::THREADS>(slot + BQ * PF, dout.p, dout.rs, pj * BQ, col, n, d, lw);
+      if (pc == 0) copy_stats(pj);
+      if (++pc == per_tile) pc = 0, ++pj;
+    }
+    ps = ps + 1 == STAGES ? 0 : ps + 1;
+    cp_async_commit();
+  };
+  auto arrive = [&](bool scores) {
+    cp_async_wait<STAGES - 2>();
+    float* slot = ring + cs * T::SLOT;
+    if (scores) prescale_own<BQ, T::THREADS>(slot, lw, a.scale_log2);
+    __syncthreads();
+    issue();
+    cs = cs + 1 == STAGES ? 0 : cs + 1;
+    return slot;
+  };
+#pragma unroll 1
+  for (int i = 0; i < STAGES - 1; ++i) issue();
+  for (int j = 0; j < tiles; ++j) {
+    float st[T::NTW][4], dpt[T::NTW][4];
+    zero(st);
+    zero(dpt);
+    for (int c = 0; c < nc; ++c) {
+      const float* slot = arrive(true) + kind * T::QW * PF;
+      const int kn = min(KC, dp - c * KC);
+      const int kv = rt * 16 * pk + c * KC;  // the warp's 16 keys, chunk c
+      scores_fma<T::NTW>(st, sK + kv, pk, slot, kn);                // S^T = K q2^T
+      scores_tf32<T::NTW>(dpt, sV + kv, pk, slot + BQ * PF, kn);  // dP^T = V dO^T
+    }
+    // P^T = exp2(S^T - L2[q]), 0 at queries past n; dS^T = P^T (dP^T -
+    // D[q]) d^-1/2 (rows keys g, g + 8, columns the warp's queries); both
+    // to shared memory, where the next barrier shows them the other warp
+    const float* stt = stats + (j & 1) * 2 * BQ + kind * T::QW;
+    const int qv = n - j * BQ - kind * T::QW;
+#pragma unroll
+    for (int nt = 0; nt < T::NTW; ++nt) {
+      const float2 l2 = *reinterpret_cast<const float2*>(stt + nt * 8 + 2 * t);
+      const float2 dd = *reinterpret_cast<const float2*>(stt + BQ + nt * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(st[nt][e] - ((e & 1) ? l2.y : l2.x));
+        if (nt * 8 + 2 * t + (e & 1) >= qv) p = 0.f;
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? dd.y : dd.x)) * a.scale;
+      }
+    }
+    float* xw = sX + rt * 16 * T::LDX + kind * T::QW;
+    store_c<T::NTW, T::LDX>(xw, dpt);
+    store_c<T::NTW, T::LDX>(xw + T::BKV * T::LDX, st);
+    float x[T::NT][4];  // dS^T (kind 0) or P^T (kind 1) over the q tile
+    for (int vc = 0; vc < nv; ++vc) {  // dK += dS^T Q, dV += P^T dO
+      const float* slot = arrive(false);
+      if (vc == 0) load_c<T::NT, T::LDX>(x, sX + (kind * T::BKV + rt * 16) * T::LDX);
+#pragma unroll
+      for (int u = 0; u < T::NCW; ++u)  // chunk vc's tiles, at compile-time indices
+        if (u == vc) pv_tf32<T::NT, T::NO>(acc, x, slot + kind * BQ * PF, u * (KC / 8));
+    }
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_tiles<T::NO>(acc, one, a.out[kind], a, bh, blockIdx.x * T::BKV + rt * 16, c0);
+}
+
 template <int WARPS, int CS>
 cudaError_t launch_fwd_mma(const Args<bf16>& a, size_t smem, cudaStream_t stream) {
   using T = FwdMma<WARPS, CS>;
@@ -1194,11 +1562,67 @@ cudaError_t launch_dkv_bf16(const Args<bf16>& a, cudaStream_t stream) {
   return launch_dkv_mma<2, kDkvSplit>(a, dp, stream);
 }
 
+template <int WARPS, int CS>
+cudaError_t launch_dq_mma(const Args<bf16>& a, int dp, cudaStream_t stream) {
+  using T = DqMma<WARPS, CS>;
+  auto kern = flash_bwd_dq_anyd_mma<WARPS, CS>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.N + T::BQ - 1) / T::BQ, a.B * a.H, (a.D + CS - 1) / CS);
+  kern<<<grid, T::THREADS, T::smem(dp), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// dQ's warps at (N, padded head dim dp): kDqWarps, or 4 at N <= 64 (one
+// 64-row block) or where the q2 and dO tiles of 16 kDqWarps rows do not
+// fit beside the ring, or 2 where those of 4 warps do not either (with the
+// slice past d = 128 only)
+template <int CS>
+cudaError_t launch_dq_slice(const Args<bf16>& a, int dp, cudaStream_t stream) {
+  if (a.N > 64 && DqMma<kDqWarps, CS>::smem(dp) <= SMEM_MAX)
+    return launch_dq_mma<kDqWarps, CS>(a, dp, stream);
+  if constexpr (CS == kDqSlice)
+    if (DqMma<4, CS>::smem(dp) > SMEM_MAX) return launch_dq_mma<2, CS>(a, dp, stream);
+  return launch_dq_mma<4, CS>(a, dp, stream);
+}
+
+cudaError_t launch_dq_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  const int dp = (a.D + 15) / 16 * 16;
+  if (a.D <= 128) return launch_dq_slice<128>(a, dp, stream);
+  return launch_dq_slice<kDqSlice>(a, dp, stream);
+}
+
+template <int RT, int CW>
+cudaError_t launch_dkv_tf32(const Args<float>& a, int dp, cudaStream_t stream) {
+  using T = DkvTf32<RT, CW>;
+  auto kern = flash_bwd_dkv_anyd_tf32<RT, CW>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.N + T::BKV - 1) / T::BKV, a.B * a.H, (a.D + CW - 1) / CW);
+  kern<<<grid, T::THREADS, T::smem(dp), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the fp32 dK/dV: 128 columns a warp up to d = 128, 256 past it (grid.z
+// splits a wider head); kDkvF32Rows row tiles a block, or 2, or 1 where K
+// and V of those rows do not fit beside the ring
+cudaError_t launch_dkv_f32(const Args<float>& a, cudaStream_t stream) {
+  const int dp = (a.D + 7) / 8 * 8;
+  if (a.D <= 128) return launch_dkv_tf32<kDkvF32Rows, 128>(a, dp, stream);
+  if (DkvTf32<kDkvF32Rows, 256>::smem(dp) <= SMEM_MAX)
+    return launch_dkv_tf32<kDkvF32Rows, 256>(a, dp, stream);
+  if (DkvTf32<2, 256>::smem(dp) <= SMEM_MAX) return launch_dkv_tf32<2, 256>(a, dp, stream);
+  return launch_dkv_tf32<1, 256>(a, dp, stream);
+}
+
 }  // namespace
 
 // The entries, each with its tuned twin's parameters (csrc/flash_fwd.cu,
-// flash_bwd.cu; flash_fp32.cu's for fp32); the bf16 forward and dK/dV run
-// the mma.sync kernels, the rest the SIMT ones: q, k, v (and dO) of T (B, N, H,
+// flash_bwd.cu; flash_fp32.cu's for fp32); the bf16 forward, dQ and dK/dV
+// run the mma.sync kernels, the fp32 dK/dV the 3xTF32 one, the fp32
+// forward and dQ the SIMT ones: q, k, v (and dO) of T (B, N, H,
 // D), element strides (batch, seq, head) of each in `st`, a unit head-dim
 // stride; outputs (B, N, H, D) contiguous; the LSE and D fp32 (B*H, N);
 // scale (the forward) and scale_log2 the q prescale d^-1/2 log2(e), scale
@@ -1226,7 +1650,12 @@ extern "C" int pbe_flash_bwd_dq_anyd_bf16(const void* q, const void* k, const vo
                                           void* dq, int B, int N, int H, int D,
                                           const long long* st, float scale_log2, float scale,
                                           void* stream) {
-  return run_dq<bf16>(q, k, v, dout, lse, dd, dq, B, N, H, D, st, scale_log2, scale, stream);
+  const void* in[4] = {q, k, v, dout};
+  Args<bf16> a;
+  const cudaError_t err = make_args(&a, in, 4, st, lse, dd, dq, nullptr, nullptr, B, N, H, D,
+                                    scale_log2, scale);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dq_bf16(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pbe_flash_bwd_dq_anyd_f32(const void* q, const void* k, const void* v,
@@ -1255,6 +1684,10 @@ extern "C" int pbe_flash_bwd_dkv_anyd_f32(const void* q, const void* k, const vo
                                           void* dk, void* dv, int B, int N, int H, int D,
                                           const long long* st, float scale_log2, float scale,
                                           void* stream) {
-  return run_dkv<float>(q, k, v, dout, lse, dd, dk, dv, B, N, H, D, st, scale_log2, scale,
-                        stream);
+  const void* in[4] = {q, k, v, dout};
+  Args<float> a;
+  const cudaError_t err = make_args(&a, in, 4, st, lse, dd, dk, dv, nullptr, B, N, H, D,
+                                    scale_log2, scale);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dkv_f32(a, static_cast<cudaStream_t>(stream));
 }

@@ -401,44 +401,7 @@ __device__ __forceinline__ void store_rows(float* out, const Args& a, int bh, in
 // --- the forward and the backward: 3xTF32 tensor-core products beside S
 // on FFMA
 
-// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero:
-// the bits of cvt.rna.tf32.f32 for finite x, in one integer add and one
-// mask, which issue faster than the conversion
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x as hi + lo: hi = tf32(x) and lo = x - hi (exact) as it stands; the
-// tensor cores read a tf32 operand's top 19 bits, so lo is truncated to 11
-// significant bits there: hi + lo keeps x to 2^-21 of |x|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a b for one m16n8k8 tile: a 16x8 tf32 (row), b 8x8 tf32 (col), c
-// 16x8 fp32. Lane (g, t) = (lane/4, lane%4) holds a0..a3 = A[g][t],
-// A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g]; c0..c3 =
-// C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a b in 3xTF32, (ah + al)(bh + bl) less al bl: ah bh into `big`, the
-// small terms into `small` (two chains of dependent mma, not one)
-__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
-                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  mma_tf32(small, al, bh[0], bh[1]);
-  mma_tf32(small, ah, bl[0], bl[1]);
-  mma_tf32(big, ah, bh[0], bh[1]);
-}
-
-// S = A B^T over head-dim columns [0, kdim) in the C layout above: s[nt][e]
+// S = A B^T over head-dim columns [0, kdim) in mma_tf32's C layout: s[nt][e]
 // = sum_c A[g + 8(e/2)][c] B[8nt + 2t + e%2][c], for 16 rows of A and 8 NT
 // rows of B (row-major fp32, pitch LD), each element one fmaf chain over c
 // = 0, 1, ... from 0: abt's order, so these are the forward's scores bit
@@ -538,29 +501,6 @@ __device__ __forceinline__ void ab_tf32(float (&o)[NO][4], const float (&p)[KT][
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] += part[j][e] + small[j][e];
-}
-
-// a 16 x 8 NT C-layout tile into shared memory from X (pitch LDX), and back
-template <int NT, int LDX>
-__device__ __forceinline__ void store_c(float* X, const float (&s)[NT][4]) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    *reinterpret_cast<float2*>(X + g * LDX + 8 * nt + 2 * t) = make_float2(s[nt][0], s[nt][1]);
-    *reinterpret_cast<float2*>(X + (g + 8) * LDX + 8 * nt + 2 * t) =
-        make_float2(s[nt][2], s[nt][3]);
-  }
-}
-
-template <int NT, int LDX>
-__device__ __forceinline__ void load_c(float (&s)[NT][4], const float* X) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const float2 x = *reinterpret_cast<const float2*>(X + g * LDX + 8 * nt + 2 * t);
-    const float2 y = *reinterpret_cast<const float2*>(X + (g + 8) * LDX + 8 * nt + 2 * t);
-    s[nt][0] = x.x, s[nt][1] = x.y, s[nt][2] = y.x, s[nt][3] = y.y;
-  }
 }
 
 // rows [r0, r0 + 16) of a (B, N, H, D) contiguous output from a C-layout

@@ -6,9 +6,10 @@
 // registers relies on the C layout of two adjacent n8 tiles being the A
 // layout of one k16 step. Then the forward kernels' operands, online-softmax
 // step and epilogue; the mbarrier, bulk-copy and cluster helpers of the
-// resident kernel and of the d = 512 backward pair; and that pair's TMA
+// resident kernel and of the d = 512 backward pair; that pair's TMA
 // tensor copies, 128-byte swizzle and wgmma (sm_90a), whose accumulator
-// layout is mma_bf16's C layout in n8 tiles.
+// layout is mma_bf16's C layout in n8 tiles; and the fp32 kernels' 3xTF32
+// mma.sync.m16n8k8.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -644,6 +645,73 @@ __device__ __forceinline__ void wgmma_m64n256_rs_t(float (&d)[128], const uint32
         "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
         "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --- the fp32 kernels' tensor-core product (csrc/flash_fp32.cu,
+// csrc/flash_anyd.cu): an fp32 operand split into a tf32 high part and its
+// remainder, and mma.sync.m16n8k8 in 3xTF32 (lo hi + hi lo + hi hi with
+// fp32 accumulation), which keeps an fp32 product to about 2^-21 of each
+// term where 1xTF32 keeps ~3 decimal digits; and a C-layout tile's trip
+// through shared memory
+
+// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero:
+// the bits of cvt.rna.tf32.f32 for finite x, in one integer add and one
+// mask, which issue faster than the conversion
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi + lo: hi = tf32(x) and lo = x - hi (exact) as it stands; the
+// tensor cores read a tf32 operand's top 19 bits, so lo is truncated to 11
+// significant bits there: hi + lo keeps x to 2^-21 of |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b for one m16n8k8 tile: a 16x8 tf32 (row), b 8x8 tf32 (col), c
+// 16x8 fp32. Lane (g, t) = (lane/4, lane%4) holds a0..a3 = A[g][t],
+// A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g]; c0..c3 =
+// C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b in 3xTF32, (ah + al)(bh + bl) less al bl: ah bh into `big`, the
+// small terms into `small` (two chains of dependent mma, not one)
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(small, al, bh[0], bh[1]);
+  mma_tf32(small, ah, bl[0], bl[1]);
+  mma_tf32(big, ah, bh[0], bh[1]);
+}
+
+// a 16 x 8 NT C-layout tile into shared memory at X (pitch LDX), and back
+template <int NT, int LDX>
+__device__ __forceinline__ void store_c(float* X, const float (&s)[NT][4]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    *reinterpret_cast<float2*>(X + g * LDX + 8 * nt + 2 * t) = make_float2(s[nt][0], s[nt][1]);
+    *reinterpret_cast<float2*>(X + (g + 8) * LDX + 8 * nt + 2 * t) =
+        make_float2(s[nt][2], s[nt][3]);
+  }
+}
+
+template <int NT, int LDX>
+__device__ __forceinline__ void load_c(float (&s)[NT][4], const float* X) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float2 x = *reinterpret_cast<const float2*>(X + g * LDX + 8 * nt + 2 * t);
+    const float2 y = *reinterpret_cast<const float2*>(X + (g + 8) * LDX + 8 * nt + 2 * t);
+    s[nt][0] = x.x, s[nt][1] = x.y, s[nt][2] = y.x, s[nt][3] = y.y;
+  }
 }
 
 }  // namespace

@@ -2,8 +2,10 @@
 (csrc/flash_fwd.cu ``flash_fwd_kernel``), with ``--bwd`` the backward
 (csrc/flash_bwd.cu ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``),
 with ``--variants`` the resident and pipelined kernels
-(csrc/flash_variants.cu), with ``--anyd`` the bf16 forward and dK/dV of
-csrc/flash_anyd.cu (``flash_fwd_anyd_mma``, ``flash_bwd_dkv_anyd_mma``).
+(csrc/flash_variants.cu), with ``--anyd`` the tensor-core kernels of
+csrc/flash_anyd.cu (the bf16 ``flash_fwd_anyd_mma``,
+``flash_bwd_dq_anyd_mma`` and ``flash_bwd_dkv_anyd_mma``, the fp32
+``flash_bwd_dkv_anyd_tf32``).
 
     python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--bwd | --variants | --anyd]
         [--repeats 50] [--settings "first:48=4x64,80=4x64,160=2x32" ...]
@@ -25,13 +27,15 @@ pipelined kernel runs 16 warps a block), and each
 setting's kernels are timed by CUDA graph at the attention benchmark's
 shapes (the pipelined kernel at every key chunk, the resident one at its
 default key block and every cluster size). With ``--anyd`` a setting
-rewrites flash_anyd.cu's ``fwarps=N``, ``fslice=N``, ``split=N`` and
-``stages=N`` (``kFwdWarps``, ``kFwdSlice``, ``kDkvSplit``, ``STAGES``), and
+rewrites flash_anyd.cu's ``fwarps=N``, ``fslice=N``, ``split=N``,
+``stages=N``, ``qwarps=N``, ``qslice=N`` and ``frows=N`` (``kFwdWarps``,
+``kFwdSlice``, ``kDkvSplit``, ``STAGES``: every ring's slots,
+``kDqWarps``, ``kDqSlice``, ``kDkvF32Rows``), and
 ``--baseline`` adds another checkout's flash_anyd.cu as one more setting;
-each setting's bf16 forward and dK/dV are timed by CUDA graph at
-ANYD_SHAPES (the DDPM CIFAR-10 UNet's two attention shapes at batch 128,
-and d = 64, 128 and 1024 at N = 256), twice, the settings in turn and
-then in reverse order. The settings are
+each setting's bf16 forward, dQ and dK/dV and fp32 dK/dV are timed by CUDA
+graph at ANYD_SHAPES (the DDPM CIFAR-10 UNet's two attention shapes at
+batch 128, and d = 64, 128 and 1024 at N = 256), twice, the settings in
+turn and then in reverse order. The settings are
 built side by side with nvcc into ``csrc/build/sweep/`` (the shipped
 library is not touched). Each is checked against its plain version (rel
 L2 <= 1e-2 for every output) and timed at the UNet shapes of the edit and
@@ -101,9 +105,16 @@ ANYD_SETTINGS = (
     "fw4:fwarps=4",
     "st4:stages=4",
     "fs128:fslice=128,split=1",
+    "qw4:qwarps=4",
+    "qs128:qslice=128",
+    "fr2:frows=2",
 )
 ANYD_CONSTANTS = {"fwarps": "kFwdWarps", "fslice": "kFwdSlice", "split": "kDkvSplit",
-                  "stages": "STAGES"}
+                  "stages": "STAGES", "qwarps": "kDqWarps", "qslice": "kDqSlice",
+                  "frows": "kDkvF32Rows"}
+# the kernels the --anyd sweep times: (name, wrapper kind, operand dtype)
+ANYD_KERNELS = (("fwd", "fwd", torch.bfloat16), ("dq", "dq", torch.bfloat16),
+                ("dkv", "dkv", torch.bfloat16), ("dkv_f32", "dkv", torch.float32))
 ANYD_SHAPES = {"ddpm_n256": (128, 256, 1, 256), "ddpm_mid_n16": (128, 16, 1, 256),
                "d64": (128, 256, 1, 64), "d128": (128, 256, 1, 128),
                "d1024": (128, 256, 1, 1024)}
@@ -180,7 +191,8 @@ def kernel_label(mangled: str) -> str | None:
                   r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|fwd_wide_f32|bwd_dq_f32"
                   r"|bwd_dkv_f32"
                   r"|resident_f32|pipelined_f32)"
-                  r"_kernel|flash_(?:fwd|bwd_dkv)_anyd_mma|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd)"
+                  r"_kernel|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd_mma|flash_bwd_dkv_anyd_tf32"
+                  r"|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd)"
                   r"(I\w+?EE)?", mangled)
     if m is None:
         return None
@@ -322,19 +334,21 @@ def sweep_variants(built: dict, settings: dict, repeats: int) -> None:
 
 
 def sweep_anyd(built: dict, settings: dict, repeats: int) -> None:
-    """Each setting's bf16 forward and dK/dV of flash_anyd.cu at
+    """Each setting's tensor-core kernels of flash_anyd.cu (ANYD_KERNELS) at
     ANYD_SHAPES, checked against their plain versions (rel L2 <= 1e-2) and
     timed by CUDA graph, the settings in turn and then in reverse."""
     from pbe_tpu_torch.scripts.bench_attention import time_us
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kerns = {"fwd": fa.FlashForward(), "dkv": fa.FlashBackward("dkv")}
+    kerns = {name: fa.FlashForward() if kind == "fwd" else fa.FlashBackward(kind)
+             for name, kind, _ in ANYD_KERNELS}
+    dtypes = {name: dtype for name, _, dtype in ANYD_KERNELS}
     fns = {}
     for name, (lib, report) in built.items():
         print(f"[{name}] {settings[name] or 'as shipped'}\n{report}", flush=True)
         fns[name] = {}
         for which, kern in kerns.items():
-            symbol = kern.entry(torch.bfloat16, 256)[1]
+            symbol = kern.entry(dtypes[which], 256)[1]
             fn = getattr(ctypes.CDLL(lib), symbol)
             fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
             fns[name][which] = (symbol, fn)
@@ -346,30 +360,34 @@ def sweep_anyd(built: dict, settings: dict, repeats: int) -> None:
 
     order = list(built) + list(built)[::-1]
     for sname, shape in ANYD_SHAPES.items():
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-                       for _ in range(4))
-        out, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
-        dd = fa.rowsum_do_o(do, out)
-        want_dkv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd)
-        times = {name: {"fwd": [], "dkv": []} for name in built}
-        for name in order:
-            use(name)
-            calls = {"fwd": lambda: kerns["fwd"](q, k, v),
-                     "dkv": lambda: kerns["dkv"](q, k, v, do, lse, dd)}
-            for which, call in calls.items():
-                got, want = call(), (out,) if which == "fwd" else want_dkv
-                got = (got,) if which == "fwd" else got
-                rel_l2 = max(((g.float() - w.float()).norm() / w.float().norm()).item()
-                             for g, w in zip(got, want))
-                if rel_l2 > 1e-2:
-                    raise AssertionError(f"setting {name} {which} disagrees with the plain "
-                                         f"version at {sname}: rel L2 {rel_l2:.3e}")
-                times[name][which].append(time_us(call, repeats, q.device) / 1e3)
+        times = {name: {which: [] for which in kerns} for name in built}
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            out, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+            dd = fa.rowsum_do_o(do, out)
+            want = {"fwd": (out,), "dq": (fa.flash_bwd_dq_plain(q, k, v, do, lse, dd),),
+                    "dkv": fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd)}
+            calls = {"fwd": lambda: (kerns["fwd"](q, k, v),),
+                     "dq": lambda: (kerns["dq"](q, k, v, do, lse, dd),),
+                     "dkv": lambda: kerns["dkv"](q, k, v, do, lse, dd),
+                     "dkv_f32": lambda: kerns["dkv_f32"](q, k, v, do, lse, dd)}
+            mine = [w for w in kerns if dtypes[w] == dtype]
+            for name in order:
+                use(name)
+                for which in mine:
+                    got = calls[which]()
+                    rel_l2 = max(((g.float() - w.float()).norm() / w.float().norm()).item()
+                                 for g, w in zip(got, want[which.removesuffix("_f32")]))
+                    if rel_l2 > 1e-2:
+                        raise AssertionError(f"setting {name} {which} disagrees with the plain "
+                                             f"version at {sname}: rel L2 {rel_l2:.3e}")
+                    times[name][which].append(time_us(calls[which], repeats, q.device) / 1e3)
+            del q, k, v, do, out, lse, dd, want
+            torch.cuda.empty_cache()
         for name in built:
             print(json.dumps({"setting": name, "shape": sname,
                               **{f"{w}_ms": t for w, t in times[name].items()}}), flush=True)
-        del q, k, v, do, out, lse, dd, want_dkv
-        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> None:
@@ -380,7 +398,7 @@ def main(argv=None) -> None:
     which.add_argument("--variants", action="store_true",
                        help="sweep the resident and pipelined kernels (csrc/flash_variants.cu)")
     which.add_argument("--anyd", action="store_true",
-                       help="sweep the bf16 mma.sync kernels of csrc/flash_anyd.cu")
+                       help="sweep the tensor-core kernels of csrc/flash_anyd.cu")
     p.add_argument("--baseline", default=None,
                    help="with --anyd: another checkout's flash_anyd.cu, timed as a setting")
     p.add_argument("--repeats", type=int, default=50)

@@ -163,3 +163,55 @@ def safety_state_dict(seed=0, concept_thr=-2.0, special_thr=2.0):
     n_pos = (SAFETY_GEO["image_size"] // SAFETY_GEO["patch_size"]) ** 2 + 1
     sd["vision_model.vision_model.embeddings.position_ids"] = torch.arange(n_pos)[None]
     return sd
+
+
+# --- the fp32 kernels' tensor-core arithmetic on the CPU: csrc/flash_fp32.cu
+# and csrc/flash_anyd.cu run their fp32 products as 3xTF32 mma.sync, emulated
+# here step by step
+
+
+def tf32(x):
+    """csrc/mma_sm90.cuh's to_tf32: round to 10 mantissa bits, ties away
+    from zero, by one integer add and a mask."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def top19(x):
+    """The 19 bits of an fp32 register that the tensor cores read as tf32."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mma_k8(acc, a, b):
+    """acc + a b for one k8 step of mma.sync.m16n8k8: the products summed
+    (float64 stands in for the exact sum) and added into the fp32
+    accumulator with truncation toward zero."""
+    exact = acc.double() + a.double() @ b.double()
+    f = exact.float()
+    return torch.where(f.double().abs() > exact.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def stress_inputs(kind: str, shape, seed: int = 20, count: int = 3):
+    """chip_smoke.py's fp32 inputs on the CPU (q, k, v and, with count 4,
+    dO): randn, peaked scores (q and k x8) and a row max that rises by 0.02
+    a key in the exp2 domain (rising_scores)."""
+    from pbe_tpu_torch.ops import flash_attention as fa
+
+    g = np.random.default_rng(seed)
+    q, k, *rest = (torch.from_numpy(g.standard_normal(shape).astype(np.float32))
+                   for _ in range(count))
+    if kind == "peaked":
+        return q * 8, k * 8, *rest
+    if kind == "rising":
+        n, d = shape[1], shape[3]
+        q, k = 0.1 * q, 0.1 * k
+        q[..., 0] = 1.0
+        step = 0.02 / (d ** -0.5 * fa.LOG2E)
+        k[..., 0] = (torch.arange(n, dtype=torch.float32) * step)[None, :, None]
+    return q, k, *rest
+
+
+def rel_errors(got, want):
+    """(max|got - want| / max|want|, rel L2): chip_smoke.py's fp32 measures."""
+    diff = got - want
+    return ((diff.abs().max() / want.abs().max()).item(),
+            (diff.norm() / want.norm()).item())

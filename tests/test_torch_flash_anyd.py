@@ -7,7 +7,9 @@ the port's flash_attention at head dims outside the tuned table against
 the JAX package's Pallas flash_attention (interpret mode, as
 tests/test_flash_attention.py runs it), forward and gradients, alone and
 inside a small vae_legacy.Model. The CUDA kernels themselves are held
-against the plain versions on the card by chip_smoke.py phase 29."""
+against the plain versions on the card by chip_smoke.py phase 29; the fp32
+dK/dV kernel's 3xTF32 products are emulated here in its order and held to
+phase 29's fp32 tolerances, which 1xTF32 misses."""
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -22,10 +24,13 @@ from jax.experimental.pallas import tpu as pltpu
 from pbe_tpu.models import vae_legacy as jvl
 from pbe_tpu.ops import flash_attention as jfa
 
+import chip_smoke
 from pbe_tpu_torch import convert
 from pbe_tpu_torch.models import vae_legacy as tvl
 from pbe_tpu_torch.ops import cuda_build
 from pbe_tpu_torch.ops import flash_attention as tfa
+
+from _torch_port import mma_k8, rel_errors, stress_inputs, tf32, top19
 
 CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
 DTYPES = [torch.bfloat16, torch.float32]
@@ -187,9 +192,11 @@ def test_wrappers_refuse_cpu_tensors_at_any_head_dim():
 def test_source_defines_every_anyd_entry_with_its_twins_arguments():
     """csrc/flash_anyd.cu exports the six symbols the wrappers load, each
     with its tuned twin's parameter list (the wrappers share argtypes); the
-    bf16 forward and dK/dV entries launch the mma.sync kernels, every other
-    entry its SIMT kernel, and the SIMT forward and dK/dV exist at fp32
-    only."""
+    bf16 entries launch the mma.sync kernels, the fp32 dK/dV entry the
+    3xTF32 one, the fp32 forward and dQ their SIMT kernels; the SIMT
+    forward and dQ exist at fp32 only and the SIMT dK/dV not at all, and
+    the 3xTF32 and C-layout helpers come from the header flash_fp32.cu
+    shares."""
     def entry(path, symbol):
         src = (CSRC / path).read_text()
         m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\) \{(.*?)\n\}", src, re.S)
@@ -201,17 +208,26 @@ def test_source_defines_every_anyd_entry_with_its_twins_arguments():
         for sfx in ("bf16", "f32"):
             params, body[kind, sfx] = entry("flash_anyd.cu", f"pbe_flash_{kind}_anyd_{sfx}")
             assert params == entry(f"{twin}.cu", f"pbe_flash_{kind}_bf16")[0]
-    assert "launch_fwd_bf16(a" in body["fwd", "bf16"]
-    assert "launch_dkv_bf16(a" in body["bwd_dkv", "bf16"]
-    for kind, sfx, run in (("fwd", "f32", "run_fwd<float>"), ("bwd_dq", "bf16", "run_dq<bf16>"),
-                           ("bwd_dq", "f32", "run_dq<float>"),
-                           ("bwd_dkv", "f32", "run_dkv<float>")):
+    for kind, sfx, run in (("fwd", "bf16", "launch_fwd_bf16(a"),
+                           ("bwd_dq", "bf16", "launch_dq_bf16(a"),
+                           ("bwd_dkv", "bf16", "launch_dkv_bf16(a"),
+                           ("bwd_dkv", "f32", "launch_dkv_f32(a"),
+                           ("fwd", "f32", "run_fwd<float>"), ("bwd_dq", "f32", "run_dq<float>")):
         assert run in body[kind, sfx], (kind, sfx)
     src = (CSRC / "flash_anyd.cu").read_text()
-    assert "run_fwd<bf16>" not in src and "run_dkv<bf16>" not in src
-    for kern in ("flash_fwd_anyd_mma<", "flash_bwd_dkv_anyd_mma<"):
+    assert "run_fwd<bf16>" not in src and "run_dq<bf16>" not in src and "run_dkv" not in src
+    assert "flash_bwd_dkv_anyd(" not in src
+    for kern in ("flash_fwd_anyd_mma<", "flash_bwd_dq_anyd_mma<", "flash_bwd_dkv_anyd_mma<",
+                 "flash_bwd_dkv_anyd_tf32<"):
         assert f"auto kern = {kern}" in src
     assert '#include "mma_sm90.cuh"' in src and "mma_bf16(" in src
+    assert "mma_3xtf32(" in src
+    fp32 = (CSRC / "flash_fp32.cu").read_text()
+    assert '#include "mma_sm90.cuh"' in fp32
+    for helper in ("to_tf32(float", "split_tf32(float", "mma_tf32(float", "mma_3xtf32(float",
+                   "store_c(float", "load_c(float"):
+        assert helper in (CSRC / "mma_sm90.cuh").read_text()
+        assert helper not in src and helper not in fp32, helper
     assert cuda_build.library_path("flash_anyd").name.startswith("libflash_anyd-")
 
 
@@ -309,17 +325,86 @@ def test_ptxas_report_names_the_anyd_kernels_by_operand_type():
                 "ptxas info    : Used 168 registers, used 1 barriers"]
 
     log, want = [], []
-    for name, types in (("flash_fwd_anyd", ("fp32",)), ("flash_bwd_dq_anyd", ("bf16", "fp32")),
-                        ("flash_bwd_dkv_anyd", ("fp32",))):
-        for sfx in types:
-            mangled = "I13__nv_bfloat16EE" if sfx == "bf16" else "IfEE"
-            log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}{mangled}vNS_4ArgsIT_EE")
-            want.append(f"  {name}<{sfx}>: 0 bytes stack frame")
-    # the bf16 forward and dK/dV on mma.sync, by their tile arguments
-    for name, args in (("flash_fwd_anyd_mma", (4, 128)), ("flash_fwd_anyd_mma", (4, 256)),
-                       ("flash_bwd_dkv_anyd_mma", (4, 1)), ("flash_bwd_dkv_anyd_mma", (2, 2))):
+    # the SIMT kernels, at fp32 only
+    for name in ("flash_fwd_anyd", "flash_bwd_dq_anyd"):
+        log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}IfEEvNS_4ArgsIT_EE")
+        want.append(f"  {name}<fp32>: 0 bytes stack frame")
+    # the bf16 forward, dQ and dK/dV on mma.sync and the fp32 dK/dV on
+    # 3xTF32, by their tile arguments
+    for name, args, dtype in (("flash_fwd_anyd_mma", (4, 128), "I13__nv_bfloat16EE"),
+                              ("flash_fwd_anyd_mma", (4, 256), "I13__nv_bfloat16EE"),
+                              ("flash_bwd_dq_anyd_mma", (8, 256), "I13__nv_bfloat16EE"),
+                              ("flash_bwd_dq_anyd_mma", (2, 256), "I13__nv_bfloat16EE"),
+                              ("flash_bwd_dkv_anyd_mma", (4, 1), "I13__nv_bfloat16EE"),
+                              ("flash_bwd_dkv_anyd_mma", (2, 2), "I13__nv_bfloat16EE"),
+                              ("flash_bwd_dkv_anyd_tf32", (4, 128), "IfEE"),
+                              ("flash_bwd_dkv_anyd_tf32", (1, 256), "IfEE")):
         targs = "".join(f"Li{a}E" for a in args)
-        log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvNS_4ArgsI13__nv_bfloat16EE")
+        log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvNS_4Args{dtype}")
         want.append(f"  {name}<{', '.join(map(str, args))}>: 0 bytes stack frame")
     report = ptxas_report("\n".join(log)).splitlines()
     assert [line[:len(w)] for line, w in zip(report, want)] == want and len(report) == len(want)
+
+
+def _tf32_steps(acc, a, b, k0, k1, terms: int, pair: bool):
+    """acc + a[..., k0:k1] b[..., k0:k1, :] as csrc/mma_sm90.cuh's mma_3xtf32
+    over the k8 steps of [k0, k1) (terms 1: hi hi alone): hi = to_tf32(x),
+    lo = x - hi read as its top 19 bits, each step added with the tensor
+    cores' truncation. With ``pair`` hi hi goes into one zeroed partial and
+    lo hi, hi lo into another, then acc + (big + small) in fp32; else all
+    three into one zeroed partial (lo hi, hi lo, hi hi), then acc + it."""
+    big = small = torch.zeros_like(acc)
+    for k in range(k0, min(k1, a.shape[-1]), 8):
+        x, y = a[..., k:k + 8], b[..., k:k + 8, :]
+        xh, yh = tf32(x), tf32(y)
+        if terms == 3:
+            small = mma_k8(small, top19(x - xh), yh)
+            small = mma_k8(small, xh, top19(y - yh))
+        if pair:
+            big = mma_k8(big, xh, yh)
+        else:
+            small = mma_k8(small, xh, yh)
+    return acc + (big + small) if pair else acc + small
+
+
+def _dkv_tf32(q, k, v, do, terms: int):
+    """csrc/flash_anyd.cu's fp32 dK/dV (flash_bwd_dkv_anyd_tf32) in torch:
+    S^T in fp32 (the plain version's S, as the kernel's fmaf chain is
+    cuBLAS's order), then dP^T = V dO^T in chunks of KF = 64 head-dim
+    columns, one pair of partials a chunk, and dV += P^T dO, dK += dS^T Q
+    one partial a q tile of BQ = 32 queries."""
+    b, n, h, d = q.shape
+    out, lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
+    dd = tfa.rowsum_do_o(do, out).reshape(b, h, n, 1)
+    s2 = tfa._heads(tfa.prescale(q)) @ tfa._heads(k).transpose(-1, -2)
+    p = torch.exp2(s2 - lse.reshape(b, h, n, 1))
+    dph = torch.zeros_like(p)
+    doh, vt = tfa._heads(do), tfa._heads(v).transpose(-1, -2)
+    for c0 in range(0, d, 64):
+        dph = _tf32_steps(dph, doh, vt, c0, c0 + 64, terms, True)
+    ds = p * (dph - dd) * d ** -0.5
+    dk, dv = torch.zeros(b, h, n, d), torch.zeros(b, h, n, d)
+    pt, dst, qh = p.transpose(-1, -2), ds.transpose(-1, -2), tfa._heads(q)
+    for q0 in range(0, n, 32):
+        dv = _tf32_steps(dv, pt, doh, q0, q0 + 32, terms, False)
+        dk = _tf32_steps(dk, dst, qh, q0, q0 + 32, terms, False)
+    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("kind", ["randn", "peaked", "rising"])
+@pytest.mark.parametrize("d", chip_smoke.ANYD_STRESS_DIMS)
+def test_3xtf32_dkv_meets_the_fp32_tolerances_where_1xtf32_fails(d, kind):
+    """The fp32 any-head-dim dK/dV's products (dP^T, dV, dK) as 3xTF32
+    tensor-core steps in the kernel's order land within phase 29's
+    F32_MAX_REL / F32_L2_REL of flash_bwd_dkv_plain on its randn, peaked
+    and rising-max inputs at N = 200 (a ragged last q tile); at 1xTF32
+    they do not. This is why dP^T runs on the tensor cores beside dV and
+    dK, each in 3xTF32."""
+    q, k, v, do = stress_inputs(kind, (1, 200, 2, d), seed=d, count=4)
+    out, lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
+    want = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, tfa.rowsum_do_o(do, out))
+    for terms in (3, 1):
+        errs = [rel_errors(g, w) for g, w in zip(_dkv_tf32(q, k, v, do, terms), want)]
+        inside = all(m <= chip_smoke.F32_MAX_REL and l2 <= chip_smoke.F32_L2_REL
+                     for m, l2 in errs)
+        assert inside == (terms == 3), (terms, errs)

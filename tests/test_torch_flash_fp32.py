@@ -25,6 +25,8 @@ from pbe_tpu_torch.ops import flash_attention as fa
 from pbe_tpu_torch.scripts import inference
 from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
 
+from _torch_port import mma_k8, rel_errors, stress_inputs, tf32, top19
+
 CSRC = Path(fa.__file__).resolve().parent.parent / "csrc"
 WRAPPERS = {"fwd": fa.flash_fwd, "dq": fa.flash_bwd_dq, "dkv": fa.flash_bwd_dkv,
             "resident": fa.flash_fwd_resident, "pipelined": fa.flash_fwd_pipelined}
@@ -196,26 +198,6 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def _tf32(x):
-    """csrc/flash_fp32.cu's to_tf32: round to 10 mantissa bits, ties away
-    from zero, by one integer add and a mask."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _top19(x):
-    """The 19 bits of an fp32 register that the tensor cores read as tf32."""
-    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _mma(acc, a, b):
-    """acc + a b for one k8 step of mma.sync.m16n8k8: the products summed
-    (float64 stands in for the exact sum) and added into the fp32
-    accumulator with truncation toward zero."""
-    exact = acc.double() + a.double() @ b.double()
-    f = exact.float()
-    return torch.where(f.double().abs() > exact.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
-
-
 def _pv_tf32(o, p, vh, k0, terms: int):
     """o + p V[k0:] as the kernels' k8 steps of mma.sync: operands split as
     hi = to_tf32(x), lo = x - hi (terms 3: lo hi + hi lo + hi hi; terms 1:
@@ -225,11 +207,11 @@ def _pv_tf32(o, p, vh, k0, terms: int):
         part = torch.zeros_like(o)
         for ks in range(c0, min(c0 + 64, p.shape[-1]), 8):
             a, b = p[..., ks:ks + 8], vh[..., k0 + ks:k0 + ks + 8, :]
-            ah, bh = _tf32(a), _tf32(b)
+            ah, bh = tf32(a), tf32(b)
             if terms == 3:
-                part = _mma(part, _top19(a - ah), bh)
-                part = _mma(part, ah, _top19(b - bh))
-            part = _mma(part, ah, bh)
+                part = mma_k8(part, top19(a - ah), bh)
+                part = mma_k8(part, ah, top19(b - bh))
+            part = mma_k8(part, ah, bh)
         o = o + part
     return o
 
@@ -259,29 +241,6 @@ def _flash_tf32(q, k, v, terms: int, bk: int = 64, variant: str = "resident"):
     return (o / l).permute(0, 2, 1, 3)
 
 
-def _stress_inputs(kind: str, shape, seed: int = 20):
-    """chip_smoke.py phase 20's forward inputs on the CPU: randn, peaked
-    scores (q and k x8) and a row max that rises by 0.02 a key in the exp2
-    domain (rising_scores)."""
-    g = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(g.standard_normal(shape).astype(np.float32)) for _ in range(3))
-    if kind == "peaked":
-        return q * 8, k * 8, v
-    if kind == "rising":
-        n, d = shape[1], shape[3]
-        q, k = 0.1 * q, 0.1 * k
-        q[..., 0] = 1.0
-        step = 0.02 / (d ** -0.5 * fa.LOG2E)
-        k[..., 0] = (torch.arange(n, dtype=torch.float32) * step)[None, :, None]
-    return q, k, v
-
-
-def _rel_errors(got, want):
-    diff = got - want
-    return ((diff.abs().max() / want.abs().max()).item(),
-            (diff.norm() / want.norm()).item())
-
-
 # the fp32 forward at its key tile of 64 (K1/K2), and K3 and K4 at key
 # blocks of 32 and 128 over N = 160 (a ragged last tile)
 PV_CASES = [pytest.param((1, 256, 2, 40), 64, "resident", id="d40"),
@@ -301,10 +260,10 @@ def test_3xtf32_pv_meets_the_fp32_tolerances_where_1xtf32_fails(shape, bk, varia
     forward's, K3's and K4's order, lands within phase 20's F32_MAX_REL /
     F32_L2_REL of flash_attention_plain; the same products at 1xTF32 do
     not, which is why P V takes three of them."""
-    q, k, v = _stress_inputs(kind, shape)
+    q, k, v = stress_inputs(kind, shape)
     want = fa.flash_attention_plain(q, k, v)
-    max3, l2_3 = _rel_errors(_flash_tf32(q, k, v, 3, bk, variant), want)
-    max1, l2_1 = _rel_errors(_flash_tf32(q, k, v, 1, bk, variant), want)
+    max3, l2_3 = rel_errors(_flash_tf32(q, k, v, 3, bk, variant), want)
+    max1, l2_1 = rel_errors(_flash_tf32(q, k, v, 1, bk, variant), want)
     assert max3 <= chip_smoke.F32_MAX_REL and l2_3 <= chip_smoke.F32_L2_REL, (max3, l2_3)
     assert max1 > chip_smoke.F32_MAX_REL or l2_1 > chip_smoke.F32_L2_REL, (max1, l2_1)
 
@@ -319,7 +278,7 @@ def test_3xtf32_variants_match_the_pallas_kernels_at_fp32(variant, bk, _few_thre
 
     from pbe_tpu.ops import flash_attention as jfa
 
-    q, k, v = _stress_inputs("randn", (1, 256, 1, 40), seed=5)
+    q, k, v = stress_inputs("randn", (1, 256, 1, 40), seed=5)
     jx = lambda x: jnp.asarray(x[:, :, 0].numpy())
     with pltpu.force_tpu_interpret_mode():
         want, want_lse = jfa._flash_fwd_bhnd(
@@ -328,7 +287,7 @@ def test_3xtf32_variants_match_the_pallas_kernels_at_fp32(variant, bk, _few_thre
             **({"block_c": bk} if variant == "pipelined" else {}))
     want = torch.from_numpy(np.array(want))[:, :, None, :]
     got = _flash_tf32(q, k, v, 3, bk, variant)
-    err_max, err_l2 = _rel_errors(got, want)
+    err_max, err_l2 = rel_errors(got, want)
     assert err_max <= chip_smoke.F32_MAX_REL and err_l2 <= chip_smoke.F32_L2_REL, (err_max,
                                                                                   err_l2)
     _, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
