@@ -255,12 +255,27 @@ The flash kernels at any head dim (the eighteenth slice):
      SDPA (rows named *_anyd), the log lines of the bf16 dQ and fp32
      dK/dV rows with their times before their redesign (ANYD_BEFORE_MS).
 
+The resident and pipelined kernels at any head dim (the twenty-first slice):
+ 30. csrc/flash_variants_anyd.cu's build seconds, each kernel's ptxas
+     registers and spills and its HMMA count (the phase fails on a spill,
+     a missing instantiation or a bf16 K3/K4 kernel without HMMA); K3 and
+     K4 at bf16 and fp32 against the plain version at every key block at
+     d = 1 ... 1024 (ANYD_DIMS, 36, 150, 832, 833; N = 77) and at the
+     tuned head dims' blocks their tables lack, on peaked and rising-max
+     scores, packed q/k/v views, d = 1 at a head-dim stride of 2 and N =
+     1, 5 and 17, each launched twice, counted by kernel name and compared
+     bitwise; then one flash_forward(variant=...) call of each at its
+     default block at (128, 256, 1, d) for d = 64, 128, 256 and at (2,
+     4096, 8, 64), counted from 0, and each kernel timed there beside the
+     plain version, SDPA and flash_fwd_anyd (rows named
+     flash_{resident,pipelined}_anyd).
+
 A run takes them in the order 1, 2, 7, 17, 11's bf16 part, 3, 4, 12, 13,
 14, 5, 8, 9, 15, 16, 18, 6, 10, 19, 12's tiny edits, 27, then 20, 11's
-fp32 part, 21, 22, 23, 24, 25, 26, 28, 29: kernels first, the timed edits
-before the profiler, the card-vs-CPU comparisons last. csrc/flash_fp32.cu,
-the slowest build (minutes, one host core), and csrc/flash_anyd.cu start
-after phase 13, so that no nvcc runs beside the host-bound timings of
+fp32 part, 21, 22, 23, 24, 25, 26, 28, 29, 30: kernels first, the timed
+edits before the profiler, the card-vs-CPU comparisons last.
+csrc/flash_fp32.cu, the slowest build (minutes, one host core),
+csrc/flash_anyd.cu and csrc/flash_variants_anyd.cu start after phase 13, so that no nvcc runs beside the host-bound timings of
 phases 4, 12 and 13; they build beside phases 14, 5, 8, 9, 15, 16, 18, 6,
 10, 19, 12's tiny edits and 27 (which needs neither), and phase 20 waits
 for them. Phase 26 runs the runbook in a thread beside scripts.test, and
@@ -272,11 +287,11 @@ its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when any phase fails or there is no CUDA device.
 
     python3 chip_smoke.py --only edit,serving[,frozen-bf16][,frozen-int8]
-        [,test-split][,overfit][,legacy][,ddpm]
+        [,test-split][,overfit][,legacy][,ddpm][,variants-anyd]
 
 runs v1 with phase 4's random weights through just the named phases (4,
 13, 25 with the named precisions: one alone, both side by side, 26, 27,
-28, 29), each kernel built at its first use, and prints their summaries (and
+28, 29, 30), each kernel built at its first use, and prints their summaries (and
 the kernel rows they add) as its last line instead of the contract line. Run from two trees in one call, it compares
 their host paths on one card.
 """
@@ -511,9 +526,10 @@ def graph_ms(fn, iters: int, stream=None) -> float:
 
 # csrc/flash_fp32.cu takes minutes to build on one host core: it starts
 # after phase 13, so that the edit and serving timings (phases 4, 12 and
-# 13) run with no nvcc beside them, and phase 20 waits for it; so does
-# csrc/flash_anyd.cu, which only phases 28 and 29 run
-LATE_BUILDS = ("flash_fp32", "flash_anyd")
+# 13) run with no nvcc beside them, and phase 20 waits for it; so do
+# csrc/flash_anyd.cu, which only phases 28-30 run, and
+# csrc/flash_variants_anyd.cu, which only phase 30 runs
+LATE_BUILDS = ("flash_fp32", "flash_anyd", "flash_variants_anyd")
 _START = time.perf_counter()
 BUILD_SECONDS: dict = {}  # each source's nvcc seconds, as start_builds timed it
 
@@ -1355,7 +1371,7 @@ def phase_variants_f32() -> list[dict]:
                            f"fp32 {variant} {label} {tuple(q.shape)} block {blk}"
                            + (f" cluster {c}" if c else ""),
                            block=blk, **({"cluster": c} if c else {}))
-                 for blk in fa.block_table(variant, f32)[1][dp] for c in clusters]
+                 for blk in fa.block_table(variant, f32)[dp] for c in clusters]
             errs[variant] = (max(x for x, _ in e), max(y for _, y in e))
         return errs
 
@@ -1410,7 +1426,7 @@ def phase_variants_f32() -> list[dict]:
                    "ms": graph_ms(lambda: kern(q, k, v), 20), "plain_ms": plain_ms,
                    "bound_ms": ms_bound, "bound_by": "bytes" if by == "bytes" else "operations",
                    "library": f"sdpa ({backend})", "library_ms": sdpa_ms,
-                   "block": fa.key_block(variant, d, dtype=f32), "fwd_f32_ms": fwd_ms}
+                   "block": fa.key_block(variant, d), "fwd_f32_ms": fwd_ms}
             if variant == "resident":
                 row["cluster"] = fa.flash_fwd_resident.plan(
                     shape, sms=torch.cuda.get_device_properties(0).multi_processor_count,
@@ -3804,6 +3820,23 @@ ANYD_OFFSETS = {"bfloat16": (0, 4, 2, 1), "float32": (0, 2, 1)}
 DDPM_BF16_TOL = {"max": 0.15, "mean": 0.02, "loss": 1e-2, "grad_norm": 5e-2}
 DDPM_F32_REL = 1e-4
 DDPM_STEPS = 5  # timed forward-plus-backward steps at each dtype
+# phase 30, csrc/flash_variants_anyd.cu's K3 and K4 against the plain
+# version at phase 29's forward tolerances: at every key block of
+# KEY_BLOCKS, N = 77, at ANYD_DIMS, at two head dims that are not
+# multiples of 8 but pad to a tuned one (36 -> 48, 150 -> 160: the tuned
+# kernels cannot read them, so the any-head-dim kernels run them), at 832 |
+# 833 (the bf16 kernels' 8 warps | 4 at block 32; ANYD_DIMS holds the edges
+# at 64 and 128, 784 | 785 and 672 | 673), and at the tuned head dims'
+# blocks their tables lack; peaked and rising-max
+# scores at ANYD_STRESS_DIMS (N = 200), packed q/k/v views at
+# ANYD_PACKED_DIMS, d = 1 at a head-dim stride of 2, and N below every
+# key block (VARIANT_ANYD_SHORT)
+VARIANT_ANYD_DIMS = ANYD_DIMS + (36, 150, 832, 833)
+VARIANT_ANYD_SHORT = ((1, 1, 2, 100), (2, 5, 1, 28), (1, 17, 1, 1024))
+# ... and timed at their default key blocks at ANYD_TIMED's N = 256 shapes
+# of d = 64, 128, 256 and at the attention benchmark's ds1 geometry at d =
+# 64: (name, (B, N, H, D))
+VARIANT_ANYD_TIMED = (*ANYD_TIMED[:3], ("ds1_d64", (2, 4096, 8, 64)))
 
 
 def measured_row(measured: dict, fa, name: str, shape, replaces: str, rand) -> dict:
@@ -4303,6 +4336,31 @@ def expect_ddpm_launches(counts: dict, lse: int, grad: bool, label: str) -> None
                              f"expected {want} ({6 if grad else 0})")
 
 
+def hmma_by_kernel(lib) -> dict:
+    """{kernel label: HMMA (tensor-core) instructions} of every kernel in the
+    built library's SASS (cuobjdump -sass)."""
+    import re
+    import shutil
+    import subprocess
+
+    from pbe_tpu_torch.ops import cuda_build
+    from pbe_tpu_torch.scripts.sweep_flash_tiles import kernel_label
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build.find_nvcc()),
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    hmma, label = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = kernel_label(m[1]) or m[1]
+            hmma[label] = 0
+        elif label is not None and "HMMA" in line:
+            hmma[label] += 1
+    return hmma
+
+
 def anyd_build_report() -> dict:
     """csrc/flash_anyd.cu's build (here, timed, where no earlier phase
     built it) and its kernels: each one's ptxas registers and spills, and
@@ -4314,11 +4372,9 @@ def anyd_build_report() -> dict:
     flash_bwd_dq_anyd, an fp32 flash_bwd_dkv_anyd), and the dQ and fp32
     dK/dV spill nothing."""
     import re
-    import shutil
-    import subprocess
 
     from pbe_tpu_torch.ops import cuda_build
-    from pbe_tpu_torch.scripts.sweep_flash_tiles import kernel_label, ptxas_report
+    from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
 
     if "flash_anyd" not in BUILD_SECONDS:
         t = time.perf_counter()
@@ -4332,18 +4388,7 @@ def anyd_build_report() -> dict:
               if ("_mma<" in line or "_tf32<" in line) and re.search(r"[1-9]\d* bytes spill", line)]
     if spills:
         log(f"[anyd] the tensor-core kernels spill: {spills}")
-    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build.find_nvcc()),
-                                                     "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    hmma, label = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            label = kernel_label(m[1]) or m[1]
-            hmma[label] = 0
-        elif label is not None and "HMMA" in line:
-            hmma[label] += 1
+    hmma = hmma_by_kernel(lib)
     log(f"[anyd] HMMA instructions by kernel (cuobjdump -sass): {hmma}")
     mma = {k: v for k, v in hmma.items() if "_anyd_mma<" in k or "_anyd_tf32<" in k}
     kinds = {k.split("<")[0] for k in mma}
@@ -4578,6 +4623,220 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
     return out
 
 
+# csrc/flash_variants_anyd.cu's kernels by kind, and their instantiations:
+# bf16 K3 and K4 at 4 and 8 warps, slices of 128 and 256 columns at key
+# blocks of 32 and 64, of 128 at 128 (10 each); fp32 K3 and K4 at each block
+VARIANT_ANYD_KERNELS = {"flash_resident_anyd_mma": 10, "flash_pipelined_anyd_mma": 10,
+                        "flash_resident_anyd": 3, "flash_pipelined_anyd": 3}
+
+
+def variants_anyd_build_report() -> dict:
+    """csrc/flash_variants_anyd.cu's build (timed where no earlier phase
+    built it, beside csrc/flash_anyd.cu's where that is not built either)
+    and its kernels: each one's ptxas registers and spills and its HMMA
+    count (cuobjdump -sass). Raises unless every instantiation of
+    VARIANT_ANYD_KERNELS is there, the bf16 K3 and K4 (the _mma kernels)
+    all hold HMMA, and no kernel spills."""
+    import re
+
+    from pbe_tpu_torch.ops import cuda_build
+    from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
+
+    missing = tuple(n for n in ("flash_anyd", "flash_variants_anyd") if n not in BUILD_SECONDS)
+    if missing:
+        start_builds(missing)()
+    lib = cuda_build.build("flash_variants_anyd")
+    report = ptxas_report(cuda_build.build_log("flash_variants_anyd"))
+    log(f"[variants-anyd] flash_variants_anyd.cu built in "
+        f"{BUILD_SECONDS['flash_variants_anyd']:.1f} s; registers and spills (ptxas):\n{report}")
+    hmma = hmma_by_kernel(lib)
+    log(f"[variants-anyd] HMMA instructions by kernel (cuobjdump -sass): {hmma}")
+    kinds = {kind: sorted(k for k in hmma if k.split("<")[0] == kind)
+             for kind in VARIANT_ANYD_KERNELS}
+    spills = [line.strip() for line in report.splitlines()
+              if re.search(r"[1-9]\d* bytes spill", line)]
+    fails = [f"{kind}: {len(kinds[kind])} instantiations, expected {count}"
+             for kind, count in VARIANT_ANYD_KERNELS.items() if len(kinds[kind]) != count]
+    fails += [f"{k} holds no HMMA" for kind in ("flash_resident_anyd_mma",
+                                                 "flash_pipelined_anyd_mma")
+              for k in kinds[kind] if not hmma[k]]
+    fails += [f"spills: {line}" for line in spills]
+    if fails:
+        raise AssertionError("flash_variants_anyd.cu: " + "; ".join(fails))
+    return {"build_s": BUILD_SECONDS["flash_variants_anyd"], "hmma": hmma,
+            "ptxas": report.splitlines()}
+
+
+@clocked
+def phase_variants_anyd(card: str, rows: list[dict]) -> dict:
+    """Phase 30: csrc/flash_variants_anyd.cu, K3 and K4 at every head dim
+    from 1 to 1024. (a) the build, ptxas and SASS report
+    (variants_anyd_build_report: every instantiation, HMMA in the bf16
+    ones, no spills). (b) at bf16 and fp32, each variant at every (head
+    dim, key block) pair of VARIANT_ANYD_DIMS x KEY_BLOCKS and of the tuned
+    head dims' blocks their tables lack (kernel_entry names the any-head-dim
+    kernel there), N = 77, then on peaked and rising-max scores, packed
+    q/k/v views, d = 1 at a head-dim stride of 2 and N below every block
+    (VARIANT_ANYD_SHORT): each call launched twice, counted as two
+    launches of its any-head-dim kernel and of no other, compared bitwise,
+    and held against the plain version at phase 29's forward tolerances
+    (compare_flash); a cluster of 2, a key block of 256 and d = 1025
+    refused. (c) at VARIANT_ANYD_TIMED, every count set to
+    0 just before one flash_forward(variant=...) call of each variant at its
+    default key block and read just after (one launch of its any-head-dim
+    kernel and of no other: the row's launches), then each kernel timed (a
+    CUDA graph of 20 calls) beside the plain version, SDPA, flash_fwd_anyd
+    at the same shape and the function's bound (phases 11 and 29's: bound,
+    or bound_3xtf32 at fp32): the kernels line's flash_{resident,
+    pipelined}_anyd rows. Every failure of (b) is collected, and the phase
+    fails at its end naming them all."""
+    import torch
+    import torch.nn.functional as F
+
+    from pbe_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    build = variants_anyd_build_report()
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    kernels = {"resident": fa.flash_fwd_resident, "pipelined": fa.flash_fwd_pipelined}
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    fails, checked = [], 0
+
+    def check(variant, q, k, v, want, block, label):
+        """two launches of the any-head-dim kernel on (q, k, v): counted by
+        kernel name, equal bit for bit, the first against the plain
+        version -> (max err, max lse err), None where one of them fails"""
+        nonlocal checked
+        kern, name = kernels[variant], f"flash_{variant}_anyd"
+        label = f"{variant} {label} {tuple(q.shape)} block {block}"
+        try:
+            lib = fa.kernel_entry(variant, q.shape[3], q.dtype, block)[0]
+            if lib != "flash_variants_anyd":
+                raise AssertionError(f"kernel_entry names {lib}")
+            before = dict(kern.launches_by_kernel)
+            got = [kern(q, k, v, return_lse=True, block=block) for _ in range(2)]
+            diff = {kn: c - before.get(kn, 0) for kn, c in kern.launches_by_kernel.items()
+                    if c != before.get(kn, 0)}
+            if diff != {name: 2}:
+                raise AssertionError(f"two calls launched {diff}")
+            if not (torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])):
+                raise AssertionError("two launches differ")
+            errs = compare_flash(got[0], want, label)
+            checked += 1
+            return errs
+        except (AssertionError, RuntimeError, ValueError) as e:
+            fails.append(f"{label}: {type(e).__name__}: {e}")
+            log(f"[variants-anyd] FAIL {label}: {e}")
+            return None
+
+    def check_all(q, k, v, label, blocks=fa.KEY_BLOCKS):
+        want = fa.flash_attention_plain(q, k, v, return_lse=True)
+        for variant in kernels:
+            for block in blocks:
+                if not fa.tuned_variant(variant, q.shape[3], block, q.dtype):
+                    check(variant, q, k, v, want, block, label)
+
+    for dname, dtype in dtypes.items():
+        rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        for d in VARIANT_ANYD_DIMS + fa.SUPPORTED_HEAD_DIMS:
+            shape = (2, 77, 2, d)
+            check_all(rand(shape), rand(shape), rand(shape), f"{dname} check")
+        for d in ANYD_STRESS_DIMS:
+            shape = (1, 200, 2, d)
+            q, k, v = rand(shape), rand(shape), rand(shape)
+            check_all(q * 8, k * 8, v, f"{dname} peaked (q, k x8)")
+            qr, kr = rising_scores(shape, gen, dtype)
+            check_all(qr, kr, v, f"{dname} rising max")
+        for d in ANYD_PACKED_DIMS:
+            q, k, v = rand((2, 77, 3, 2, d)).unbind(2)
+            check_all(q, k, v, f"{dname} packed qkv views strides {q.stride()}")
+        q, k, v = (rand((2, 77, 1, 2)).permute(0, 1, 3, 2) for _ in range(3))
+        check_all(q, k, v, f"{dname} d = 1 strides {q.stride()}")
+        for shape in VARIANT_ANYD_SHORT:
+            check_all(rand(shape), rand(shape), rand(shape), f"{dname} short")
+    x = torch.zeros((1, 77, 2, 64), device="cuda", dtype=torch.bfloat16)
+    refusals = {"cluster 2": lambda: fa.flash_fwd_resident(x, x, x, cluster=2),
+                "block 256": lambda: fa.flash_forward(x, x, x, variant="pipelined",
+                                                      block_c=256),
+                "d = 1025": lambda: fa.flash_forward(*[torch.zeros(
+                    (1, 8, 1, 1025), device="cuda")] * 3, variant="resident")}
+    for what, call in refusals.items():
+        try:
+            call()
+            fails.append(f"{what} was not refused")
+        except ValueError as e:
+            log(f"[variants-anyd] {what} refused: {e}")
+    checks_s = time.perf_counter() - t_phase
+    log(f"[variants-anyd] {checked} checks passed, {len(fails)} failed, in {checks_s:.1f} s")
+    if fails:
+        raise AssertionError(f"phase 30 (K3/K4 at any head dim): {len(fails)} failures: "
+                             + "; ".join(fails[:40]))
+
+    timed = {}
+    for dname, dtype in dtypes.items():
+        f32 = dtype == torch.float32
+        rand = lambda shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        for name, shape in VARIANT_ANYD_TIMED:
+            b, n, h, d = shape
+            q, k, v = rand(shape), rand(shape), rand(shape)
+            want = fa.flash_attention_plain(q, k, v, return_lse=True)
+            # the path: one flash_forward(variant=...) call of each variant,
+            # every count from 0
+            for name_ in KERNELS:
+                getattr(fa, name_).reset()
+            errs, launches = {}, {}
+            for variant, kern in kernels.items():
+                errs[variant] = compare_flash(
+                    fa.flash_forward(q, k, v, variant=variant, return_lse=True), want,
+                    f"flash_forward(variant={variant!r}) {dname} {name} {shape}")
+                launches[variant] = dict(kern.launches_by_kernel)
+            others = {name_: dict(getattr(fa, name_).launches_by_kernel) for name_ in KERNELS
+                      if name_ not in ("flash_fwd_resident", "flash_fwd_pipelined")}
+            if (any(launches[v_] != {f"flash_{v_}_anyd": 1} for v_ in kernels)
+                    or any(others.values())):
+                raise AssertionError(f"flash_forward(variant=...) at {shape} {dname} launched "
+                                     f"{launches}, others {others}")
+            plain_ms = graph_ms(lambda: fa.flash_attention_plain(q, k, v), 3)
+            qt, kt, vt = (x_.transpose(1, 2) for x_ in (q, k, v))
+            sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+            anyd_ms = graph_ms(lambda: fa.flash_fwd(q, k, v), 20)
+            nbytes = 4.0 * b * n * h * d * q.element_size()
+            _, fma_ms = bound(4.0, b, n, h, d, nbytes, f32=True)
+            by, ms_bound = (bound_3xtf32 if f32 else bound)(4.0, b, n, h, d, nbytes)
+            # K4 computes S twice: 6 B H N^2 D of products in all
+            _, floor_ms = bound(6.0, b, n, h, d, nbytes, f32=f32)
+            for variant, kern in kernels.items():
+                block = fa.key_block(variant, d)
+                row = {"name": f"flash_{variant}_anyd/{name}", "route": "cuda",
+                       "source": "pbe_tpu_torch/csrc/flash_variants_anyd.cu",
+                       "replaces": K3 if variant == "resident" else K4, "dtype": dname,
+                       "launches": launches[variant][f"flash_{variant}_anyd"],
+                       "max_abs_err": errs[variant][0], "lse_max_abs_err": errs[variant][1],
+                       "ms": graph_ms(lambda: kern(q, k, v), 20), "plain_ms": plain_ms,
+                       "bound_ms": ms_bound,
+                       "bound_by": "bytes" if by == "bytes" else "operations",
+                       "library_ms": sdpa_ms, "block": block, "flash_fwd_anyd_ms": anyd_ms,
+                       "run": f"phase 30: one flash_forward(variant={variant!r}) call at "
+                              f"{shape}, {dname}"}
+                if f32:
+                    row["library"] = f"sdpa ({sdpa_backend(qt, kt, vt)})"
+                timed[row["name"], dname] = row["ms"]
+                log(f"[variants-anyd] {row['name']} {dname} (block {block}): {row['ms']:.4f} ms "
+                    f"(graph), plain {plain_ms:.4f}, {row.get('library', 'sdpa')} "
+                    f"{sdpa_ms:.4f}, flash_fwd_anyd {anyd_ms:.4f}, bound {ms_bound:.4f} by {by}"
+                    + (f" (all-FMA {fma_ms:.4f})" if f32 else "")
+                    + (f", S-twice floor {floor_ms:.4f}" if variant == "pipelined" else "")
+                    + f" ({card})")
+                rows.append(row)
+            del q, k, v, qt, kt, vt, want
+            torch.cuda.empty_cache()
+    out = {"build": build, "checks": checked, "checks_s": checks_s,
+           "ms": {f"{name} {dname}": ms for (name, dname), ms in timed.items()},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[variants-anyd] phase 30 {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def seeded_checkpoint(pipe, zero_names: list[str], root: str) -> str:
     """The tensors randomize_zero_params changed, as a checkpoint in
     ``root`` for the CLIs of phases 21, 23, 24 and 25 (the rest is
@@ -4591,7 +4850,7 @@ def seeded_checkpoint(pipe, zero_names: list[str], root: str) -> str:
 
 
 ONLY = ("edit", "serving", "frozen-bf16", "frozen-int8", "test-split", "overfit", "legacy",
-        "ddpm")
+        "ddpm", "variants-anyd")
 
 
 def run_only(only: list[str], card: str) -> dict:
@@ -4625,6 +4884,8 @@ def run_only(only: list[str], card: str) -> dict:
         out["legacy"] = phase_legacy(card, rows)
     if "ddpm" in only:
         out["ddpm"] = phase_ddpm(card, rows)
+    if "variants-anyd" in only:
+        out["variants_anyd"] = phase_variants_anyd(card, rows)
     if rows:
         out["kernels"] = rows
     return out
@@ -4726,6 +4987,7 @@ def main(argv=None) -> int:
     slice_rows += overfit_rows
     legacy = phase_legacy(card, slice_rows)
     ddpm = phase_ddpm(card, slice_rows)
+    variants_anyd = phase_variants_anyd(card, slice_rows)
     log(f"[clock] every phase done at {time.perf_counter() - _START:.1f} s (limit 1200 s)")
     log(f"[edit] summary {json.dumps(edit)}")
     log(f"[train] summary {json.dumps(train)}")
@@ -4743,6 +5005,7 @@ def main(argv=None) -> int:
     log(f"[overfit] summary {json.dumps(overfit)}")
     log(f"[legacy] summary {json.dumps(legacy)}")
     log(f"[ddpm] summary {json.dumps(ddpm)}")
+    log(f"[variants-anyd] summary {json.dumps(variants_anyd)}")
     kernels = (rows + train_rows + vae_rows + variant_rows + cli_rows + serve_rows + f32_rows
                + long_rows + slice_rows)
     for row in kernels:

@@ -78,7 +78,10 @@
 //     slice of 128 columns (d <= 128) or kFwdSlice (a wider head splits
 //     over grid.z, each split recomputing S). Per key tile of 64: K's
 //     chunks, S in registers, the online-softmax step, then the slice's V
-//     chunks, P V into the chunk's O tiles.
+//     chunks, P V into the chunk's O tiles. The body (fwd_mma) takes the key
+//     block and K4's two passes as template arguments: the forward is K3 at
+//     block 64, and csrc/flash_variants_anyd.cu's K3 and K4 run it at blocks
+//     32, 64 and 128 (the SIMT forward's fwd_simt alike).
 //   * dQ: the forward's shape with two score products. A block of kDqWarps
 //     warps (4 at N <= 64 or where the tiles do not fit: d > 336; 2 past d
 //     = 672) owns 16 kDqWarps query rows, its q2 and dO tiles resident at
@@ -187,6 +190,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 
@@ -197,13 +201,12 @@ constexpr int BR = 64;        // a block's own rows: queries (forward, dQ), keys
 constexpr int BT = 64;        // rows of a streamed tile: keys (forward, dQ), queries (dK/dV)
 constexpr int DC = 32;        // head-dim columns of a score chunk
 constexpr int SUB = 16;       // streamed rows of an output step
-constexpr int LD = 68;        // pitch of the transposed chunks and of P / dS (16-byte rows)
+constexpr int LD = BT + 4;    // pitch of the transposed chunks and of P / dS (16-byte rows)
 constexpr int MAX_D = 1024;
 // output columns a thread, and a block (grid.z splits a wider head)
 constexpr int NJ = 16, COLS = 16 * NJ;
-// dynamic shared memory (floats): the score chunks, P and/or dS, the
-// streamed rows of the output step
-constexpr size_t FWD_SMEM = (2 * DC * LD + BT * LD + SUB * COLS) * sizeof(float);
+// dQ's dynamic shared memory (floats): the score chunks, dS, the streamed
+// rows of the output step
 constexpr size_t DQ_SMEM = (4 * DC * LD + BT * LD + SUB * COLS) * sizeof(float);
 static_assert(DQ_SMEM <= 232448, "shared memory per block");
 
@@ -248,13 +251,13 @@ struct Head {
 // COLS), through registers: fetch() starts the loads, put() / put_t() store
 // the values to shared memory once its readers are done. Rows >= n and
 // columns >= d are 0; with prescale != 0 each value is round_T(x *
-// prescale) (q2).
-template <typename T, int ROWS, int COLS>
+// prescale) (q2). put_t() writes at the pitch TLD.
+template <typename T, int ROWS, int COLS, int TLD = LD>
 struct Stage {
   static constexpr int PER = ROWS * COLS / THREADS;
   // thread t holds column t % COLS of rows t / COLS + STEP e (e < PER)
   static constexpr int STEP = THREADS / COLS;
-  static_assert(THREADS % COLS == 0 && ROWS * COLS % THREADS == 0 && ROWS <= LD, "tile");
+  static_assert(THREADS % COLS == 0 && ROWS * COLS % THREADS == 0 && ROWS <= TLD, "tile");
   float v[PER];
 
   __device__ __forceinline__ void fetch(const Head<T>& h, int r0, int c0, int n, int d,
@@ -277,9 +280,9 @@ struct Stage {
 #pragma unroll
     for (int e = 0; e < PER; ++e) dst[threadIdx.x + THREADS * e] = v[e];
   }
-  // transposed: column c of row r at dst[c * LD + r]
+  // transposed: column c of row r at dst[c * TLD + r]
   __device__ __forceinline__ void put_t(float* dst) const {
-    float* q = dst + (threadIdx.x % COLS) * LD + threadIdx.x / COLS;
+    float* q = dst + (threadIdx.x % COLS) * TLD + threadIdx.x / COLS;
 #pragma unroll
     for (int e = 0; e < PER; ++e) q[STEP * e] = v[e];
   }
@@ -300,30 +303,55 @@ __device__ __forceinline__ int col_of(int j) {
   return 4 * (threadIdx.x % 16) + 64 * (j / 4) + j % 4;
 }
 
-__device__ __forceinline__ void score_step(float (&s)[4][4], const float* a, const float* b) {
-  const float4 x4 = ld4(a), y4 = ld4(b);
-  const float x[4] = {x4.x, x4.y, x4.z, x4.w}, y[4] = {y4.x, y4.y, y4.z, y4.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+// key j < BK / 16 of S of this thread, at key tiles of BK: 2 tc + j at BK
+// = 32, else groups of 4 keys 64 apart (4 tc + 64 (j / 4) + j % 4; key_of(j)
+// at BK = 64), each group one 8- or 16-byte shared-memory load
+template <int BK>
+__device__ __forceinline__ int key_at(int j) {
+  if constexpr (BK == 32) return 2 * (threadIdx.x % 16) + j;
+  return 4 * (threadIdx.x % 16) + 64 * (j / 4) + j % 4;
 }
-
-// s[i][j] += A[k][4 tr + i] * B[k][4 tc + j] for the chunk's kn columns
-// k, one fmaf a column in column order: with s at 0 before column 0, every
-// score of every kernel here is one fmaf chain over the head dim, in the
-// order cuBLAS's fp32 product (the plain version's) takes too; partial
-// sums a chunk, added after, moved the fp32 backward past its tolerance on
-// peaked scores at d = 100 (rel L2 2.9e-5 against 1e-5 on the card)
-__device__ __forceinline__ void score_chunk(float (&s)[4][4], const float* A, const float* B,
+// s[i][j] += A[k][4 tr + i] * B[k][key_at<BK>(j)] for the chunk's kn
+// columns k (A pitch LD, B pitch BK + 4: LD at BK = BT), one fmaf a column in
+// column order: with s at 0 before column 0, every score of every kernel
+// here is one fmaf chain over the head dim, in the order cuBLAS's fp32
+// product (the plain version's) takes too; partial sums a chunk, added
+// after, moved the fp32 backward past its tolerance on peaked scores at d =
+// 100 (rel L2 2.9e-5 against 1e-5 on the card)
+template <int BK = BT>
+__device__ __forceinline__ void score_chunk(float (&s)[4][BK / 16], const float* A, const float* B,
                                             int kn) {
+  constexpr int KJ = BK / 16, LDK = BK + 4;
   const float* a = A + row_of(0);
-  const float* b = B + key_of(0);
+  const float* b = B + key_at<BK>(0);
+  auto step = [&](int k) {
+    const float4 x4 = ld4(a + k * LD);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    float y[KJ];
+    if constexpr (BK == 32) {
+      const float2 y2 = *reinterpret_cast<const float2*>(b + k * LDK);
+      y[0] = y2.x;
+      y[1] = y2.y;
+    } else {
+#pragma unroll
+      for (int g = 0; g < KJ / 4; ++g) {
+        const float4 y4 = ld4(b + k * LDK + 64 * g);
+        y[4 * g] = y4.x;
+        y[4 * g + 1] = y4.y;
+        y[4 * g + 2] = y4.z;
+        y[4 * g + 3] = y4.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+  };
   if (kn == DC) {
 #pragma unroll
-    for (int k = 0; k < DC; ++k) score_step(s, a + k * LD, b + k * LD);
+    for (int k = 0; k < DC; ++k) step(k);
   } else {
-    for (int k = 0; k < kn; ++k) score_step(s, a + k * LD, b + k * LD);
+    for (int k = 0; k < kn; ++k) step(k);
   }
 }
 
@@ -378,32 +406,46 @@ __device__ __forceinline__ void store_rows(const float (&acc)[4][NJ], const floa
   }
 }
 
-// The forward (K1/K2): rows r0 = 64 blockIdx.x of head blockIdx.y, output
-// columns from 256 blockIdx.z
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2) flash_fwd_anyd(const Args<T> a) {
+// The forward's tiles at key tiles (K1/K2/K3) or chunks (K4) of BK keys:
+// the transposed K chunk at the pitch LDK (16-byte rows), and the dynamic
+// shared memory (floats): the q2 and K chunks, P key-major, the V rows of
+// an output step
+template <int BK>
+struct FwdSimt {
+  static constexpr int KJ = BK / 16;  // keys of S a thread
+  static constexpr int LDK = BK + 4;
+  static constexpr size_t SMEM = (DC * LD + DC * LDK + BK * LD + SUB * COLS) * sizeof(float);
+  static_assert(BK == 32 || BK == 64 || BK == 128, "key block");
+  static_assert(SMEM <= 232448, "shared memory per block");
+};
+
+// One block of the forward: K1/K2/K3 (TWO_PASS false) or K4, rows r0 = 64
+// blockIdx.x of head blockIdx.y, output columns from 256 blockIdx.z. K3 is
+// the online softmax a key tile of BK (the any-head-dim forward is K3 at BK
+// = 64); K4 takes S and the row max over chunks of BK, then S again, P
+// against the final max and O += P V, never rescaled.
+template <typename T, int BK, bool TWO_PASS>
+__device__ __forceinline__ void fwd_simt(const Args<T>& a) {
+  constexpr int KJ = FwdSimt<BK>::KJ, LDK = FwdSimt<BK>::LDK;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;           // q2 chunk, transposed [DC][LD]
-  float* sK = sQ + DC * LD;   // K chunk, transposed
-  float* sP = sK + DC * LD;   // round_T(P), key-major [BT][LD]
-  float* sV = sP + BT * LD;   // V rows [SUB][COLS]
+  float* sK = sQ + DC * LD;   // K chunk, transposed [DC][LDK]
+  float* sP = sK + DC * LDK;  // round_T(P), key-major [BK][LD]
+  float* sV = sP + BK * LD;   // V rows [SUB][COLS]
   const int bh = blockIdx.y, r0 = blockIdx.x * BR, c0 = blockIdx.z * COLS;
-  const int n = a.N, d = a.D;
+  const int n = a.N, d = a.D, chunks = (d + DC - 1) / DC;
   const Head<T> q(a, 0, bh), k(a, 1, bh), v(a, 2, bh);
-  const int chunks = (d + DC - 1) / DC;
 
-  float acc[4][NJ], m[4], l[4];
+  // S of rows 4 tr + i over keys t0 + key_at(j), built over the head dim
+  // in chunks of DC columns (the next chunk's loads in flight while this
+  // one is multiplied); the keys past n at -inf
+  auto scores = [&](float (&s)[4][KJ], int t0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-  for (int t0 = 0; t0 < n; t0 += BT) {
-    float s[4][4] = {};
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
     Stage<T, BR, DC> qs;
-    Stage<T, BT, DC> ks;
+    Stage<T, BK, DC, LDK> ks;
     qs.fetch(q, r0, 0, n, d, a.scale_log2);
     ks.fetch(k, t0, 0, n, d, 0.f);
     for (int c = 0; c < chunks; ++c) {
@@ -417,44 +459,91 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_anyd(const Args<T> a) {
         qs.fetch(q, r0, (c + 1) * DC, n, d, a.scale_log2);
         ks.fetch(k, t0, (c + 1) * DC, n, d, 0.f);
       }
-      score_chunk(s, sQ, sK, min(DC, d - c * DC));
-    }
-    // the online softmax of rows 4 tr + i over keys t0 + 4 tc + j; s
-    // becomes round_T(P)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (t0 + key_of(j) >= n) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);
-      const float alpha = exp2f(m[i] - mx);  // 0 at the first tile (m = -inf)
-      m[i] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - mx);
-        sum += p;
-        s[i][j] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+      score_chunk<BK>(s, sQ, sK, min(DC, d - c * DC));
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      st4(sP + key_of(j) * LD + row_of(0), s[0][j], s[1][j], s[2][j], s[3][j]);
-    // O += P V, 16 keys a step
+    for (int j = 0; j < KJ; ++j) {
+      if (t0 + key_at<BK>(j) >= n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
+      }
+    }
+  };
+  float acc[4][NJ], m[4], l[4];
+  // acc += P V over the tile's keys, P (s, rounded to T) through shared
+  // memory, 16 keys a step
+  auto pv = [&](const float (&s)[4][KJ], int t0) {
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+      st4(sP + key_at<BK>(j) * LD + row_of(0), round_to<T>(s[0][j]), round_to<T>(s[1][j]),
+          round_to<T>(s[2][j]), round_to<T>(s[3][j]));
     Stage<T, SUB, COLS> vs;
     vs.fetch(v, t0, c0, n, d, 0.f);
-    for (int u = 0; u < BT; u += SUB) {
+    for (int u = 0; u < BK; u += SUB) {
       __syncthreads();  // sP is whole (u = 0); every thread is done with sV
       vs.put(sV);
       __syncthreads();
-      if (u + SUB < BT) vs.fetch(v, t0 + u + SUB, c0, n, d, 0.f);
+      if (u + SUB < BK) vs.fetch(v, t0 + u + SUB, c0, n, d, 0.f);
       out_step(acc, sP + u * LD, sV);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
+  if constexpr (TWO_PASS) {
+    for (int t0 = 0; t0 < n; t0 += BK) {  // pass 1: this thread's share of the row max
+      float s[4][KJ];
+      scores(s, t0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) m[i] = fmaxf(m[i], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[i] = row_max(m[i]);
+    for (int t0 = 0; t0 < n; t0 += BK) {  // pass 2: P against the final max
+      float s[4][KJ];
+      scores(s, t0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = exp2f(s[i][j] - m[i]);
+          sum += s[i][j];
+        }
+        l[i] += row_sum(sum);
+      }
+      pv(s, t0);
+    }
+  } else {
+    for (int t0 = 0; t0 < n; t0 += BK) {  // the online softmax, a step a key tile
+      float s[4][KJ];
+      scores(s, t0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) mx = fmaxf(mx, s[i][j]);
+        mx = row_max(mx);
+        const float alpha = exp2f(m[i] - mx);  // 0 at the first tile (m = -inf)
+        m[i] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = exp2f(s[i][j] - mx);
+          sum += s[i][j];
+        }
+        l[i] = l[i] * alpha + row_sum(sum);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+      }
+      pv(s, t0);
     }
   }
   store_rows<T>(acc, l, a.out[0], a, bh, r0, c0);
@@ -465,6 +554,12 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_anyd(const Args<T> a) {
       if (row < n) a.lse_out[(long long)bh * n + row] = m[i] + log2f(l[i]);
     }
   }
+}
+
+// The forward (K1/K2): key tiles of BT
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2) flash_fwd_anyd(const Args<T> a) {
+  fwd_simt<T, BT, false>(a);
 }
 
 // S (q2 K^T) and dP (dO V^T) of query rows qr0.. and key rows kr0.., i over
@@ -622,13 +717,13 @@ int run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int
             int D, const long long* st, float scale, void* stream) {
   // once per instantiation (thread-safe static init): allow > 48 KB dynamic smem
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_anyd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
+      flash_fwd_anyd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FwdSimt<BT>::SMEM);
   const void* in[3] = {q, k, v};
   Args<T> a;
   const cudaError_t err = make_args(&a, in, 3, st, nullptr, nullptr, o, nullptr, lse, B, N, H, D,
                                     scale, 0.f);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch<T>(flash_fwd_anyd<T>, attr, FWD_SMEM, a, stream);
+  return (int)launch<T>(flash_fwd_anyd<T>, attr, FwdSimt<BT>::SMEM, a, stream);
 }
 
 template <typename T>
@@ -893,26 +988,54 @@ __device__ __forceinline__ void store_tiles(const float (&x)[NO][4], const float
   }
 }
 
-// The forward's tiles: WARPS warps of 16 query rows, key tiles of BK,
-// output columns [CS z, CS z + CS) of block z. Shared memory: the block's
-// q2 rows at the padded head dim (pitch dp + 8), then the ring, whose slots
-// hold a chunk of K or of V (BK rows).
-template <int WARPS, int CS>
+// The forward's tiles: WARPS warps of 16 query rows, key tiles (K1/K2/K3)
+// or chunks (K4) of BK keys, output columns [CS z, CS z + CS) of block z.
+// Shared memory: the block's q2 rows at the padded head dim (pitch dp + 8),
+// then the ring, whose slots hold a chunk of K or of V (BK rows).
+template <int WARPS, int CS, int BK>
 struct FwdMma {
-  static constexpr int THREADS = 32 * WARPS, BQ = 16 * WARPS, BK = 64;
+  static constexpr int THREADS = 32 * WARPS, BQ = 16 * WARPS;
   static constexpr int NT = BK / 8;   // n8 tiles of S
   static constexpr int NO = CS / 8;   // n8 tiles of O
   static constexpr int NV = CS / KC;  // V chunks of a whole slice
   static constexpr int SLOT = BK * PITCH;  // bf16 elements
-  static_assert(CS % KC == 0, "tile");
+  static_assert(CS % KC == 0 && NT % 2 == 0, "tile");
   static __host__ __device__ constexpr size_t smem(int dp) {
     return (size_t(BQ) * (dp + 8) + size_t(STAGES) * SLOT) * 2;
   }
 };
 
-template <int WARPS, int CS>
-__global__ void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_mma(const Args<bf16> a) {
-  using T = FwdMma<WARPS, CS>;
+// K4's pass 2 over one chunk, S in the C layout with kv valid keys: P =
+// exp2(S - m) against the final row max m (0 at the keys past kv), this
+// thread's share of the chunk's row sums added to l (summed over the quad
+// at the end), P rounded to bf16 as the A fragments of P V
+template <int NT>
+__device__ __forceinline__ void final_p(float (&s)[NT][4], uint32_t (&p)[NT / 2][4],
+                                        const float (&m)[2], float (&l)[2], int kv) {
+  mask_keys<NT>(s, kv);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float p0 = exp2f(s[nt][0] - m[0]), p1 = exp2f(s[nt][1] - m[0]);
+    const float p2 = exp2f(s[nt][2] - m[1]), p3 = exp2f(s[nt][3] - m[1]);
+    sum[0] += p0 + p1;
+    sum[1] += p2 + p3;
+    p[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
+    p[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
+  }
+  l[0] += sum[0];
+  l[1] += sum[1];
+}
+
+// One block of the forward: K1/K2/K3 (TWO_PASS false) or K4, query rows q0
+// = BQ blockIdx.x of head blockIdx.y, output columns from CS blockIdx.z. K3
+// is one online-softmax step a key tile of BK, P rounded against the
+// running max of that tile (the any-head-dim forward is K3 at BK = 64); K4
+// takes S and the row max over chunks of BK, then S again, P = exp2(S -
+// m_final) and O += P V a chunk, never rescaled.
+template <int WARPS, int CS, int BK, bool TWO_PASS>
+__device__ __forceinline__ void fwd_mma(const Args<bf16>& a) {
+  using T = FwdMma<WARPS, CS, BK>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, c0 = blockIdx.z * CS;
   const int n = a.N, d = a.D, lw = a.lw, dp = (d + 15) / 16 * 16, pq = dp + 8;
@@ -922,24 +1045,27 @@ __global__ void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_mma(const Args<b
   const Head<bf16> q(a, 0, bh), k(a, 1, bh), v(a, 2, bh);
   const int nc = (d + KC - 1) / KC;                // score chunks of a key tile
   const int nv = (min(CS, d - c0) + KC - 1) / KC;  // V chunks of this slice
-  const int per_tile = nc + nv, tiles = (n + T::BK - 1) / T::BK;
+  const int tiles = (n + BK - 1) / BK;
 
-  float o[T::NO][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  zero(o);
   const bf16* arow = sQ + (warp * 16 + lane % 16) * pq + (lane / 16) * 8;
-  // The ring: items in order, chunk pc of key tile pj (K for the first nc,
-  // then V) into slot ps, one cp.async group an item (empty past the
-  // last); the item consumed is in slot cs. The code that advances it
-  // appears once for the score chunks and once for the V chunks, so the
-  // loop stays small enough for the instruction cache.
-  int pj = 0, pc = 0, ps = 0, cs = 0;
+  // The ring: items in order into slot ps, one cp.async group an item
+  // (empty past the last): K4's first pass brings the nc K chunks of each
+  // key chunk (pass 0), then K3's only pass and K4's second (pass 1) the nc
+  // K chunks and the nv V chunks of each, chunk pc of key tile pj; the item
+  // consumed is in slot cs. The code that advances it appears once for the
+  // score chunks and once for the V chunks, so the loop stays small enough
+  // for the instruction cache.
+  int pass = TWO_PASS ? 0 : 1, pj = 0, pc = 0, ps = 0, cs = 0;
   auto issue = [&]() {
     if (pj < tiles) {
       bf16* slot = ring + ps * T::SLOT;
       const int col = pc < nc ? pc * KC : c0 + (pc - nc) * KC;
-      copy_panel<T::BK, T::THREADS>(slot, pc < nc ? k.p : v.p, pc < nc ? k.rs : v.rs,
-                                    pj * T::BK, col, n, d, lw);
-      if (++pc == per_tile) pc = 0, ++pj;
+      copy_panel<BK, T::THREADS>(slot, pc < nc ? k.p : v.p, pc < nc ? k.rs : v.rs, pj * BK, col,
+                                 n, d, lw);
+      if (++pc == (!TWO_PASS || pass ? nc + nv : nc)) {
+        pc = 0;
+        if (++pj == tiles && TWO_PASS && pass == 0) pj = 0, pass = 1;
+      }
     }
     ps = ps + 1 == STAGES ? 0 : ps + 1;
     cp_async_commit();
@@ -955,6 +1081,23 @@ __global__ void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_mma(const Args<b
     cs = cs + 1 == STAGES ? 0 : cs + 1;
     return slot;
   };
+  // S = q2 K^T of the next key tile, chunk by chunk from column 0
+  auto scores = [&](float (&s)[T::NT][4]) {
+    zero(s);
+    for (int c = 0; c < nc; ++c)
+      chunk_scores<T::NT>(s, arow + c * KC, arrive(), min(KC, dp - c * KC) / 16);
+  };
+  float o[T::NO][4];
+  // O += P V, a V chunk of the slice at a time
+  auto pv = [&](const uint32_t (&p)[T::NT / 2][4]) {
+    for (int vc = 0; vc < nv; ++vc) {
+      const bf16* slot = arrive();
+      const int dv = d - c0 - vc * KC;
+#pragma unroll
+      for (int u = 0; u < T::NV; ++u)  // chunk vc's O tiles, at compile-time indices
+        if (u == vc) pv_chunk<T::NT / 2, T::NO>(o, p, slot, u * (KC / 8), dv);
+    }
+  };
 
   // q lands with the first item; each thread makes q2 of the pieces it
   // copied (bit for bit the tuned kernels' prescale), which the first
@@ -964,19 +1107,31 @@ __global__ void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_mma(const Args<b
   for (int i = 0; i < STAGES - 1; ++i) issue();
   cp_async_wait<STAGES - 2>();
   prescale_tile(sQ, pq, T::BQ, dp, lw, T::THREADS, a.scale_log2);
-  for (int j = 0; j < tiles; ++j) {
-    float s[T::NT][4];
-    zero(s);
-    for (int c = 0; c < nc; ++c)  // S = q2 K^T
-      chunk_scores<T::NT>(s, arow + c * KC, arrive(), min(KC, dp - c * KC) / 16);
-    uint32_t p[T::NT / 2][4];
-    softmax_step<T::NT, T::NO>(s, p, o, m, l, n - j * T::BK);
-    for (int vc = 0; vc < nv; ++vc) {  // O += P V, a chunk of the slice at a time
-      const bf16* slot = arrive();
-      const int dv = d - c0 - vc * KC;
-#pragma unroll
-      for (int u = 0; u < T::NV; ++u)  // chunk vc's O tiles, at compile-time indices
-        if (u == vc) pv_chunk<T::NT / 2, T::NO>(o, p, slot, u * (KC / 8), dv);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if constexpr (TWO_PASS) {
+    for (int j = 0; j < tiles; ++j) {  // pass 1: this thread's share of the row max
+      float s[T::NT][4];
+      scores(s);
+      mask_keys<T::NT>(s, n - j * BK);
+      row_max<T::NT>(s, m);
+    }
+    quad_max(m);
+    zero(o);
+    for (int j = 0; j < tiles; ++j) {  // pass 2: P against the final max
+      float s[T::NT][4];
+      scores(s);
+      uint32_t p[T::NT / 2][4];
+      final_p<T::NT>(s, p, m, l, n - j * BK);
+      pv(p);
+    }
+  } else {
+    zero(o);
+    for (int j = 0; j < tiles; ++j) {  // the online softmax, a step a key tile
+      float s[T::NT][4];
+      scores(s);
+      uint32_t p[T::NT / 2][4];
+      softmax_step<T::NT, T::NO>(s, p, o, m, l, n - j * BK);
+      pv(p);
     }
   }
   cp_async_wait<0>();
@@ -994,6 +1149,48 @@ __global__ void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_mma(const Args<b
       if (row < n) a.lse_out[(long long)bh * n + row] = m[i] + log2f(l[i]);
     }
   }
+}
+
+// The forward (K1/K2): key tiles of 64
+template <int WARPS, int CS>
+__global__ void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_mma(const Args<bf16> a) {
+  fwd_mma<WARPS, CS, 64, false>(a);
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// The bf16 forward's launch plan at key block BK: go(Int<WARPS>, Int<CS>)
+// launches the kernel of FwdMma<WARPS, CS, BK>'s tiles. kFwdWarps warps, or
+// 4 at N <= 64 (one 64-row block) or where the q2 tile of kFwdWarps warps
+// does not fit beside the ring (d > 784 at BK = 64); the output slice of
+// 128 columns up to d = 128 and at BK = 128 (S of 128 keys beside 256
+// accumulator columns would leave no registers), else kFwdSlice.
+template <int BK, typename Go>
+cudaError_t fwd_mma_plan(const Args<bf16>& a, Go go) {
+  const int dp = (a.D + 15) / 16 * 16;
+  auto slice = [&](auto cs) {
+    if (a.N > 64 && FwdMma<kFwdWarps, decltype(cs)::value, BK>::smem(dp) <= SMEM_MAX)
+      return go(Int<kFwdWarps>{}, cs);
+    return go(Int<4>{}, cs);
+  };
+  if constexpr (BK == 128) {
+    return slice(Int<128>{});
+  } else {
+    if (a.D <= 128) return slice(Int<128>{});
+    return slice(Int<kFwdSlice>{});
+  }
+}
+
+// one launch of a bf16 forward kernel of FwdMma<WARPS, CS, BK>'s tiles
+template <int WARPS, int CS, int BK>
+cudaError_t launch_fwd_tiles(void (*kern)(Args<bf16>), cudaError_t attr, const Args<bf16>& a,
+                             cudaStream_t stream) {
+  using T = FwdMma<WARPS, CS, BK>;
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.N + T::BQ - 1) / T::BQ, a.B * a.H, (a.D + CS - 1) / CS);
+  kern<<<grid, T::THREADS, T::smem((a.D + 15) / 16 * 16), stream>>>(a);
+  return cudaGetLastError();
 }
 
 // dK/dV's tiles: RT row tiles of 16 keys, SPLIT warps each, warp (rt, sp)
@@ -1511,28 +1708,16 @@ __global__ void __launch_bounds__(64 * RT, 1) flash_bwd_dkv_anyd_tf32(const Args
   store_tiles<T::NO>(acc, one, a.out[kind], a, bh, blockIdx.x * T::BKV + rt * 16, c0);
 }
 
+// csrc/flash_variants_anyd.cu includes this file for its device code, with
+// PBE_ANYD_DEVICE_ONLY defined: the launch plans and entries below stay out
+#ifndef PBE_ANYD_DEVICE_ONLY
 template <int WARPS, int CS>
-cudaError_t launch_fwd_mma(const Args<bf16>& a, size_t smem, cudaStream_t stream) {
-  using T = FwdMma<WARPS, CS>;
+cudaError_t launch_fwd_mma(const Args<bf16>& a, cudaStream_t stream) {
   auto kern = flash_fwd_anyd_mma<WARPS, CS>;
   // once per instantiation (thread-safe static init): allow > 48 KB dynamic smem
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.N + T::BQ - 1) / T::BQ, a.B * a.H, (a.D + CS - 1) / CS);
-  kern<<<grid, T::THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// the forward's warps at (N, padded head dim dp): kFwdWarps, or 4 at N <=
-// 64 (one 64-row block) or where the q tile of 16 kFwdWarps rows does not
-// fit beside the ring
-template <int CS>
-cudaError_t launch_fwd_slice(const Args<bf16>& a, int dp, cudaStream_t stream) {
-  using Wide = FwdMma<kFwdWarps, CS>;
-  if (a.N > 64 && Wide::smem(dp) <= SMEM_MAX)
-    return launch_fwd_mma<kFwdWarps, CS>(a, Wide::smem(dp), stream);
-  return launch_fwd_mma<4, CS>(a, FwdMma<4, CS>::smem(dp), stream);
+  return launch_fwd_tiles<WARPS, CS, 64>(kern, attr, a, stream);
 }
 
 template <int RT, int SPLIT>
@@ -1550,9 +1735,9 @@ cudaError_t launch_dkv_mma(const Args<bf16>& a, int dp, cudaStream_t stream) {
 
 // the launch plans
 cudaError_t launch_fwd_bf16(const Args<bf16>& a, cudaStream_t stream) {
-  const int dp = (a.D + 15) / 16 * 16;
-  if (a.D <= 128) return launch_fwd_slice<128>(a, dp, stream);
-  return launch_fwd_slice<kFwdSlice>(a, dp, stream);
+  return fwd_mma_plan<64>(a, [&](auto warps, auto cs) {
+    return launch_fwd_mma<decltype(warps)::value, decltype(cs)::value>(a, stream);
+  });
 }
 
 cudaError_t launch_dkv_bf16(const Args<bf16>& a, cudaStream_t stream) {
@@ -1616,8 +1801,11 @@ cudaError_t launch_dkv_f32(const Args<float>& a, cudaStream_t stream) {
   if (DkvTf32<2, 256>::smem(dp) <= SMEM_MAX) return launch_dkv_tf32<2, 256>(a, dp, stream);
   return launch_dkv_tf32<1, 256>(a, dp, stream);
 }
+#endif  // PBE_ANYD_DEVICE_ONLY
 
 }  // namespace
+
+#ifndef PBE_ANYD_DEVICE_ONLY
 
 // The entries, each with its tuned twin's parameters (csrc/flash_fwd.cu,
 // flash_bwd.cu; flash_fp32.cu's for fp32); the bf16 forward, dQ and dK/dV
@@ -1691,3 +1879,4 @@ extern "C" int pbe_flash_bwd_dkv_anyd_f32(const void* q, const void* k, const vo
   if (err != cudaSuccess) return (int)err;
   return (int)launch_dkv_f32(a, static_cast<cudaStream_t>(stream));
 }
+#endif  // PBE_ANYD_DEVICE_ONLY

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``csrc/build/lib<name>-<hash>.so``, keyed on a
-hash of the source, the headers beside it (``csrc/*.cuh``, which the
-sources include) and the flags, so an edited source or header rebuilds and
-an unchanged one is reused. The ``-Xptxas -v`` report (registers, shared
-memory, spills per kernel) is kept beside the library as ``.log``.
+hash of the source, the sources it includes, the headers beside it
+(``csrc/*.cuh``, which the sources include) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. The ``-Xptxas
+-v`` report (registers, shared memory, spills per kernel) is kept beside
+the library as ``.log``.
 Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,7 +38,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    source = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(source)
+    # a source that includes another one's device code (flash_variants_anyd.cu
+    # includes flash_anyd.cu) is keyed on that source too
+    for other in sorted(set(re.findall(rb'#include "(\w+\.cu)"', source))):
+        h.update(other + (CSRC / other.decode()).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

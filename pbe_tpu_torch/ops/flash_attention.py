@@ -6,9 +6,11 @@ forward kernels ``_flash_kernel_rowblock`` (UNet self-attention) and
 ``_flash_kernel`` (streamed; VAE mid-block attention), served by two
 kernels of ``csrc/flash_fwd.cu`` behind one entry (the VAE's d=512 takes
 its own); ``_flash_kernel_resident`` and ``_flash_kernel_pipelined``,
-the kernels of ``csrc/flash_variants.cu``, which only a named variant of
-:func:`flash_forward` reaches; and the backward kernels
-``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` of the training step.
+the kernels of ``csrc/flash_variants.cu`` (and of
+``csrc/flash_variants_anyd.cu`` at the head dims and key blocks it lacks),
+which only a named variant of :func:`flash_forward` reaches; and the
+backward kernels ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` of
+the training step.
 All four Pallas forward variants compute the same function:
 
     q2  = round_to_dtype(q * d^-1/2 * log2(e))      (prescale, exp2 domain)
@@ -32,13 +34,16 @@ dtype). The resident and pipelined kernels' key blocks are instantiated per
 dtype (fp32 tiles are twice the bytes).
 
 The kernels above are tuned per padded head dim and take only
-:data:`SUPPORTED_HEAD_DIMS`. The Pallas kernels take any head dim (they pad
-it to 128 lanes), so the forward and the backward pair also have kernels
-with the head dim a run-time argument, ``csrc/flash_anyd.cu``
-(``flash_fwd_anyd``, ``flash_bwd_dq_anyd``, ``flash_bwd_dkv_anyd``, bf16 and
-fp32), which serve every other head dim up to :data:`ANYD_MAX_HEAD_DIM`:
-:func:`kernel_entry` names the kernel for a head dim and dtype, and the
-wrappers below launch the one it names.
+:data:`SUPPORTED_HEAD_DIMS` (the resident and pipelined ones only the key
+blocks of their tables). The Pallas kernels take any head dim (they pad it
+to 128 lanes), so every kernel also has a form with the head dim a
+run-time argument, for every other head dim up to
+:data:`ANYD_MAX_HEAD_DIM`: ``csrc/flash_anyd.cu`` (``flash_fwd_anyd``,
+``flash_bwd_dq_anyd``, ``flash_bwd_dkv_anyd``) and
+``csrc/flash_variants_anyd.cu`` (``flash_resident_anyd``,
+``flash_pipelined_anyd``, at every key block of :data:`KEY_BLOCKS`), bf16
+and fp32. :func:`kernel_entry` names the kernel for a pass, head dim, dtype
+and key block, and the wrappers below launch the one it names.
 
 The kernels in ``csrc/`` are built with nvcc at first use and bound with
 ctypes. Layout: (B, N, H, D) with
@@ -73,8 +78,14 @@ SUPPORTED_HEAD_DIMS = (16, 32, 48, 80, 160, 512)
 # csrc/flash_anyd.cu's forward, dQ and dK/dV kernels take every head dim
 # from 1 to this
 ANYD_MAX_HEAD_DIM = 1024
-# the passes that have both kinds of kernel, by the stem of their entries
+# the passes of the models' kernels and the named forward variants, by the
+# stem of their entries
 ANYD_KINDS = ("fwd", "bwd_dq", "bwd_dkv")
+VARIANT_KINDS = ("resident", "pipelined")
+# the key blocks the resident (block_k) and pipelined (block_c) kernels take
+# at every head dim: the tuned kernels' tables below, or else
+# csrc/flash_variants_anyd.cu's kernels
+KEY_BLOCKS = (32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the operand dtypes every kernel takes
 # q tile of csrc/flash_variants.cu's resident kernel by padded head dim
 # (ResidentTile, ResidentWideTile): the cluster is planned over these tiles
@@ -209,20 +220,39 @@ def head_dim_error(d: int) -> str | None:
     return None
 
 
-def kernel_entry(kind: str, d: int, dtype: torch.dtype) -> tuple[str, str]:
+def tuned_variant(variant: str, d: int, block: int, dtype: torch.dtype) -> bool:
+    """Whether the tuned resident or pipelined kernel (csrc/flash_variants.cu
+    for bf16, flash_fp32.cu for fp32) instantiates head dim d with key block
+    ``block`` for ``dtype`` operands (:func:`block_table`)."""
+    return tuned_head_dim(d) and block in block_table(variant, dtype)[_round_up(d, 16)]
+
+
+def kernel_entry(kind: str, d: int, dtype: torch.dtype,
+                 block: int | None = None) -> tuple[str, str]:
     """(csrc source, C entry) of the kernel that runs pass ``kind`` ("fwd",
-    "bwd_dq" or "bwd_dkv") at head dim d on ``dtype`` operands: the tuned
-    kernel (flash_fwd.cu or flash_bwd.cu for bf16, flash_fp32.cu for fp32)
-    where it instantiates d, else csrc/flash_anyd.cu's. Raises ValueError
-    for a head dim past :data:`ANYD_MAX_HEAD_DIM` (or below 1), TypeError
-    for a dtype other than bfloat16 and float32."""
-    if kind not in ANYD_KINDS:
-        raise ValueError(f"unknown flash pass {kind!r} (one of {ANYD_KINDS})")
+    "bwd_dq", "bwd_dkv", or the forward variants "resident" and "pipelined"
+    with key block ``block``, by default :func:`key_block`'s) at head dim d
+    on ``dtype`` operands: the tuned kernel (flash_fwd.cu, flash_bwd.cu or
+    flash_variants.cu for bf16, flash_fp32.cu for fp32) where it
+    instantiates d (and the block), else csrc/flash_anyd.cu's (the variants:
+    csrc/flash_variants_anyd.cu's). Raises ValueError for a head dim past
+    :data:`ANYD_MAX_HEAD_DIM` (or below 1) or a block outside
+    :data:`KEY_BLOCKS` (or given to another pass), TypeError for a dtype
+    other than bfloat16 and float32."""
+    if kind not in ANYD_KINDS + VARIANT_KINDS:
+        raise ValueError(f"unknown flash pass {kind!r} (one of {ANYD_KINDS + VARIANT_KINDS})")
     if err := head_dim_error(d):
         raise ValueError(err)
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"the flash kernels take bfloat16 or float32, got {dtype}")
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    if kind in VARIANT_KINDS:
+        block = key_block(kind, d, block)
+        if not tuned_variant(kind, d, block, dtype):
+            return "flash_variants_anyd", f"pbe_flash_{kind}_anyd_{suffix}"
+        return "flash_fp32" if suffix == "f32" else "flash_variants", f"pbe_flash_{kind}_{suffix}"
+    if block is not None:
+        raise ValueError(f"the {kind} pass takes no key block, got {block}")
     if not tuned_head_dim(d):
         return "flash_anyd", f"pbe_flash_{kind}_anyd_{suffix}"
     lib = "flash_fp32" if suffix == "f32" else "flash_fwd" if kind == "fwd" else "flash_bwd"
@@ -239,10 +269,13 @@ def layout_error(x: torch.Tensor) -> str | None:
     """Why the kernel that runs at x's head dim (:func:`kernel_entry`)
     cannot read x in place, or None. The tuned kernels take a unit head-dim
     stride and rows and base aligned to 8 elements (16 bytes of bf16, 32 of
-    fp32); csrc/flash_anyd.cu's take any strides with a unit head-dim
-    stride, at head dims 1 to :data:`ANYD_MAX_HEAD_DIM` (its bf16 forward
-    and dK/dV copy the widest pieces of 8, 4, 2 or 1 elements that the
-    head dim, base and strides allow; the rest read one element a load)."""
+    fp32); csrc/flash_anyd.cu's and csrc/flash_variants_anyd.cu's take any
+    strides with a unit head-dim stride, at head dims 1 to
+    :data:`ANYD_MAX_HEAD_DIM` (their tensor-core kernels copy the widest
+    pieces of 8, 4, 2 or 1 elements that the head dim, base and strides
+    allow; the rest read one element a load). At a tuned head dim the tuned
+    rule holds for every kernel, also where a resident or pipelined key
+    block runs the any-head-dim kernel."""
     if x.dim() != 4:
         return f"expected (B,N,H,D), got shape {tuple(x.shape)}"
     d = x.shape[3]
@@ -256,29 +289,29 @@ def layout_error(x: torch.Tensor) -> str | None:
     return None
 
 
-def block_table(variant: str, dtype: torch.dtype = torch.bfloat16) -> tuple[str, dict]:
-    """(name, table) of the key blocks the resident or pipelined kernel
-    instantiates for operands of ``dtype``: the fp32 tables for float32, the
-    bf16 ones for any other (the CPU runs the plain version at any dtype)."""
-    name = ("RESIDENT_BLOCKS" if variant == "resident" else "PIPELINED_BLOCKS") + (
-        "_F32" if dtype == torch.float32 else "")
-    return name, globals()[name]
+def block_table(variant: str, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The key blocks the tuned resident or pipelined kernel instantiates
+    for operands of ``dtype``, by padded head dim: the fp32 tables for
+    float32, the bf16 ones for any other (the CPU runs the plain version at
+    any dtype)."""
+    if dtype == torch.float32:
+        return RESIDENT_BLOCKS_F32 if variant == "resident" else PIPELINED_BLOCKS_F32
+    return RESIDENT_BLOCKS if variant == "resident" else PIPELINED_BLOCKS
 
 
-def key_block(variant: str, d: int, block: int | None = None,
-              dtype: torch.dtype = torch.bfloat16) -> int:
+def key_block(variant: str, d: int, block: int | None = None) -> int:
     """The key block the resident (block_k) or pipelined (block_c) kernel
-    runs at head dim d on ``dtype`` operands: ``block``, or by default 64
-    (32 from a padded head dim of 160). Raises ValueError, naming the table,
-    for a head dim or block it does not instantiate."""
-    name, table = block_table(variant, dtype)
-    dp = _round_up(d, 16)
-    if dp not in table:
-        raise ValueError(f"{variant}: head dim {d} unsupported (pads to one of {tuple(table)})")
-    block = (64 if dp < 160 else 32) if block is None else block
-    if block not in table[dp]:
-        raise ValueError(f"{variant}: key block {block} is not instantiated at padded head "
-                         f"dim {dp} for {_dtype_name(dtype)} ({name}: one of {table[dp]})")
+    runs at head dim d: ``block``, or by default 64 (32 from a padded head
+    dim of 160). Every block of :data:`KEY_BLOCKS` runs at every head dim
+    from 1 to :data:`ANYD_MAX_HEAD_DIM`, the tuned kernel's or the
+    any-head-dim one (:func:`kernel_entry`); raises ValueError for any other
+    block or head dim."""
+    if err := head_dim_error(d):
+        raise ValueError(f"{variant}: {err}")
+    block = (64 if _round_up(d, 16) < 160 else 32) if block is None else block
+    if block not in KEY_BLOCKS:
+        raise ValueError(f"{variant}: key block {block} is not instantiated (one of "
+                         f"{KEY_BLOCKS})")
     return block
 
 
@@ -287,10 +320,12 @@ def resident_cluster(shape: tuple, cluster: int | None = None, sms: int = SMS,
     """Blocks of a thread-block cluster of the resident kernel at (B, N, H,
     D) on ``dtype`` operands with key tiles of ``block`` (default: the
     kernel's), which share each key tile of one head: ``cluster``, or by
-    default from the head's q-tile count. bf16: 4 where a head has 4 q
-    tiles or more and all B*H heads' tiles fill the card's ``sms`` SMs 4
-    times over, else 2 where a head has 2 or more, else 1. (Fewer blocks
-    than that and a cluster of 4 waits on its slowest block, or a cluster
+    default from the head's q-tile count. The any-head-dim kernel
+    (csrc/flash_variants_anyd.cu, where the tuned one lacks the head dim or
+    the block) runs clusters of 1 only. The tuned one, bf16: 4 where a head
+    has 4 q tiles or more and all B*H heads' tiles fill the card's ``sms``
+    SMs 4 times over, else 2 where a head has 2 or more, else 1. (Fewer
+    blocks than that and a cluster of 4 waits on its slowest block, or a cluster
     has no 4 free SMs in one GPC: on an H100, 2 ran ds2 and the VAE shape
     faster and 4 ran ds1 faster, scripts/sweep_flash_tiles.py --variants.)
     fp32: 1 at d = 512, else 2 where a head has 2 q tiles
@@ -300,10 +335,16 @@ def resident_cluster(shape: tuple, cluster: int | None = None, sms: int = SMS,
     1/2/4 times at the benchmark's shapes). Raises ValueError for a size it
     does not take."""
     b, n, h, d = shape
+    block = key_block("resident", d, block)
+    if not tuned_variant("resident", d, block, dtype):
+        if cluster not in (None, 1):
+            raise ValueError(f"resident: a cluster of {cluster} blocks at head dim {d}, key "
+                             f"block {block}: the any-head-dim kernel "
+                             f"(csrc/flash_variants_anyd.cu) shares no key tile, clusters of 1")
+        return 1
     if cluster is None:
         dp, f32 = _round_up(d, 16), dtype == torch.float32
-        q_tiles = -(-n // (RESIDENT_BLOCK_Q_F32[dp][key_block("resident", d, block, dtype)]
-                           if f32 else RESIDENT_BLOCK_Q[dp]))
+        q_tiles = -(-n // (RESIDENT_BLOCK_Q_F32[dp][block] if f32 else RESIDENT_BLOCK_Q[dp]))
         if not f32 and q_tiles >= 4 and b * h * q_tiles >= 4 * sms:
             return 4
         return 2 if q_tiles >= 2 and not (f32 and dp == 512) else 1
@@ -345,14 +386,14 @@ class _Kernel:
     "float32") and ``launches_by_kernel`` by the kernel that ran
     (:func:`kernel_name`); they change only where a kernel is launched, and
     :meth:`reset` sets them to 0. A wrapper of a pass ``kind`` (one of
-    :data:`ANYD_KINDS`) launches at each head dim the kernel
-    :func:`kernel_entry` names; a resident or pipelined variant has one
-    entry a dtype, ``entries[dtype] = (csrc/<lib>.cu, symbol)``.
-    ``symbol`` is the bf16 entry (at a tuned head dim), for messages."""
+    :data:`ANYD_KINDS` and :data:`VARIANT_KINDS`) launches the kernel
+    :func:`kernel_entry` names at each head dim (and a variant's at each key
+    block). ``symbol`` is the bf16 entry at a tuned head dim, for
+    messages."""
 
-    def __init__(self, argtypes: list, kind: str | None = None, entries: dict | None = None):
-        self.argtypes, self.kind, self.entries = argtypes, kind, entries
-        self.dtypes = tuple(entries) if entries else KERNEL_DTYPES
+    def __init__(self, argtypes: list, kind: str):
+        self.argtypes, self.kind = argtypes, kind
+        self.dtypes = KERNEL_DTYPES
         self.symbol = self.entry(torch.bfloat16, SUPPORTED_HEAD_DIMS[0])[1]
         self.launches = 0
         self.launches_by_shape: collections.Counter = collections.Counter()
@@ -366,12 +407,16 @@ class _Kernel:
         self.launches_by_dtype.clear()
         self.launches_by_kernel.clear()
 
-    def entry(self, dtype: torch.dtype, d: int) -> tuple[str, str]:
-        """(csrc source, C entry) this wrapper launches at head dim d."""
-        return kernel_entry(self.kind, d, dtype) if self.kind else self.entries[dtype]
+    def entry(self, dtype: torch.dtype, d: int, block: int | None = None) -> tuple[str, str]:
+        """(csrc source, C entry) this wrapper launches at head dim d (and a
+        variant's key block)."""
+        return kernel_entry(self.kind, d, dtype, block)
 
-    def _launch(self, dtype: torch.dtype, shape: tuple, *args) -> None:
-        lib, symbol = self.entry(dtype, shape[3])
+    def _launch(self, dtype: torch.dtype, shape: tuple, *args,
+                block: int | None = None) -> None:
+        """Launches the entry that :meth:`entry` names at (dtype, head dim
+        shape[3], a variant's key ``block``) with the C arguments ``args``."""
+        lib, symbol = self.entry(dtype, shape[3], block)
         fn = self._fns.get(symbol)
         if fn is None:
             fn = getattr(cuda_build.load(lib), symbol)
@@ -430,22 +475,21 @@ class FlashForward(_Kernel):
     bf16 operands and ``pbe_flash_fwd_f32`` (csrc/flash_fp32.cu) for fp32
     at their head dims, ``pbe_flash_fwd_anyd_{bf16,f32}``
     (csrc/flash_anyd.cu) at every other (:func:`kernel_entry`);
-    "resident" (K3) and "pipelined" (K4) ``pbe_flash_{variant}_bf16``
+    "resident" (K3) and "pipelined" (K4), which take a key block ``block``
+    (block_k or block_c, one of :data:`KEY_BLOCKS`) and the resident kernel
+    a ``cluster`` size: ``pbe_flash_{variant}_bf16``
     (csrc/flash_variants.cu) for bf16 and ``pbe_flash_{variant}_f32``
-    (csrc/flash_fp32.cu) for fp32, which take a key block ``block``
-    (block_k or block_c; instantiated per dtype, :func:`block_table`, which
-    refuses the head dims they lack), and the resident kernel a ``cluster``
-    size."""
+    (csrc/flash_fp32.cu) for fp32 at the head dims and blocks their tables
+    instantiate (:func:`block_table`), ``pbe_flash_{variant}_anyd_{bf16,f32}``
+    (csrc/flash_variants_anyd.cu, clusters of 1) at every other."""
 
     def __init__(self, variant: str | None = None):
         self.variant = variant
         self.lse_launches = 0  # the launches that also wrote the LSE
         # [key block [, cluster size]]
         extra = {None: [], "resident": [_I32] * 2, "pipelined": [_I32]}[variant]
-        entries = variant and {torch.bfloat16: ("flash_variants", f"pbe_flash_{variant}_bf16"),
-                               torch.float32: ("flash_fp32", f"pbe_flash_{variant}_f32")}
         super().__init__([_PTR] * 5 + [_I32] * 4 + [ctypes.POINTER(_I64), _F32] + extra
-                         + [_PTR], None if variant else "fwd", entries)
+                         + [_PTR], variant or "fwd")
 
     def reset(self) -> None:
         super().reset()
@@ -459,7 +503,7 @@ class FlashForward(_Kernel):
         kernel cannot take them, with the reason."""
         if self.variant is None:
             return []
-        block = key_block(self.variant, shape[3], block, dtype)
+        block = key_block(self.variant, shape[3], block)
         if self.variant != "resident":
             return [block]
         return [block, resident_cluster(tuple(shape), cluster, sms, dtype, block)]
@@ -468,7 +512,8 @@ class FlashForward(_Kernel):
                  return_lse: bool = False, block: int | None = None,
                  cluster: int | None = None):
         b, n, h, d = q.shape
-        # the operands first: the dtype picks the entry and the block table
+        # the operands first: the dtype picks the entry (and with the key
+        # block, a variant's: the tuned kernel's or the any-head-dim one)
         dtype = _check_operands(f"{self.variant or 'flash'} kernel", self.dtypes,
                                 q=q, k=k, v=v)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -480,7 +525,8 @@ class FlashForward(_Kernel):
         self._launch(dtype, (b, n, h, d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), None if lse is None else lse.data_ptr(),
                      b, n, h, d, strides, d ** -0.5 * LOG2E, *extra,
-                     torch.cuda.current_stream(q.device).cuda_stream)
+                     torch.cuda.current_stream(q.device).cuda_stream,
+                     block=extra[0] if extra else None)
         self.lse_launches += return_lse
         return (out, lse) if return_lse else out
 
@@ -657,7 +703,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"block_k is the resident kernel's key block, not {variant}'s")
     if block_c is not None and variant != "pipelined":
         raise ValueError(f"block_c is the pipelined kernel's key chunk, not {variant}'s")
-    kind = variant if variant in ("resident", "pipelined") else "fwd"
+    kind = variant if variant in VARIANT_KINDS else "fwd"
     block = (block_k if variant == "resident" else block_c) or 0
     if kind != "fwd":
         _FWD_KERNELS[kind].plan(q.shape, block or None, dtype=q.dtype)  # raises here on either device

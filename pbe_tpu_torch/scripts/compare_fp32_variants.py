@@ -42,11 +42,11 @@ def child() -> None:
         dp = (shape[3] + 15) // 16 * 16
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         row = {"name": name, "fwd": c.graph_ms(lambda: fa.flash_fwd(q, k, v), 20)}
-        for blk in fa.block_table("resident", f32)[1][dp]:
+        for blk in fa.block_table("resident", f32)[dp]:
             for cl in fa.CLUSTER_SIZES:
                 row[f"K3 b{blk} c{cl}"] = c.graph_ms(
                     lambda: fa.flash_fwd_resident(q, k, v, block=blk, cluster=cl), 20)
-        for blk in fa.block_table("pipelined", f32)[1][dp]:
+        for blk in fa.block_table("pipelined", f32)[dp]:
             row[f"K4 b{blk}"] = c.graph_ms(lambda: fa.flash_fwd_pipelined(q, k, v, block=blk),
                                            20)
         print("[time]", json.dumps({key: round(x, 4) if isinstance(x, float) else x

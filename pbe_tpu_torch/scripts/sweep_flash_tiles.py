@@ -169,9 +169,10 @@ def ptxas_report(log: str) -> str:
     """One line per instantiation of the flash kernels (forward, its
     resident and pipelined variants, backward, and their fp32 kernels: the
     forward at d <= 160 and at 512, resident, pipelined, dQ, dK/dV; the
-    any-head-dim SIMT forward, dQ and dK/dV and the bf16 forward and dK/dV
-    on mma.sync) in a -Xptxas -v log: its template arguments (the operand
-    type of the SIMT any-head-dim kernels), registers and spill bytes."""
+    any-head-dim SIMT forward, dQ, resident and pipelined kernels and the
+    tensor-core forward, dQ, dK/dV, resident and pipelined ones) in a
+    -Xptxas -v log: its template arguments (led by the operand type where
+    the template takes one), registers and spill bytes."""
     lines = log.splitlines()
     report = []
     for i, line in enumerate(lines):
@@ -184,21 +185,23 @@ def ptxas_report(log: str) -> str:
 
 
 def kernel_label(mangled: str) -> str | None:
-    """``name<template arguments>`` of a flash kernel's mangled symbol (the
-    operand type of the SIMT any-head-dim kernels), or None for any other
-    symbol."""
+    """``name<template arguments>`` of a flash kernel's mangled symbol, its
+    operand type first where the template takes one (the SIMT any-head-dim
+    kernels: ``flash_fwd_anyd<fp32>``, ``flash_resident_anyd<fp32, 64>``),
+    or None for any other symbol."""
     m = re.search(r"(flash_(?:fwd|fwd_wide|resident|resident_wide|pipelined|pipelined_wide"
                   r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|fwd_wide_f32|bwd_dq_f32"
                   r"|bwd_dkv_f32"
                   r"|resident_f32|pipelined_f32)"
-                  r"_kernel|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd_mma|flash_bwd_dkv_anyd_tf32"
-                  r"|flash_(?:fwd|bwd_dq|bwd_dkv)_anyd)"
+                  r"_kernel|flash_(?:fwd|bwd_dq|bwd_dkv|resident|pipelined)_anyd_mma"
+                  r"|flash_bwd_dkv_anyd_tf32"
+                  r"|flash_(?:fwd|bwd_dq|bwd_dkv|resident|pipelined)_anyd)"
                   r"(I\w+?EE)?", mangled)
     if m is None:
         return None
     targs = m[2] or ""
-    args = (", ".join(re.findall(r"L[ib](\d+)E", targs))
-            or ("bf16" if "bfloat16" in targs else "fp32" if targs.startswith("If") else "-"))
+    dtype = "bf16" if "bfloat16" in targs else "fp32" if targs.startswith("If") else None
+    args = ", ".join([dtype] * bool(dtype) + re.findall(r"L[ib](\d+)E", targs)) or "-"
     return f"{m[1]}<{args}>"
 
 

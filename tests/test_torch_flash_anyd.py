@@ -67,13 +67,13 @@ def test_kernel_entry_names_the_tuned_kernel_at_its_head_dims_and_flash_anyd_els
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tfa.kernel_entry("fwd", 64, torch.float16)
     with pytest.raises(ValueError, match="unknown flash pass"):
-        tfa.kernel_entry("resident", 64, dtype)
+        tfa.kernel_entry("streamed", 64, dtype)
     # each wrapper launches what kernel_entry names, and takes its dtypes
     for wrapper, kind in ((tfa.flash_fwd, "fwd"), (tfa.flash_bwd_dq, "bwd_dq"),
                           (tfa.flash_bwd_dkv, "bwd_dkv")):
         for d in (28, 40, 256):
             assert wrapper.entry(dtype, d) == tfa.kernel_entry(kind, d, dtype)
-        assert dtype in wrapper.dtypes and wrapper.entries is None
+        assert dtype in wrapper.dtypes and wrapper.kind == kind
 
 
 def test_layout_rule_follows_the_kernel():
@@ -150,8 +150,8 @@ def test_the_call_checks_by_the_kernel_it_will_launch(which, monkeypatch):
     # a stand-in device check: these CPU tensors pass for CUDA ones
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda", 0)))
     kern = tfa.FlashForward() if which == "fwd" else tfa.FlashBackward(which)
-    monkeypatch.setattr(kern, "_launch", lambda dt, shape, *a: launched.append(
-        (shape, kern.entry(dt, shape[3])[1])))
+    monkeypatch.setattr(kern, "_launch", lambda dt, shape, *a, block=None: launched.append(
+        (shape, kern.entry(dt, shape[3], block)[1])))
     monkeypatch.setattr(torch, "empty", lambda *a, **kw: SimpleNamespace(data_ptr=lambda: 0))
 
     def call(x):
@@ -183,10 +183,18 @@ def test_wrappers_refuse_cpu_tensors_at_any_head_dim():
     for kern in (tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
         with pytest.raises(ValueError, match="CUDA"):
             kern(x, x, x, x, stats, stats)
-    # the resident and pipelined kernels have no such form: their tables refuse
-    for variant in ("resident", "pipelined"):
-        with pytest.raises(ValueError, match="head dim 256 unsupported"):
-            tfa.key_block(variant, 256)
+    # the resident and pipelined kernels run d = 256 too (csrc/
+    # flash_variants_anyd.cu): their wrappers refuse the CPU tensor, and
+    # flash_forward runs the plain version on it
+    for variant, kern in (("resident", tfa.flash_fwd_resident),
+                          ("pipelined", tfa.flash_fwd_pipelined)):
+        assert tfa.key_block(variant, 256) == 32
+        with pytest.raises(ValueError, match="CUDA"):
+            kern(x, x, x)
+        q, k, v = (torch.from_numpy(a) for a in _inputs((1, 16, 1, 256), seed=3)[:3])
+        got = tfa.flash_forward(q, k, v, variant=variant, return_lse=True)
+        want = tfa.flash_attention_plain(q, k, v, return_lse=True)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_source_defines_every_anyd_entry_with_its_twins_arguments():

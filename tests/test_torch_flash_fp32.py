@@ -100,24 +100,28 @@ def test_fp32_source_defines_every_fp32_entry_with_its_twins_arguments():
 
 def test_fp32_block_tables_plan_and_refuse_by_dtype():
     """The fp32 resident and pipelined kernels instantiate a subset of the
-    bf16 key blocks, defaults included; a block only bf16 has is refused
-    for fp32 operands on either device, naming the fp32 table."""
+    bf16 key blocks, defaults included; a block only bf16 has runs the
+    tuned kernel for bf16 operands and csrc/flash_variants_anyd.cu's for
+    fp32 (on the CPU the plain version, at either dtype)."""
     f32 = torch.float32
     for variant in ("resident", "pipelined"):
-        bf16_table, f32_table = fa.block_table(variant)[1], fa.block_table(variant, f32)[1]
+        bf16_table, f32_table = fa.block_table(variant), fa.block_table(variant, f32)
         assert f32_table.keys() == bf16_table.keys() == set(fa.SUPPORTED_HEAD_DIMS)
         assert all(set(f32_table[dp]) <= set(bf16_table[dp]) for dp in f32_table)
         for dp in fa.SUPPORTED_HEAD_DIMS:
-            assert fa.key_block(variant, dp, dtype=f32) == fa.key_block(variant, dp)
+            block = fa.key_block(variant, dp)
+            assert block in f32_table[dp] and block in bf16_table[dp]
     for variant, dp, table in (("resident", 80, "RESIDENT_BLOCKS_F32"),
                                ("pipelined", 160, "PIPELINED_BLOCKS_F32")):
-        assert fa.key_block(variant, dp, 128) == 128
-        with pytest.raises(ValueError, match=rf"for float32 \({table}: one of \(32, 64\)\)"):
-            fa.key_block(variant, dp, 128, f32)
-        x = torch.zeros(1, 64, 1, dp)
+        assert fa.key_block(variant, dp, 128) == 128 and 128 not in getattr(fa, table)[dp]
+        assert fa.kernel_entry(variant, dp, torch.bfloat16, 128) == (
+            "flash_variants", f"pbe_flash_{variant}_bf16")
+        assert fa.kernel_entry(variant, dp, f32, 128) == (
+            "flash_variants_anyd", f"pbe_flash_{variant}_anyd_f32")
+        x = torch.randn(1, 64, 1, dp)
         kw = {"block_k" if variant == "resident" else "block_c": 128}
-        with pytest.raises(ValueError, match=table):
-            fa.flash_forward(x, x, x, variant=variant, **kw)
+        assert torch.equal(fa.flash_forward(x, x, x, variant=variant, **kw),
+                           fa.flash_attention_plain(x, x, x))
         y = x.bfloat16()
         assert fa.flash_forward(y, y, y, variant=variant, **kw).dtype == torch.bfloat16
     # the benchmark's VAE shape at fp32: K4's 64-key chunks and K3's cluster
@@ -155,8 +159,9 @@ def test_fp32_cluster_plan_takes_an_explicit_size_and_block():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_the_operands_dtype_picks_the_block_table_before_the_plan(dtype, monkeypatch):
     """The resident kernel's call checks its operands first and plans by
-    their dtype: a 128-key block at d = 80 launches for bf16 and is refused
-    for fp32, after the check and before any launch."""
+    their dtype: a 128-key block at d = 80 launches the tuned kernel for
+    bf16 and the any-head-dim one (clusters of 1) for fp32, whose table
+    lacks it."""
     calls = []
     monkeypatch.setattr(fa, "_check_operands", lambda *a, **kw: calls.append("check") or dtype)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
@@ -164,15 +169,13 @@ def test_the_operands_dtype_picks_the_block_table_before_the_plan(dtype, monkeyp
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
     kern = fa.FlashForward("resident")
     monkeypatch.setattr(kern, "_launch",
-                        lambda dt, shape, *args: calls.append(("launch", dt, args[-3:-1])))
+                        lambda dt, shape, *args, block=None: calls.append(
+                            ("launch", dt, args[-3:-1], block)))
     x = torch.zeros(1, 64, 1, 80)
-    if dtype == torch.float32:
-        with pytest.raises(ValueError, match="RESIDENT_BLOCKS_F32"):
-            kern(x, x, x, block=128)
-        assert calls == ["check"]
-    else:
-        kern(x, x, x, block=128)
-        assert calls == ["check", ("launch", torch.bfloat16, (128, 1))]
+    kern(x, x, x, block=128)
+    assert calls == ["check", ("launch", dtype, (128, 1), 128)]
+    lib = "flash_variants_anyd" if dtype == torch.float32 else "flash_variants"
+    assert kern.entry(dtype, 80, 128)[0] == lib
 
 
 @pytest.mark.parametrize("precision,dtype,tf32_off", [("full", torch.float32, True),
