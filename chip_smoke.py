@@ -236,14 +236,16 @@ The remaining user scripts and the legacy models (the seventeenth slice):
 The flash kernels at any head dim (the eighteenth slice):
  29. csrc/flash_anyd.cu's build seconds, each kernel's ptxas registers
      and spills, and the tensor-core instructions (HMMA) of the bf16
-     forward, dQ and dK/dV and the fp32 dK/dV in the library's SASS
-     (cuobjdump; the phase fails without them, with no SIMT kernel left in
-     their place, or where the dQ or fp32 dK/dV spills); its forward, dQ
+     forward, dQ and dK/dV and the fp32 forward and dK/dV in the library's
+     SASS (cuobjdump; the phase fails without them, with no SIMT kernel
+     left in their place, or where the dQ, the fp32 forward or the fp32
+     dK/dV spills); its forward, dQ
      and dK/dV kernels, bf16 and fp32, against their plain versions at
      d = 1 ... 1024 (ANYD_DIMS; N = 77), on peaked and rising-max scores
      and packed q/k/v views, each launched twice and compared bitwise, and
-     the bf16 forward, dQ and dK/dV and the fp32 dK/dV at the DDPM shape
-     on operands at odd offsets (load pieces of 8, 4, 2, 1 elements),
+     the bf16 forward, dQ and dK/dV and the fp32 forward and dK/dV at the
+     DDPM shape on operands at odd offsets (load pieces of 8, 4, 2, 1
+     elements),
      checked and timed; then the DDPM CIFAR-10 UNet
      (vae_legacy.Model, Ho et al. 2020's widths, attn_impl="flash") at
      batch 128: a forward and the gradient of its epsilon-MSE loss at fp32
@@ -252,13 +254,15 @@ The flash kernels at any head dim (the eighteenth slice):
      kernel, nothing else; held against plain attention on the card and
      the CPU at batch 16; step p50 and peak memory; each kernel timed at
      the DDPM shapes and at d = 64 and 128 beside its plain version,
-     SDPA (rows named *_anyd), the log lines of the bf16 dQ and fp32
-     dK/dV rows with their times before their redesign (ANYD_BEFORE_MS).
+     SDPA (rows named *_anyd), the log lines of the bf16 dQ, the fp32
+     forward and the fp32 dK/dV rows with their times before their
+     redesign (ANYD_BEFORE_MS).
 
 The resident and pipelined kernels at any head dim (the twenty-first slice):
  30. csrc/flash_variants_anyd.cu's build seconds, each kernel's ptxas
      registers and spills and its HMMA count (the phase fails on a spill,
-     a missing instantiation or a bf16 K3/K4 kernel without HMMA); K3 and
+     a missing instantiation, a K3/K4 kernel without HMMA or a SIMT fp32
+     K3/K4 left in the library); K3 and
      K4 at bf16 and fp32 against the plain version at every key block at
      d = 1 ... 1024 (ANYD_DIMS, 36, 150, 832, 833; N = 77) and at the
      tuned head dims' blocks their tables lack, on peaked and rising-max
@@ -268,7 +272,8 @@ The resident and pipelined kernels at any head dim (the twenty-first slice):
      default block at (128, 256, 1, d) for d = 64, 128, 256 and at (2,
      4096, 8, 64), counted from 0, and each kernel timed there beside the
      plain version, SDPA and flash_fwd_anyd (rows named
-     flash_{resident,pipelined}_anyd).
+     flash_{resident,pipelined}_anyd; the fp32 rows' log lines with their
+     times before the tensor-core body, VARIANT_ANYD_BEFORE_MS).
 
 A run takes them in the order 1, 2, 7, 17, 11's bf16 part, 3, 4, 12, 13,
 14, 5, 8, 9, 15, 16, 18, 6, 10, 19, 12's tiny edits, 27, then 20, 11's
@@ -3790,12 +3795,14 @@ ANYD_TIMED = (("ddpm_n256_d64", (DDPM_BATCH, 256, 1, 64)),
               ("ddpm_n256_d128", (DDPM_BATCH, 256, 1, 128)),
               ("ddpm_n256", (DDPM_BATCH, 256, 1, 256)),
               ("ddpm_mid_n16", (DDPM_BATCH, 16, 1, 256)))
-# the times of the kernels csrc/flash_anyd.cu's twentieth slice redesigned
-# (the bf16 dQ on mma.sync, the fp32 dK/dV on 3xTF32) at ANYD_TIMED before
-# it, by (kernel row, shape name, dtype): phase 29's final run of the slice
-# before (H100 80GB HBM3, 700 W; SIMT fp32 FMA then), the fp32 d = 64 and
-# 128 rows from `sweep_flash_tiles --anyd --baseline` on that kernel source
-# (the mean of its two timings, the same card); for log lines only
+# the times of the kernels of csrc/flash_anyd.cu redesigned for the
+# tensor cores (the bf16 dQ on mma.sync, the fp32 dK/dV on 3xTF32; then the
+# fp32 forward, S on FMA and P V on 3xTF32) at ANYD_TIMED before it, by
+# (kernel row, shape name, dtype): phase 29's final run of the source before
+# each redesign (H100 80GB HBM3, 700 W; SIMT fp32 FMA then), the fp32 dK/dV
+# at d = 64 and 128 from `sweep_flash_tiles --anyd --baseline` on that
+# source (the mean of its two timings, the same card), the fp32 forward at
+# d = 64 and 128 from phase 30's flash_fwd_anyd times; for log lines only
 ANYD_BEFORE_MS = {
     ("flash_bwd_dq", "ddpm_n256", "bfloat16"): 0.8264,
     ("flash_bwd_dq", "ddpm_mid_n16", "bfloat16"): 0.0427,
@@ -3805,6 +3812,10 @@ ANYD_BEFORE_MS = {
     ("flash_bwd_dkv", "ddpm_mid_n16", "float32"): 0.0499,
     ("flash_bwd_dkv", "ddpm_n256_d64", "float32"): 0.4208,
     ("flash_bwd_dkv", "ddpm_n256_d128", "float32"): 0.5811,
+    ("flash_fwd", "ddpm_n256", "float32"): 0.4607,
+    ("flash_fwd", "ddpm_mid_n16", "float32"): 0.0334,
+    ("flash_fwd", "ddpm_n256_d64", "float32"): 0.1974,
+    ("flash_fwd", "ddpm_n256_d128", "float32"): 0.2764,
 }
 # the tensor-core kernels at the DDPM shape on operands at these element
 # offsets from 16-byte aligned buffers: pieces of 8, 4, 2 and 1 elements
@@ -3837,6 +3848,15 @@ VARIANT_ANYD_SHORT = ((1, 1, 2, 100), (2, 5, 1, 28), (1, 17, 1, 1024))
 # of d = 64, 128, 256 and at the attention benchmark's ds1 geometry at d =
 # 64: (name, (B, N, H, D))
 VARIANT_ANYD_TIMED = (*ANYD_TIMED[:3], ("ds1_d64", (2, 4096, 8, 64)))
+# the fp32 K3 and K4 at VARIANT_ANYD_TIMED before the tensor-core body
+# (SIMT FMA), by row name: phase 30's final run of that source (H100 80GB
+# HBM3, 700 W); for log lines only
+VARIANT_ANYD_BEFORE_MS = {
+    "flash_resident_anyd/ddpm_n256_d64": 0.2176, "flash_resident_anyd/ddpm_n256_d128": 0.3155,
+    "flash_resident_anyd/ddpm_n256": 0.6302, "flash_resident_anyd/ds1_d64": 6.0964,
+    "flash_pipelined_anyd/ddpm_n256_d64": 0.2722, "flash_pipelined_anyd/ddpm_n256_d128": 0.4211,
+    "flash_pipelined_anyd/ddpm_n256": 0.9164, "flash_pipelined_anyd/ds1_d64": 7.9150,
+}
 
 
 def measured_row(measured: dict, fa, name: str, shape, replaces: str, rand) -> dict:
@@ -4367,10 +4387,11 @@ def anyd_build_report() -> dict:
     its tensor-core instructions (HMMA) in the built library's SASS
     (cuobjdump -sass). Raises unless every instantiation of the bf16
     forward, dQ and dK/dV (flash_fwd_anyd_mma, flash_bwd_dq_anyd_mma,
-    flash_bwd_dkv_anyd_mma) and of the fp32 dK/dV (flash_bwd_dkv_anyd_tf32)
-    holds HMMA, the library holds no SIMT kernel in their place (a bf16
-    flash_bwd_dq_anyd, an fp32 flash_bwd_dkv_anyd), and the dQ and fp32
-    dK/dV spill nothing."""
+    flash_bwd_dkv_anyd_mma) and of the fp32 forward and dK/dV
+    (flash_fwd_anyd_tf32, flash_bwd_dkv_anyd_tf32) holds HMMA, the library
+    holds no SIMT kernel in their place (a bf16 flash_bwd_dq_anyd, an fp32
+    flash_fwd_anyd or flash_bwd_dkv_anyd), and the dQ and the fp32 forward
+    and dK/dV spill nothing."""
     import re
 
     from pbe_tpu_torch.ops import cuda_build
@@ -4393,16 +4414,17 @@ def anyd_build_report() -> dict:
     mma = {k: v for k, v in hmma.items() if "_anyd_mma<" in k or "_anyd_tf32<" in k}
     kinds = {k.split("<")[0] for k in mma}
     want = {"flash_fwd_anyd_mma", "flash_bwd_dq_anyd_mma", "flash_bwd_dkv_anyd_mma",
-            "flash_bwd_dkv_anyd_tf32"}
-    simt = {"flash_bwd_dq_anyd<bf16>", "flash_bwd_dkv_anyd<fp32>"} & set(hmma)
+            "flash_fwd_anyd_tf32", "flash_bwd_dkv_anyd_tf32"}
+    simt = {"flash_bwd_dq_anyd<bf16>", "flash_fwd_anyd<fp32>",
+            "flash_bwd_dkv_anyd<fp32>"} & set(hmma)
     if kinds != want or not all(mma.values()) or simt:
-        raise AssertionError(f"the bf16 forward, dQ and dK/dV and the fp32 dK/dV of "
-                             f"flash_anyd.cu are not all on the tensor cores (or a SIMT "
+        raise AssertionError(f"the bf16 forward, dQ and dK/dV and the fp32 forward and dK/dV "
+                             f"of flash_anyd.cu are not all on the tensor cores (or a SIMT "
                              f"kernel {simt} is left): HMMA by kernel {hmma}")
     new_spills = [line for line in spills if "flash_bwd_dq_anyd_mma<" in line
-                  or "flash_bwd_dkv_anyd_tf32<" in line]
+                  or "flash_fwd_anyd_tf32<" in line or "flash_bwd_dkv_anyd_tf32<" in line]
     if new_spills:
-        raise AssertionError(f"the dQ or fp32 dK/dV of flash_anyd.cu spills: {new_spills}")
+        raise AssertionError(f"the dQ or an fp32 kernel of flash_anyd.cu spills: {new_spills}")
     return {"build_s": BUILD_SECONDS["flash_anyd"], "hmma": hmma, "spills": spills}
 
 
@@ -4412,7 +4434,7 @@ def anyd_offsets(fa, gen) -> dict:
     4, 2, 1 elements at bf16, 4, 2, 1 at fp32), each against its plain
     version (phase 7's or phase 20's tolerances) and timed -> {dtype:
     {offset: {kernel: ms}}}: the bf16 forward, dQ and dK/dV, the fp32
-    dK/dV."""
+    forward and dK/dV."""
     import torch
 
     shape = (DDPM_BATCH, 256, 1, 256)
@@ -4429,9 +4451,9 @@ def anyd_offsets(fa, gen) -> dict:
             check_bwd(fa, q, k, v, do, label)
             lse = fa.flash_fwd(q, k, v, return_lse=True)[1]
             dd = fa.rowsum_do_o(do, fa.flash_fwd(q, k, v))
-            ms = {"flash_bwd_dkv": graph_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd), 20)}
+            ms = {"flash_fwd": graph_ms(lambda: fa.flash_fwd(q, k, v), 20),
+                  "flash_bwd_dkv": graph_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd), 20)}
             if dname == "bfloat16":
-                ms["flash_fwd"] = graph_ms(lambda: fa.flash_fwd(q, k, v), 20)
                 ms["flash_bwd_dq"] = graph_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd), 20)
             out[dname][off] = ms
             log(f"[anyd] {label}: " + ", ".join(f"{k_} {t:.4f} ms" for k_, t in ms.items()))
@@ -4445,8 +4467,9 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
     """Phase 29: csrc/flash_anyd.cu and the DDPM CIFAR-10 UNet with
     attn_impl="flash". (a) the build, ptxas and SASS report
     (anyd_build_report: HMMA in the bf16 forward, dQ and dK/dV and the
-    fp32 dK/dV, no SIMT kernel in their place, no spills in the dQ and
-    fp32 dK/dV, or the phase fails); the forward, dQ and dK/dV kernels at both dtypes against their
+    fp32 forward and dK/dV, no SIMT kernel in their place, no spills in the
+    dQ and the fp32 forward and dK/dV, or the phase fails); the forward, dQ
+    and dK/dV kernels at both dtypes against their
     plain versions at ANYD_DIMS (ragged N = 77), on peaked and rising-max
     scores and packed q/k/v views, each launched twice and compared
     bitwise, and the tensor-core ones at ANYD_OFFSETS (anyd_offsets), no
@@ -4459,9 +4482,9 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
     each dtype; card fp32 flash against the CPU at batch 16. (c) each kernel
     at ANYD_TIMED against its plain version and timed beside it and SDPA,
     its launches those of (b)'s runs at that shape: the kernels line's
-    *_anyd rows; ANYD_BEFORE_MS's time of the bf16 dQ and fp32 dK/dV,
-    recorded before their redesign, is printed in their rows' log lines
-    and not put in the rows."""
+    *_anyd rows; ANYD_BEFORE_MS's time of the bf16 dQ, the fp32 forward and
+    the fp32 dK/dV, recorded before their redesign, is printed in their
+    rows' log lines and not put in the rows."""
     import torch
 
     from pbe_tpu_torch.models import vae_legacy as vl
@@ -4625,9 +4648,12 @@ def phase_ddpm(card: str, rows: list[dict]) -> dict:
 
 # csrc/flash_variants_anyd.cu's kernels by kind, and their instantiations:
 # bf16 K3 and K4 at 4 and 8 warps, slices of 128 and 256 columns at key
-# blocks of 32 and 64, of 128 at 128 (10 each); fp32 K3 and K4 at each block
+# blocks of 32 and 64, of 128 at 128 (10 each); fp32 K3 and K4 at 4 and 8
+# warps with the q2 rows resident (slices of 128 and 256) and at 8 warps
+# streamed (192) at key blocks of 32 and 64, and K3 at 128 (resident 128 at
+# 4 and 8 warps, streamed 64 at 8: 13), K4 at 128 as at 64 (15)
 VARIANT_ANYD_KERNELS = {"flash_resident_anyd_mma": 10, "flash_pipelined_anyd_mma": 10,
-                        "flash_resident_anyd": 3, "flash_pipelined_anyd": 3}
+                        "flash_resident_anyd_tf32": 13, "flash_pipelined_anyd_tf32": 15}
 
 
 def variants_anyd_build_report() -> dict:
@@ -4635,8 +4661,9 @@ def variants_anyd_build_report() -> dict:
     built it, beside csrc/flash_anyd.cu's where that is not built either)
     and its kernels: each one's ptxas registers and spills and its HMMA
     count (cuobjdump -sass). Raises unless every instantiation of
-    VARIANT_ANYD_KERNELS is there, the bf16 K3 and K4 (the _mma kernels)
-    all hold HMMA, and no kernel spills."""
+    VARIANT_ANYD_KERNELS is there and holds HMMA (bf16 on mma.sync, fp32
+    on 3xTF32), no SIMT fp32 K3 or K4 (flash_resident_anyd<fp32, ...>,
+    flash_pipelined_anyd<fp32, ...>) is left, and no kernel spills."""
     import re
 
     from pbe_tpu_torch.ops import cuda_build
@@ -4657,9 +4684,10 @@ def variants_anyd_build_report() -> dict:
               if re.search(r"[1-9]\d* bytes spill", line)]
     fails = [f"{kind}: {len(kinds[kind])} instantiations, expected {count}"
              for kind, count in VARIANT_ANYD_KERNELS.items() if len(kinds[kind]) != count]
-    fails += [f"{k} holds no HMMA" for kind in ("flash_resident_anyd_mma",
-                                                 "flash_pipelined_anyd_mma")
-              for k in kinds[kind] if not hmma[k]]
+    fails += [f"{k} holds no HMMA" for kind in VARIANT_ANYD_KERNELS for k in kinds[kind]
+              if not hmma[k]]
+    fails += [f"SIMT kernel {k} left" for k in hmma
+              if k.split("<")[0] in ("flash_resident_anyd", "flash_pipelined_anyd")]
     fails += [f"spills: {line}" for line in spills]
     if fails:
         raise AssertionError("flash_variants_anyd.cu: " + "; ".join(fails))
@@ -4671,8 +4699,9 @@ def variants_anyd_build_report() -> dict:
 def phase_variants_anyd(card: str, rows: list[dict]) -> dict:
     """Phase 30: csrc/flash_variants_anyd.cu, K3 and K4 at every head dim
     from 1 to 1024. (a) the build, ptxas and SASS report
-    (variants_anyd_build_report: every instantiation, HMMA in the bf16
-    ones, no spills). (b) at bf16 and fp32, each variant at every (head
+    (variants_anyd_build_report: every instantiation, each holding HMMA,
+    no SIMT fp32 kernel, no spills). (b) at bf16 and fp32, each variant at
+    every (head
     dim, key block) pair of VARIANT_ANYD_DIMS x KEY_BLOCKS and of the tuned
     head dims' blocks their tables lack (kernel_entry names the any-head-dim
     kernel there), N = 77, then on peaked and rising-max scores, packed
@@ -4688,8 +4717,10 @@ def phase_variants_anyd(card: str, rows: list[dict]) -> dict:
     CUDA graph of 20 calls) beside the plain version, SDPA, flash_fwd_anyd
     at the same shape and the function's bound (phases 11 and 29's: bound,
     or bound_3xtf32 at fp32): the kernels line's flash_{resident,
-    pipelined}_anyd rows. Every failure of (b) is collected, and the phase
-    fails at its end naming them all."""
+    pipelined}_anyd rows, the fp32 ones' log lines with their times before
+    the tensor-core body (VARIANT_ANYD_BEFORE_MS) and not in the rows.
+    Every failure of (b) is collected, and the phase fails at its end
+    naming them all."""
     import torch
     import torch.nn.functional as F
 
@@ -4821,8 +4852,10 @@ def phase_variants_anyd(card: str, rows: list[dict]) -> dict:
                 if f32:
                     row["library"] = f"sdpa ({sdpa_backend(qt, kt, vt)})"
                 timed[row["name"], dname] = row["ms"]
+                before = VARIANT_ANYD_BEFORE_MS.get(row["name"]) if f32 else None
                 log(f"[variants-anyd] {row['name']} {dname} (block {block}): {row['ms']:.4f} ms "
-                    f"(graph), plain {plain_ms:.4f}, {row.get('library', 'sdpa')} "
+                    f"(graph" + (f"; before the redesign {before:.4f}" if before else "")
+                    + f"), plain {plain_ms:.4f}, {row.get('library', 'sdpa')} "
                     f"{sdpa_ms:.4f}, flash_fwd_anyd {anyd_ms:.4f}, bound {ms_bound:.4f} by {by}"
                     + (f" (all-FMA {fma_ms:.4f})" if f32 else "")
                     + (f", S-twice floor {floor_ms:.4f}" if variant == "pipelined" else "")

@@ -22,8 +22,8 @@
 //     dS)^T Q), D = rowsum(dO * O) given (a torch pass, as for the tuned
 //     kernels).
 // Scores: at fp32 (every round_T does nothing) every score, in all three
-// kernels, is one fmaf chain over the head dim from column 0 (score_chunk
-// in the SIMT kernels, scores_fma in the fp32 dK/dV), so the backward
+// kernels, is one fmaf chain over the head dim from column 0 (scores_fma in
+// the fp32 forward and dK/dV, score_chunk in the SIMT dQ), so the backward
 // recomputes P from the forward's S bit for bit. At bf16 all three take S
 // on the tensor cores (mma.sync, fp32 accumulate) in one k-order, chunk by
 // chunk and k16 step by k16 step from column 0 (chunk_scores), so dQ's P
@@ -31,7 +31,7 @@
 //
 // Layout: q, k, v (and dO) are (B, N, H, D) with any (batch, seq, head)
 // strides and a unit head-dim stride, read in place: a packed q at d = 28
-// has rows of 28 elements. The SIMT kernels read one element a load. The
+// has rows of 28 elements. The SIMT dQ reads one element a load. The
 // tensor-core kernels copy pieces of at most 16 bytes (8, 4, 2 or 1 bf16
 // elements, 4, 2 or 1 fp32: 16-, 8- or 4-byte cp.async, or a 2-byte load):
 // the widest that divides d and every operand's base and strides
@@ -40,9 +40,9 @@
 // Rows past N are read as zeros and their keys (or queries) masked (P =
 // 0); columns past d are zeros.
 //
-// The SIMT kernels (the fp32 forward and dQ: the fp32 dQ keeps cuBLAS's
-// summation order, which phase 20's rising-max dQ check allows alone,
-// PERF.md section 7). A block of 256 threads owns 64 query rows, the keys
+// The SIMT kernel (the fp32 dQ: it keeps cuBLAS's summation order, which
+// phase 20's rising-max dQ check allows alone, PERF.md section 7). A block
+// of 256 threads owns 64 query rows, the keys
 // streamed in tiles of 64 (the JAX pair's grid order), and up to 256
 // output columns; a wider head is split over grid.z, each split
 // recomputing S. Thread (tr, tc) = (tid / 16, tid % 16) holds rows 4 tr +
@@ -51,13 +51,11 @@
 // shared-memory load (8 FMA a load in S, 12.8 in P V). S (and dP) build
 // over the head dim in chunks of 32 columns staged transposed in shared
 // memory, the next chunk's loads in flight (in registers) while the
-// current one is multiplied; the row statistics are taken over the 16
-// threads of a row by shuffles; P (or dS) goes to shared memory, and the
-// output tile, in registers for the whole kernel (64 rows x 256 columns:
-// 64 a thread), takes P V (dS K) in steps of 16 keys, every column group
-// alike (columns past d are zeros: branching on d cost more than the
-// products it skipped). The forward fits 128 registers, two blocks an SM;
-// dQ (S and dP) runs one.
+// current one is multiplied; dS goes to shared memory, and the output
+// tile, in registers for the whole kernel (64 rows x 256 columns: 64 a
+// thread), takes dS K in steps of 16 keys, every column group alike
+// (columns past d are zeros: branching on d cost more than the products it
+// skipped). One block an SM.
 //
 // The bf16 kernels (flash_fwd_anyd_mma, flash_bwd_dq_anyd_mma,
 // flash_bwd_dkv_anyd_mma) follow the tuned kernels' FlashAttention-2 on
@@ -81,7 +79,7 @@
 //     chunks, P V into the chunk's O tiles. The body (fwd_mma) takes the key
 //     block and K4's two passes as template arguments: the forward is K3 at
 //     block 64, and csrc/flash_variants_anyd.cu's K3 and K4 run it at blocks
-//     32, 64 and 128 (the SIMT forward's fwd_simt alike).
+//     32, 64 and 128 (the fp32 forward's fwd_tf32 alike).
 //   * dQ: the forward's shape with two score products. A block of kDqWarps
 //     warps (4 at N <= 64 or where the tiles do not fit: d > 336; 2 past d
 //     = 672) owns 16 kDqWarps query rows, its q2 and dO tiles resident at
@@ -151,6 +149,44 @@
 //     S's FMA does not hide behind the products; one warp owning one
 //     output keeps its working set to one A fragment.
 //
+// The fp32 forward (flash_fwd_anyd_tf32; the body fwd_tf32, which
+// csrc/flash_variants_anyd.cu's fp32 K3 and K4 run too): flash_fp32.cu's
+// forward (flash_fwd_f32_kernel) at any head dim, S on FMA, P V on the
+// tensor cores in 3xTF32.
+//   * A block of kFwdF32Warps warps (4 at N <= 64) owns 16 rows a warp and
+//     an output slice of 128 columns (d <= 128, and at key blocks of 128)
+//     or kFwdF32Slice (a wider head splits over grid.z, each split
+//     recomputing S). q2 is made once a block, by the threads that copy
+//     each piece, and stays resident at pitch dp + 4 (dp = d padded to 8)
+//     where it fits beside the ring (d <= 344 at 8 warps and tiles of 64
+//     keys), else its 64-column panels come through the ring beside each K
+//     panel, made q2 on arrival by the threads that copied them (with a
+//     slice of 192 columns: the extra copies' registers spilled at 256).
+//   * Per key tile of PK = max(BK, 64) keys (a tile of 64 holds two key
+//     blocks of 32): the tile's K panels (PK keys x KC columns at pitch PF)
+//     through the ring's STAGES slots, one barrier a panel; S = q2
+//     K^T on FMA, summed by lane pairs (scores_pair_fma: lanes g and g ^ 1
+//     each take 4 rows x 8 keys, 12 shared-memory reads a column for 32
+//     fmaf where the C layout's 2 rows x 16 keys read 18; S's FMA is bound
+//     by those reads), then swapped into mma_tf32's C layout by 4 shuffles
+//     a pair of n8 tiles (pair_to_c). Each score is one fmaf chain over the
+//     head dim from column 0, so the fp32 backward's S, K4's second S and
+//     this S agree bit for bit. The row max and sum over the quad, m, l and
+//     O in registers; P stays in the C layout, which is the A layout of a
+//     k8 step, and never touches shared memory; then the slice's V panels,
+//     O += P V (pv_panel_tf32: 3xTF32; the panel's 8 n8 tiles in halves of
+//     four, one zeroed partial a tile and run of up to 64 keys within a key
+//     block, joined to O in fp32; 1xTF32, or dropping either small term,
+//     misses the fp32 tolerances, tests/test_torch_flash_variants_anyd.py).
+//   * K3 (and the forward) is one online-softmax step a key block, O and l
+//     rescaled by exp2(m_old - m_new) (O as P V meets it); K4 takes the
+//     tiles' K panels and the row max first (O not yet live), then S
+//     again, P = exp2(S - m_final) and O += P V, never rescaled.
+//   * FFMA and TF32 mma.sync share issue slots, and mma.sync's TF32 rate is
+//     a fraction of wgmma's: at (128, 256, 1, 256) the ring, S and P V
+//     each take about a third of the time and add up (ablations, PERF.md
+//     section 6).
+//
 // Nothing is atomic: each output element has one owner, so a launch is
 // bitwise repeatable.
 // The tiles are the fastest of `python -m pbe_tpu_torch.scripts
@@ -164,7 +200,16 @@
 // against 0.209 ms) and a 256-column slice against 128 by 1.45x (S and dP
 // twice). The fp32 dK/dV: 4 row tiles against 2 win by 1.6x at d = 256 (2
 // with 2 ring slots, two blocks an SM, by 1.1x); 2 or 4 ring slots against
-// 3 tie; q tiles of 16 (no spills with held A fragments) cost 1.28x.
+// 3 tie; q tiles of 16 (no spills with held A fragments) cost 1.28x. The
+// fp32 forward, K3 and K4 (forward / K3 / K4 ms, H100 at 700 W): 8 warps
+// 0.2996 / 0.3182 / 0.4531 at d = 256, against 4 warps 0.4477 / 0.4900 /
+// 0.6850 (and 1-3% slower at d = 64, 128 and ds1, the geometry (2, 4096, 8,
+// 64)); a 256-column slice against 128 (0.3970 / 0.3979 / 0.6386; 1.3x at d
+// = 1024: S per 128 columns); 3 ring slots against 2 or 4 tie (within 1%);
+// q2 resident against streamed (0.4895 / 0.4991 / 0.8953; 1.3x at ds1);
+// the SIMT body these replace took 0.4506 / 0.6006 / 0.8990 at d = 256 and
+// 6.1094 / 15.5610 / 30.3156 at d = 1024, where these take 4.7145 /
+// 4.8271 / 9.5225 (192-column slices where q2 streams).
 // What bounds them: at the DDPM UNet's (128, 256, 1, 256) the bf16
 // forward is 8.6 GFLOP of products and 67 MB of bf16 operands (0.020 ms at
 // 3.35 TB/s), dQ 12.9 GFLOP and 84 MB, dK/dV 17.2 GFLOP and 101 MB: bytes
@@ -251,13 +296,13 @@ struct Head {
 // COLS), through registers: fetch() starts the loads, put() / put_t() store
 // the values to shared memory once its readers are done. Rows >= n and
 // columns >= d are 0; with prescale != 0 each value is round_T(x *
-// prescale) (q2). put_t() writes at the pitch TLD.
-template <typename T, int ROWS, int COLS, int TLD = LD>
+// prescale) (q2).
+template <typename T, int ROWS, int COLS>
 struct Stage {
   static constexpr int PER = ROWS * COLS / THREADS;
   // thread t holds column t % COLS of rows t / COLS + STEP e (e < PER)
   static constexpr int STEP = THREADS / COLS;
-  static_assert(THREADS % COLS == 0 && ROWS * COLS % THREADS == 0 && ROWS <= TLD, "tile");
+  static_assert(THREADS % COLS == 0 && ROWS * COLS % THREADS == 0 && ROWS <= LD, "tile");
   float v[PER];
 
   __device__ __forceinline__ void fetch(const Head<T>& h, int r0, int c0, int n, int d,
@@ -280,9 +325,9 @@ struct Stage {
 #pragma unroll
     for (int e = 0; e < PER; ++e) dst[threadIdx.x + THREADS * e] = v[e];
   }
-  // transposed: column c of row r at dst[c * TLD + r]
+  // transposed: column c of row r at dst[c * LD + r]
   __device__ __forceinline__ void put_t(float* dst) const {
-    float* q = dst + (threadIdx.x % COLS) * TLD + threadIdx.x / COLS;
+    float* q = dst + (threadIdx.x % COLS) * LD + threadIdx.x / COLS;
 #pragma unroll
     for (int e = 0; e < PER; ++e) q[STEP * e] = v[e];
   }
@@ -303,49 +348,24 @@ __device__ __forceinline__ int col_of(int j) {
   return 4 * (threadIdx.x % 16) + 64 * (j / 4) + j % 4;
 }
 
-// key j < BK / 16 of S of this thread, at key tiles of BK: 2 tc + j at BK
-// = 32, else groups of 4 keys 64 apart (4 tc + 64 (j / 4) + j % 4; key_of(j)
-// at BK = 64), each group one 8- or 16-byte shared-memory load
-template <int BK>
-__device__ __forceinline__ int key_at(int j) {
-  if constexpr (BK == 32) return 2 * (threadIdx.x % 16) + j;
-  return 4 * (threadIdx.x % 16) + 64 * (j / 4) + j % 4;
-}
-// s[i][j] += A[k][4 tr + i] * B[k][key_at<BK>(j)] for the chunk's kn
-// columns k (A pitch LD, B pitch BK + 4: LD at BK = BT), one fmaf a column in
-// column order: with s at 0 before column 0, every score of every kernel
-// here is one fmaf chain over the head dim, in the order cuBLAS's fp32
-// product (the plain version's) takes too; partial sums a chunk, added
-// after, moved the fp32 backward past its tolerance on peaked scores at d =
-// 100 (rel L2 2.9e-5 against 1e-5 on the card)
-template <int BK = BT>
-__device__ __forceinline__ void score_chunk(float (&s)[4][BK / 16], const float* A, const float* B,
+// s[i][j] += A[k][4 tr + i] * B[k][4 tc + j] for the chunk's kn columns k
+// (both at pitch LD), one fmaf a column in column order: with s at 0 before
+// column 0, every score of every fp32 kernel here is one fmaf chain over the
+// head dim, in the order cuBLAS's fp32 product (the plain version's) takes
+// too; partial sums a chunk, added after, moved the fp32 backward past its
+// tolerance on peaked scores at d = 100 (rel L2 2.9e-5 against 1e-5 on the
+// card)
+__device__ __forceinline__ void score_chunk(float (&s)[4][4], const float* A, const float* B,
                                             int kn) {
-  constexpr int KJ = BK / 16, LDK = BK + 4;
   const float* a = A + row_of(0);
-  const float* b = B + key_at<BK>(0);
+  const float* b = B + key_of(0);
   auto step = [&](int k) {
-    const float4 x4 = ld4(a + k * LD);
-    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-    float y[KJ];
-    if constexpr (BK == 32) {
-      const float2 y2 = *reinterpret_cast<const float2*>(b + k * LDK);
-      y[0] = y2.x;
-      y[1] = y2.y;
-    } else {
-#pragma unroll
-      for (int g = 0; g < KJ / 4; ++g) {
-        const float4 y4 = ld4(b + k * LDK + 64 * g);
-        y[4 * g] = y4.x;
-        y[4 * g + 1] = y4.y;
-        y[4 * g + 2] = y4.z;
-        y[4 * g + 3] = y4.w;
-      }
-    }
+    const float4 x4 = ld4(a + k * LD), y4 = ld4(b + k * LD);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w}, y[4] = {y4.x, y4.y, y4.z, y4.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
   };
   if (kn == DC) {
 #pragma unroll
@@ -376,18 +396,6 @@ __device__ __forceinline__ void out_step(float (&acc)[4][NJ], const float* W, co
   }
 }
 
-// over the 16 threads that hold a row (one half of a warp)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // out (B, N, H, D) contiguous, rows r0 + 4 tr + i of head bh, columns c0 +
 // col_of(j): round_T(acc / div)
 template <typename T>
@@ -404,162 +412,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[4][NJ], const floa
       if (col < a.D) dst[col] = from_f<T>(acc[i][j] / div[i]);
     }
   }
-}
-
-// The forward's tiles at key tiles (K1/K2/K3) or chunks (K4) of BK keys:
-// the transposed K chunk at the pitch LDK (16-byte rows), and the dynamic
-// shared memory (floats): the q2 and K chunks, P key-major, the V rows of
-// an output step
-template <int BK>
-struct FwdSimt {
-  static constexpr int KJ = BK / 16;  // keys of S a thread
-  static constexpr int LDK = BK + 4;
-  static constexpr size_t SMEM = (DC * LD + DC * LDK + BK * LD + SUB * COLS) * sizeof(float);
-  static_assert(BK == 32 || BK == 64 || BK == 128, "key block");
-  static_assert(SMEM <= 232448, "shared memory per block");
-};
-
-// One block of the forward: K1/K2/K3 (TWO_PASS false) or K4, rows r0 = 64
-// blockIdx.x of head blockIdx.y, output columns from 256 blockIdx.z. K3 is
-// the online softmax a key tile of BK (the any-head-dim forward is K3 at BK
-// = 64); K4 takes S and the row max over chunks of BK, then S again, P
-// against the final max and O += P V, never rescaled.
-template <typename T, int BK, bool TWO_PASS>
-__device__ __forceinline__ void fwd_simt(const Args<T>& a) {
-  constexpr int KJ = FwdSimt<BK>::KJ, LDK = FwdSimt<BK>::LDK;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;           // q2 chunk, transposed [DC][LD]
-  float* sK = sQ + DC * LD;   // K chunk, transposed [DC][LDK]
-  float* sP = sK + DC * LDK;  // round_T(P), key-major [BK][LD]
-  float* sV = sP + BK * LD;   // V rows [SUB][COLS]
-  const int bh = blockIdx.y, r0 = blockIdx.x * BR, c0 = blockIdx.z * COLS;
-  const int n = a.N, d = a.D, chunks = (d + DC - 1) / DC;
-  const Head<T> q(a, 0, bh), k(a, 1, bh), v(a, 2, bh);
-
-  // S of rows 4 tr + i over keys t0 + key_at(j), built over the head dim
-  // in chunks of DC columns (the next chunk's loads in flight while this
-  // one is multiplied); the keys past n at -inf
-  auto scores = [&](float (&s)[4][KJ], int t0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
-    Stage<T, BR, DC> qs;
-    Stage<T, BK, DC, LDK> ks;
-    qs.fetch(q, r0, 0, n, d, a.scale_log2);
-    ks.fetch(k, t0, 0, n, d, 0.f);
-    for (int c = 0; c < chunks; ++c) {
-      // every thread is done with the previous chunk (at c = 0 with the
-      // previous tile's sP and sV)
-      __syncthreads();
-      qs.put_t(sQ);
-      ks.put_t(sK);
-      __syncthreads();
-      if (c + 1 < chunks) {
-        qs.fetch(q, r0, (c + 1) * DC, n, d, a.scale_log2);
-        ks.fetch(k, t0, (c + 1) * DC, n, d, 0.f);
-      }
-      score_chunk<BK>(s, sQ, sK, min(DC, d - c * DC));
-    }
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      if (t0 + key_at<BK>(j) >= n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
-      }
-    }
-  };
-  float acc[4][NJ], m[4], l[4];
-  // acc += P V over the tile's keys, P (s, rounded to T) through shared
-  // memory, 16 keys a step
-  auto pv = [&](const float (&s)[4][KJ], int t0) {
-#pragma unroll
-    for (int j = 0; j < KJ; ++j)
-      st4(sP + key_at<BK>(j) * LD + row_of(0), round_to<T>(s[0][j]), round_to<T>(s[1][j]),
-          round_to<T>(s[2][j]), round_to<T>(s[3][j]));
-    Stage<T, SUB, COLS> vs;
-    vs.fetch(v, t0, c0, n, d, 0.f);
-    for (int u = 0; u < BK; u += SUB) {
-      __syncthreads();  // sP is whole (u = 0); every thread is done with sV
-      vs.put(sV);
-      __syncthreads();
-      if (u + SUB < BK) vs.fetch(v, t0 + u + SUB, c0, n, d, 0.f);
-      out_step(acc, sP + u * LD, sV);
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-  if constexpr (TWO_PASS) {
-    for (int t0 = 0; t0 < n; t0 += BK) {  // pass 1: this thread's share of the row max
-      float s[4][KJ];
-      scores(s, t0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) m[i] = fmaxf(m[i], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) m[i] = row_max(m[i]);
-    for (int t0 = 0; t0 < n; t0 += BK) {  // pass 2: P against the final max
-      float s[4][KJ];
-      scores(s, t0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          s[i][j] = exp2f(s[i][j] - m[i]);
-          sum += s[i][j];
-        }
-        l[i] += row_sum(sum);
-      }
-      pv(s, t0);
-    }
-  } else {
-    for (int t0 = 0; t0 < n; t0 += BK) {  // the online softmax, a step a key tile
-      float s[4][KJ];
-      scores(s, t0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float mx = m[i];
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) mx = fmaxf(mx, s[i][j]);
-        mx = row_max(mx);
-        const float alpha = exp2f(m[i] - mx);  // 0 at the first tile (m = -inf)
-        m[i] = mx;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          s[i][j] = exp2f(s[i][j] - mx);
-          sum += s[i][j];
-        }
-        l[i] = l[i] * alpha + row_sum(sum);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-      }
-      pv(s, t0);
-    }
-  }
-  store_rows<T>(acc, l, a.out[0], a, bh, r0, c0);
-  if (a.lse_out != nullptr && blockIdx.z == 0 && threadIdx.x % 16 == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + row_of(i);
-      if (row < n) a.lse_out[(long long)bh * n + row] = m[i] + log2f(l[i]);
-    }
-  }
-}
-
-// The forward (K1/K2): key tiles of BT
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2) flash_fwd_anyd(const Args<T> a) {
-  fwd_simt<T, BT, false>(a);
 }
 
 // S (q2 K^T) and dP (dO V^T) of query rows qr0.. and key rows kr0.., i over
@@ -713,20 +565,6 @@ cudaError_t launch(void (*kern)(Args<T>), cudaError_t attr, size_t smem, const A
 }
 
 template <typename T>
-int run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int N, int H,
-            int D, const long long* st, float scale, void* stream) {
-  // once per instantiation (thread-safe static init): allow > 48 KB dynamic smem
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_anyd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FwdSimt<BT>::SMEM);
-  const void* in[3] = {q, k, v};
-  Args<T> a;
-  const cudaError_t err = make_args(&a, in, 3, st, nullptr, nullptr, o, nullptr, lse, B, N, H, D,
-                                    scale, 0.f);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch<T>(flash_fwd_anyd<T>, attr, FwdSimt<BT>::SMEM, a, stream);
-}
-
-template <typename T>
 int run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* dd, void* dq, int B, int N, int H, int D, const long long* st,
            float scale_log2, float scale, void* stream) {
@@ -802,18 +640,18 @@ __device__ __forceinline__ void copy_tile(T* dst, int pitch, const T* src, long 
   }
 }
 
-// q2 = round_bf16(q * scale) in place over the pieces of a (rows x pitch)
+// q2 = round_T(q * scale) in place over the pieces of a (rows x pitch)
 // tile that this thread copied with copy_tile (the same rows, cols, lw and
 // nthr): its own copies are visible to it once they have landed, so no
 // barrier comes before this pass. Bit for bit the tuned kernels' prescale.
-__device__ __forceinline__ void prescale_tile(bf16* tile, int pitch, int rows, int cols, int lw,
+template <typename T>
+__device__ __forceinline__ void prescale_tile(T* tile, int pitch, int rows, int cols, int lw,
                                               int nthr, float scale) {
   const int per_row = cols >> lw, total = rows * per_row;
   for (int i = threadIdx.x; i < total; i += nthr) {
     const int r = i / per_row;
-    bf16* t = tile + r * pitch + ((i - r * per_row) << lw);
-    for (int e = 0; e < (1 << lw); ++e)
-      t[e] = __float2bfloat16_rn(__bfloat162float(t[e]) * scale);
+    T* t = tile + r * pitch + ((i - r * per_row) << lw);
+    for (int e = 0; e < (1 << lw); ++e) t[e] = from_f<T>(to_f(t[e]) * scale);
   }
 }
 
@@ -821,8 +659,9 @@ __device__ __forceinline__ void prescale_tile(bf16* tile, int pitch, int rows, i
 // c0, at the pitch KC + 16 bytes (PITCH for bf16, PF for fp32), by THREADS
 // threads, in copy_tile's pieces: piece i = tid + e THREADS is piece i % P
 // of row i / P (P = KC >> lw pieces a row), so the indices are shifts, and
-// the 16-byte case unrolls at compile time
-template <int ROWS, int THREADS, typename T>
+// the 16-byte case unrolls at compile time (or, with UNROLL false, stays a
+// loop, whose addresses hold fewer registers at once)
+template <int ROWS, int THREADS, typename T, bool UNROLL = true>
 __device__ __forceinline__ void copy_panel(T* dst, const T* src, long long rs, int r0, int c0,
                                            int n, int d, int lw) {
   constexpr int W = 16 / sizeof(T), LD = KC + W;  // elements a 16-byte piece; the pitch
@@ -832,10 +671,16 @@ __device__ __forceinline__ void copy_panel(T* dst, const T* src, long long rs, i
     const int r = threadIdx.x / PER, c = (threadIdx.x % PER) * W;
     const bool col = c0 + c < d;
     const T* s = src + (long long)(r0 + r) * rs + c0 + c;
-#pragma unroll
-    for (int e = 0; e < ROWS / STEP; ++e) {
+    auto piece = [&](int e) {
       const bool valid = col && r0 + r + e * STEP < n;
       cp_async16(dst + (r + e * STEP) * LD + c, valid ? s + e * STEP * rs : src, valid);
+    };
+    if constexpr (UNROLL) {
+#pragma unroll
+      for (int e = 0; e < ROWS / STEP; ++e) piece(e);
+    } else {
+#pragma unroll 1
+      for (int e = 0; e < ROWS / STEP; ++e) piece(e);
     }
     return;
   }
@@ -1574,6 +1419,428 @@ __device__ __forceinline__ void pv_tf32(float (&o)[NO][4], const float (&x)[NT][
   }
 }
 
+// o[base + j] = o[base + j] alpha_u + P_u X_u for the KC / 8 n8 tiles j of
+// one V panel in 3xTF32, over the key blocks u of NTS n8 tiles that make up
+// a tile of NT (alpha_u never read where RESCALE is false): P the
+// forward's C-layout tile (NT n8 tiles, the k8 steps), X the (8 NT x PF)
+// panel of its keys (pv_tf32's operands and order); the panel's n8 tiles
+// in two halves of four, and for each k8
+// step by k8 step, P's fragment split once a step a half and each n8 tile
+// into its own zeroed partial (four independent chains of mma), the
+// partials joining o after a run of at most 8 steps (64 keys) within a
+// block. Columns past d are zeros in X, never stored.
+template <int NT, int NTS, bool RESCALE, int NO>
+__device__ __forceinline__ void pv_panel_tf32(float (&o)[NO][4], const float (&x)[NT][4],
+                                              const float* panel, int base,
+                                              const float (&alpha)[NT / NTS][2]) {
+  constexpr int RUN = NTS < 8 ? NTS : 8;  // k8 steps a partial
+  static_assert(NT % NTS == 0 && NTS % RUN == 0, "steps");
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* r = panel + 2 * t * PF + g;
+#pragma unroll
+  for (int k0 = 0; k0 < NT; k0 += RUN) {
+#pragma unroll
+    for (int j0 = 0; j0 < KC / 8; j0 += 4) {
+      float part[4][4];
+      zero(part);
+#pragma unroll
+      for (int ks = k0; ks < k0 + RUN; ++ks) {
+        uint32_t ah[4], al[4];
+        split_tf32(x[ks][0], ah[0], al[0]);  // row g, key 2t
+        split_tf32(x[ks][2], ah[1], al[1]);  // row g + 8, key 2t
+        split_tf32(x[ks][1], ah[2], al[2]);  // row g, key 2t + 1
+        split_tf32(x[ks][3], ah[3], al[3]);  // row g + 8, key 2t + 1
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          split_tf32(r[8 * ks * PF + 8 * (j0 + j)], bh[0], bl[0]);
+          split_tf32(r[(8 * ks + 1) * PF + 8 * (j0 + j)], bh[1], bl[1]);
+          mma_3xtf32(part[j], part[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& y = o[base + j0 + j][e];
+          if (RESCALE && k0 % NTS == 0) y *= alpha[k0 / NTS][e / 2];
+          y += part[j][e];
+        }
+    }
+  }
+}
+
+// The forward's S of a warp's 16 rows and 8 NT keys on FMA, summed by lane
+// pairs: lane (g, t), p = g % 2, and its partner (g ^ 1, t) each take the
+// four rows g, g + 8, g ^ 1, g ^ 1 + 8 over keys 2t and 2t + 1 of the n8
+// tiles 2m + p (m < NT / 2), so a lane reads 12 shared-memory values a
+// column for 32 fmaf (scores_fma's C layout reads 18: two rows and 16
+// keys). Each score is one fmaf chain over the head dim in column order,
+// scores_fma's bits. The sums stand in the registers of the C layout's
+// tile, s[2m] the lane's own rows (g, key 2t + p; g, 2t + 1 - p; g + 8,
+// 2t + p; g + 8, 2t + 1 - p), s[2m + 1] the same of the partner's rows g ^
+// 1, g ^ 1 + 8, and pair_to_c swaps them into the C layout in place. A key
+// pair is read 2t + p first, so the eight lanes of a quarter warp read
+// eight rows of a K panel that differ mod 8 (no bank conflict at pitch PF).
+template <int NT>
+__device__ __forceinline__ void scores_pair_fma(float (&w)[NT][4], const float* A, int lda,
+                                                const float* B, int kn) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, p = g % 2;
+  const float* a0 = A + g * lda;
+  const float* a1 = A + (g ^ 1) * lda;
+  const float* b0 = B + (8 * p + 2 * t + p) * PF;
+  const float* b1 = B + (8 * p + 2 * t + 1 - p) * PF;
+  auto step = [&](int c) {
+    const float4 u0 = ld4(a0 + c), u1 = ld4(a0 + 8 * lda + c);
+    const float4 v0 = ld4(a1 + c), v1 = ld4(a1 + 8 * lda + c);
+    const float x[4][4] = {{u0.x, u0.y, u0.z, u0.w}, {u1.x, u1.y, u1.z, u1.w},
+                           {v0.x, v0.y, v0.z, v0.w}, {v1.x, v1.y, v1.z, v1.w}};
+#pragma unroll
+    for (int m = 0; m < NT / 2; ++m) {
+      const float4 y0 = ld4(b0 + 16 * m * PF + c), y1 = ld4(b1 + 16 * m * PF + c);
+      const float y[2][4] = {{y0.x, y0.y, y0.z, y0.w}, {y1.x, y1.y, y1.z, y1.w}};
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)  // own g, own g + 8, partner's, partner's + 8
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float& acc = w[2 * m + r / 2][2 * (r % 2) + k];
+            acc = fmaf(x[r][cc], y[k][cc], acc);
+          }
+    }
+  };
+  if constexpr (NT > 8) {  // S of 128 keys: one step's operands at a time (two spilled)
+#pragma unroll 1
+    for (int c = 0; c < kn; c += 4) step(c);
+  } else {
+#pragma unroll 2
+    for (int c = 0; c < kn; c += 4) step(c);
+  }
+}
+
+// scores_pair_fma's sums into mma_tf32's C layout, in place: each lane
+// hands its partner (lane ^ 4) the partner's rows and takes its own rows of
+// the partner's tiles (4 shuffles a tile pair), then picks by p
+template <int NT>
+__device__ __forceinline__ void pair_to_c(float (&s)[NT][4]) {
+  const bool p = (threadIdx.x / 4) % 2;
+#pragma unroll
+  for (int m = 0; m < NT / 2; ++m) {
+    float w[4], r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      w[e] = s[2 * m][e];
+      r[e] = __shfl_xor_sync(0xffffffffu, s[2 * m + 1][e], 4);
+    }
+    // own tile 2m + p, the partner's 2m + 1 - p; r: (g, 2t + 1 - p), (g,
+    // 2t + p), (g + 8, 2t + 1 - p), (g + 8, 2t + p)
+    s[2 * m][0] = p ? r[0] : w[0];
+    s[2 * m][1] = p ? r[1] : w[1];
+    s[2 * m][2] = p ? r[2] : w[2];
+    s[2 * m][3] = p ? r[3] : w[3];
+    s[2 * m + 1][0] = p ? w[1] : r[1];
+    s[2 * m + 1][1] = p ? w[0] : r[0];
+    s[2 * m + 1][2] = p ? w[3] : r[3];
+    s[2 * m + 1][3] = p ? w[2] : r[2];
+  }
+}
+
+// The fp32 forward's tiles (chosen by timing, the file's header): warps of
+// 16 query rows a block, and output columns a block past d = 128 (128 up to
+// it; fwd_tf32_plan narrows it at tiles of 128 keys and where q2 streams)
+constexpr int kFwdF32Warps = 8;
+constexpr int kFwdF32Slice = 256;
+
+// WARPS warps of 16 query rows, key blocks (K3) or chunks (K4, TWO_PASS)
+// of BK keys taken PK keys a tile: 64, or K3's block of 128 (S of 64 keys
+// keeps the lane pairs' tiles of 4 rows x 8 keys; a tile of 64 is two
+// blocks of 32, and K4, whose chunks only bound its partials, takes a chunk
+// of 128 as two tiles: S of 128 keys beside O spills), output columns [CS
+// z, CS z + CS) of block z. Shared memory (floats): with QRES the block's q2
+// rows at pitch dp + 4 (dp = d padded to 8), then the ring, whose slots
+// hold a K panel (with its chunk's q2 panel where q2 is not resident) or a
+// V panel of PK rows x KC columns at pitch PF.
+template <int WARPS, int CS, int BK, bool QRES, bool TWO_PASS>
+struct FwdTf32 {
+  static constexpr int THREADS = 32 * WARPS, BQ = 16 * WARPS;
+  static constexpr int PK = BK < 64 || TWO_PASS ? 64 : BK;  // keys a tile
+  static constexpr int NT = PK / 8;   // n8 tiles of S, k8 steps of P V
+  static constexpr int NTS = (BK < PK ? BK : PK) / 8;  // ... of a key block (in a tile)
+  static constexpr int NO = CS / 8;   // n8 tiles of O
+  static constexpr int NV = CS / KC;  // V chunks of a whole slice
+  static constexpr int SLOT = (QRES ? PK : PK + BQ) * PF;
+  static_assert(CS % KC == 0 && (BK == 32 || BK == 64 || BK == 128), "tile");
+  static __host__ __device__ constexpr size_t smem(int dp) {
+    return ((QRES ? size_t(BQ) * (dp + 4) : 0) + size_t(STAGES) * SLOT) * 4;
+  }
+};
+
+// 2^x for the softmax of a tile: exp2f, or at tiles of 128 keys (FTZ)
+// ex2.approx.ftz, whose results below 2^-126 are 0 where exp2f's fix-up of
+// them (a scaled input, a squared result) kept 64 values' temporaries live
+// and spilled l
+template <bool FTZ>
+__device__ __forceinline__ float exp2_tile(float x) {
+  if constexpr (FTZ) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return exp2f(x);
+  }
+}
+
+// K3's online-softmax steps at fp32 for one warp's 16 rows over a tile of
+// NT n8 tiles, S in the C layout with kv valid keys, a step a key block of
+// NTS n8 tiles: the keys past kv masked, the new max m over the quad,
+// alpha_u = exp2(m_old - m_new) for the block (O is rescaled by it where
+// P V meets it, pv_panel_tf32) and l rescaled, this thread's share of
+// rowsum(P) added to l (summed over the quad at the end), and P = exp2(S -
+// m) left in s
+template <int NT, int NTS>
+__device__ __forceinline__ void softmax_steps_f32(float (&s)[NT][4], float (&alpha)[NT / NTS][2],
+                                                  float (&m)[2], float (&l)[2], int kv) {
+  mask_keys<NT>(s, kv);
+#pragma unroll
+  for (int u = 0; u < NT / NTS; ++u) {
+    float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = u * NTS; nt < (u + 1) * NTS; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    quad_max(mx);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      alpha[u][i] = exp2_tile<(NT > 8)>(m[i] - mx[i]);  // 0 at the first block (m = -inf), 1 past n
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int nt = u * NTS; nt < (u + 1) * NTS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2_tile<(NT > 8)>(s[nt][e] - m[e / 2]);
+        sum[e / 2] += s[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[u][i] + sum[i];
+  }
+}
+
+// One block of the fp32 forward: K1/K2/K3 (TWO_PASS false) or K4, query
+// rows q0 = BQ blockIdx.x of head blockIdx.y, output columns from CS
+// blockIdx.z. A warp owns 16 query rows: S = q2 K^T of a tile of PK keys
+// on FMA (scores_pair_fma, chunk by chunk from column 0: each score one
+// fmaf chain over the head dim, the SIMT dQ's score_chunk order), turned
+// into mma_tf32's C layout (pair_to_c), its row statistics over the quad
+// and m, l and O in registers; P stays in the C layout as the A fragments
+// of P V in 3xTF32 (pv_panel_tf32, one partial a run of up to 64 keys).
+// K3 is one online-softmax step a key block of BK (the any-head-dim
+// forward is K3 at BK = 64); K4 takes S and the row max over the tiles,
+// then S again (bit for bit the first), P = exp2(S - m_final) and O += P V
+// a tile, never rescaled.
+template <int WARPS, int CS, int BK, bool QRES, bool TWO_PASS>
+__device__ __forceinline__ void fwd_tf32(const Args<float>& a) {
+  using T = FwdTf32<WARPS, CS, BK, QRES, TWO_PASS>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::BQ, c0 = blockIdx.z * CS;
+  const int n = a.N, d = a.D, lw = a.lw, dp = (d + 7) / 8 * 8;
+  const int pq = QRES ? dp + 4 : PF;  // q2's row pitch
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* ring = sQ + (QRES ? T::BQ * pq : 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = (d + KC - 1) / KC;                // score chunks of a key tile
+  const int nv = (min(CS, d - c0) + KC - 1) / KC;  // V chunks of this slice
+  const int tiles = (n + T::PK - 1) / T::PK;
+
+  // The ring, as fwd_mma's: K4's first pass brings the nc K panels of each
+  // key chunk (pass 0), then K3's only pass and K4's second (pass 1) the nc
+  // K panels and the nv V panels of each, panel pc of key tile pj, into
+  // slot ps, one cp.async group a panel (empty past the last); a K panel
+  // brings its chunk's q panel too where q2 is not resident. The item
+  // consumed is in slot cs. The heads are found again at each copy, from
+  // the launch's arguments, and the copies stay loops, to keep the loop's
+  // registers for O and P (the kernels run at up to 255 registers, where
+  // unrolled copies' addresses spilled).
+  int pass = TWO_PASS ? 0 : 1, pj = 0, pc = 0, ps = 0, cs = 0;
+  auto issue = [&]() {
+    if (pj < tiles) {
+      float* slot = ring + ps * T::SLOT;
+      const Head<float> src(a, pc < nc ? 1 : 2, bh);
+      const int col = pc < nc ? pc * KC : c0 + (pc - nc) * KC;
+      copy_panel<T::PK, T::THREADS, float, false>(slot, src.p, src.rs, pj * T::PK, col, n, d, lw);
+      if constexpr (!QRES) {
+        if (pc < nc) {
+          const Head<float> q(a, 0, bh);
+          copy_panel<T::BQ, T::THREADS, float, false>(slot + T::PK * PF, q.p, q.rs, q0, col, n, d,
+                                                      lw);
+        }
+      }
+      if (++pc == (!TWO_PASS || pass ? nc + nv : nc)) {
+        pc = 0;
+        if (++pj == tiles && TWO_PASS && pass == 0) pj = 0, pass = 1;
+      }
+    }
+    ps = ps + 1 == STAGES ? 0 : ps + 1;
+    cp_async_commit();
+  };
+  // the next item has landed (a streamed q panel made q2 by the threads
+  // that copied it, bit for bit the resident prescale): visible to every
+  // thread after the barrier, by which every thread is also done with the
+  // item before, whose slot the next issue takes -> the item's slot
+  auto arrive = [&](bool score) {
+    cp_async_wait<STAGES - 2>();
+    float* slot = ring + cs * T::SLOT;
+    if constexpr (!QRES) {
+      if (score) prescale_own<T::BQ, T::THREADS>(slot + T::PK * PF, lw, a.scale_log2);
+    }
+    __syncthreads();
+    issue();
+    cs = cs + 1 == STAGES ? 0 : cs + 1;
+    return slot;
+  };
+  // S = q2 K^T of the next key tile, chunk by chunk from column 0
+  auto scores = [&](float (&s)[T::NT][4]) {
+    zero(s);
+    for (int c = 0; c < nc; ++c) {
+      const float* slot = arrive(true);
+      const float* qa = QRES ? sQ + warp * 16 * pq + c * KC : slot + (T::PK + warp * 16) * PF;
+      scores_pair_fma<T::NT>(s, qa, pq, slot, min(KC, dp - c * KC));
+    }
+    pair_to_c<T::NT>(s);
+  };
+  float o[T::NO][4];
+  // O = O alpha + P V a key block, a V panel of the slice at a time
+  auto pv = [&](const float (&p)[T::NT][4], const float (&alpha)[T::NT / T::NTS][2]) {
+    for (int vc = 0; vc < nv; ++vc) {
+      const float* slot = arrive(false);
+#pragma unroll
+      for (int u = 0; u < T::NV; ++u)  // chunk vc's O tiles, at compile-time indices
+        if (u == vc)
+          pv_panel_tf32<T::NT, T::NTS, !TWO_PASS>(o, p, slot, u * (KC / 8), alpha);
+    }
+  };
+
+  if constexpr (QRES) {  // q lands with the first item, q2 made by the threads that copied it
+    const Head<float> q(a, 0, bh);
+    copy_tile(sQ, pq, q.p, q.rs, q0, T::BQ, 0, dp, n, d, lw, T::THREADS);
+  }
+#pragma unroll 1
+  for (int i = 0; i < STAGES - 1; ++i) issue();
+  if constexpr (QRES) {
+    cp_async_wait<STAGES - 2>();
+    prescale_tile(sQ, pq, T::BQ, dp, lw, T::THREADS, a.scale_log2);
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if constexpr (TWO_PASS) {
+    for (int j = 0; j < tiles; ++j) {  // pass 1: this thread's share of the row max
+      float s[T::NT][4];
+      scores(s);
+      mask_keys<T::NT>(s, n - j * T::PK);
+      row_max<T::NT>(s, m);
+    }
+    quad_max(m);
+    zero(o);  // (here, so that pass 1 runs without O's registers live)
+    for (int j = 0; j < tiles; ++j) {  // pass 2: P against the final max
+      float s[T::NT][4];
+      scores(s);
+      mask_keys<T::NT>(s, n - j * T::PK);
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = exp2f(s[nt][e] - m[e / 2]);
+          l[e / 2] += s[nt][e];
+        }
+      const float unused[T::NT / T::NTS][2] = {};  // K4 is never rescaled
+      pv(s, unused);
+    }
+  } else {
+    zero(o);
+    for (int j = 0; j < tiles; ++j) {  // the online softmax, a step a key block
+      float s[T::NT][4], alpha[T::NT / T::NTS][2];
+      scores(s);
+      softmax_steps_f32<T::NT, T::NTS>(s, alpha, m, l, n - j * T::PK);
+      pv(s, alpha);
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const int row0 = q0 + warp * 16;
+  store_tiles<T::NO>(o, l, a.out[0], a, bh, row0, c0);
+  if (a.lse_out != nullptr && blockIdx.z == 0 && lane % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + lane / 4 + 8 * i;
+      if (row < n) a.lse_out[(long long)bh * n + row] = m[i] + log2f(l[i]);
+    }
+  }
+}
+
+// The fp32 forward (K1/K2): key tiles of 64
+template <int WARPS, int CS, bool QRES>
+__global__ void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_tf32(const Args<float> a) {
+  fwd_tf32<WARPS, CS, 64, QRES, false>(a);
+}
+
+template <bool V>
+using Bool = std::integral_constant<bool, V>;
+
+// The fp32 forward's launch plan at key block BK (K4's where TWO_PASS):
+// go(Int<WARPS>, Int<CS>, Bool<QRES>) launches the kernel of FwdTf32<WARPS,
+// CS, BK, QRES, TWO_PASS>'s tiles. kFwdF32Warps warps, or 4 at N <= 64 (one
+// block holds every row); the output slice of 128 columns up to d = 128
+// and at tiles of 128 keys (S of 128 keys beside 256 accumulator columns
+// would leave no registers), else kFwdF32Slice; q2 resident where its rows
+// fit beside the ring (d <= 344 at 8 warps and tiles of 64 keys, 240 at
+// 128), else streamed with the K panels by kFwdF32Warps warps, in a slice
+// of 192 columns for 256 (or, at tiles of 128 keys, half of 128).
+template <int BK, bool TWO_PASS, typename Go>
+cudaError_t fwd_tf32_plan(const Args<float>& a, Go go) {
+  constexpr int W = kFwdF32Warps, PK = FwdTf32<W, 128, BK, true, TWO_PASS>::PK;
+  const int dp = (a.D + 7) / 8 * 8;
+  auto slice = [&](auto warps, auto cs) {
+    constexpr int WR = decltype(warps)::value, C = decltype(cs)::value;
+    // the streamed q panels' copies add to the loop's registers, which a
+    // narrower slice gives back (at 256 and 128 columns they spilled), and
+    // 8 warps (4 spilled too at tiles of 128 keys)
+    constexpr int CQ = PK == 128 ? C / 2 : C == 256 ? 192 : C;
+    static_assert(FwdTf32<W, CQ, BK, false, TWO_PASS>::smem(0) <= SMEM_MAX, "the streamed ring");
+    if (FwdTf32<WR, C, BK, true, TWO_PASS>::smem(dp) <= SMEM_MAX)
+      return go(warps, cs, Bool<true>{});
+    return go(Int<W>{}, Int<CQ>{}, Bool<false>{});
+  };
+  auto tiles = [&](auto warps) {
+    if constexpr (PK == 128) {
+      return slice(warps, Int<128>{});
+    } else {
+      static_assert(FwdTf32<W, 128, BK, true, TWO_PASS>::smem(128) <= SMEM_MAX,
+                    "q2 resident up to d = 128");
+      if (a.D <= 128) return go(warps, Int<128>{}, Bool<true>{});
+      return slice(warps, Int<kFwdF32Slice>{});
+    }
+  };
+  if (a.N <= 64) return tiles(Int<4>{});
+  return tiles(Int<W>{});
+}
+
+// one launch of an fp32 forward kernel of FwdTf32<WARPS, CS, BK, QRES,
+// TWO_PASS>'s tiles
+template <int WARPS, int CS, int BK, bool QRES, bool TWO_PASS>
+cudaError_t launch_fwd_tf32_tiles(void (*kern)(Args<float>), cudaError_t attr,
+                                  const Args<float>& a, cudaStream_t stream) {
+  using T = FwdTf32<WARPS, CS, BK, QRES, TWO_PASS>;
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.N + T::BQ - 1) / T::BQ, a.B * a.H, (a.D + CS - 1) / CS);
+  kern<<<grid, T::THREADS, T::smem((a.D + 7) / 8 * 8), stream>>>(a);
+  return cudaGetLastError();
+}
+
 // The fp32 dK/dV's tiles: RT row tiles of 16 keys, two warps each: warp
 // (rt, kind) scores queries [16 kind, + 16) of each q tile of BQ = 32 and
 // owns columns [CW z, + CW) of dK (kind 0) or dV (kind 1). Shared memory
@@ -1740,6 +2007,17 @@ cudaError_t launch_fwd_bf16(const Args<bf16>& a, cudaStream_t stream) {
   });
 }
 
+cudaError_t launch_fwd_f32(const Args<float>& a, cudaStream_t stream) {
+  return fwd_tf32_plan<64, false>(a, [&](auto warps, auto cs, auto qres) {
+    constexpr int W = decltype(warps)::value, C = decltype(cs)::value;
+    constexpr bool R = decltype(qres)::value;
+    auto kern = flash_fwd_anyd_tf32<W, C, R>;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+    return launch_fwd_tf32_tiles<W, C, 64, R, false>(kern, attr, a, stream);
+  });
+}
+
 cudaError_t launch_dkv_bf16(const Args<bf16>& a, cudaStream_t stream) {
   const int dp = (a.D + 15) / 16 * 16;
   if (a.D <= 128) return launch_dkv_mma<4, 1>(a, dp, stream);
@@ -1830,7 +2108,12 @@ extern "C" int pbe_flash_fwd_anyd_bf16(const void* q, const void* k, const void*
 extern "C" int pbe_flash_fwd_anyd_f32(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int N, int H, int D,
                                       const long long* st, float scale, void* stream) {
-  return run_fwd<float>(q, k, v, o, lse, B, N, H, D, st, scale, stream);
+  const void* in[3] = {q, k, v};
+  Args<float> a;
+  const cudaError_t err = make_args(&a, in, 3, st, nullptr, nullptr, o, nullptr, lse, B, N, H, D,
+                                    scale, 0.f);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fwd_f32(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pbe_flash_bwd_dq_anyd_bf16(const void* q, const void* k, const void* v,

@@ -27,8 +27,8 @@
 // any other size): sharing key tiles at any head dim is later work.
 //
 // Their bodies are the any-head-dim forward's (csrc/flash_anyd.cu's
-// fwd_mma and fwd_simt, the key block a template argument, TWO_PASS
-// choosing K4's schedule; flash_fwd_anyd_mma and flash_fwd_anyd<float> are
+// fwd_mma and fwd_tf32, the key block a template argument, TWO_PASS
+// choosing K4's schedule; flash_fwd_anyd_mma and flash_fwd_anyd_tf32 are
 // K3 at block 64), included below with flash_anyd.cu's launch plans and
 // entries left out (PBE_ANYD_DEVICE_ONLY). This file holds the kernels'
 // names, their launch plans and the entries. The layout: any (batch, seq,
@@ -44,24 +44,29 @@
 //     the panels in chunk_scores' k-order, in registers (BK / 8 n8 tiles),
 //     and P is fed back as the A fragments of P V. K4's ring brings each
 //     chunk's K panels in pass 1, then each chunk's K and V panels in pass 2.
-//   * fp32, on SIMT FMA (flash_resident_anyd, flash_pipelined_anyd): a
-//     block of 256 threads owns 64 query rows and up to 256 output columns;
-//     thread (tr, tc) holds rows 4 tr + i and, of S, the BK / 16 keys
-//     key_at<BK>(j); each score is one fmaf chain over the head dim from
-//     column 0 (q2 and K staged transposed in chunks of 32 columns), so K4's
-//     second S is its first bit for bit; P goes to shared memory, key-major,
-//     for O += P V in steps of 16 keys.
-// Tiles (fwd_mma_plan, shared with the any-head-dim forward): WARPS = 8, or
-// 4 at N <= 64 (one 64-row block) or where the q2 tile of 8 warps does not
-// fit beside the ring (d > 832, 784 and 672 at BK = 32, 64 and 128); CS =
-// 128 up to d = 128, else 256, and 128 at BK = 128 (S of 128 keys beside 256
-// accumulator columns would leave no registers); the fp32 kernels one block
-// of 256 threads an SM (S of up to 8 keys a thread; flash_fwd_anyd<float>
-// runs two at 128 registers).
+//   * fp32, S on FMA and P V on 3xTF32 mma.sync.m16n8k8
+//     (flash_resident_anyd_tf32, flash_pipelined_anyd_tf32): the same shape
+//     of block, warps and ring, q2 resident where it fits beside the ring
+//     (QRES) or streamed as panels beside each K panel (in slices of 192
+//     columns, or 64 at tiles of 128 keys); S in mma_tf32's C
+//     layout, each score one fmaf chain over the head dim from column 0
+//     (so K4's second S is its first bit for bit), and P, in registers,
+//     the A fragments of P V, one zeroed partial a run of up to 64 keys.
+// Tiles (fwd_mma_plan and fwd_tf32_plan, shared with the any-head-dim
+// forward): WARPS = 8, or 4 at N <= 64 (one 64-row block) or, at bf16,
+// where the q2 tile of 8 warps does not fit beside the ring (d > 832, 784
+// and 672 at BK = 32, 64 and 128), and 8 at fp32 where q2 streams; CS =
+// 128 up to d = 128, else 256, and
+// 128 at key tiles of 128 (S of 128 keys beside 256 accumulator columns
+// would leave no registers): bf16 at BK = 128, fp32 K3 at BK = 128, as fp32
+// takes tiles of 64 keys otherwise (a tile of 64 two blocks of 32, K4's
+// chunk of 128 two tiles); at fp32 q2 resident up to d = 344 at tiles of 64
+// and 240 at 128 (8 warps), streamed past that.
 //
-// What bounds them: the function's 4 B H N^2 d FLOP (bf16 tensor cores,
-// or fp32 FMA), its B H N^2 exponentials, or its bytes (q, k, v read once,
-// o written once). At the DDPM UNet's (128, 256, 1, 256) bytes bind the
+// What bounds them: the function's 4 B H N^2 d FLOP (bf16 tensor cores;
+// at fp32 S's half on FMA beside P V's in 3xTF32), its B H N^2
+// exponentials, or its bytes (q, k, v read once, o written once). At the
+// DDPM UNet's (128, 256, 1, 256) bytes bind the
 // bf16 pair (67 MB, 0.020 ms at 3.35 TB/s); at (2, 4096, 8, 64) the
 // products and the exponentials (0.070 / 0.069 ms). K4 computes S twice
 // (6 B H N^2 d in all). Both run well above their bounds for
@@ -91,16 +96,14 @@ __global__ void __launch_bounds__(32 * WARPS, 1) flash_pipelined_anyd_mma(const 
   fwd_mma<WARPS, CS, BK, true>(a);
 }
 
-// T is float: the kernels' names carry their operand type, as
-// flash_fwd_anyd<float>'s does
-template <typename T, int BK>
-__global__ void __launch_bounds__(THREADS, 1) flash_resident_anyd(const Args<T> a) {
-  fwd_simt<T, BK, false>(a);
+template <int WARPS, int CS, int BK, bool QRES>
+__global__ void __launch_bounds__(32 * WARPS, 1) flash_resident_anyd_tf32(const Args<float> a) {
+  fwd_tf32<WARPS, CS, BK, QRES, false>(a);
 }
 
-template <typename T, int BK>
-__global__ void __launch_bounds__(THREADS, 1) flash_pipelined_anyd(const Args<T> a) {
-  fwd_simt<T, BK, true>(a);
+template <int WARPS, int CS, int BK, bool QRES>
+__global__ void __launch_bounds__(32 * WARPS, 1) flash_pipelined_anyd_tf32(const Args<float> a) {
+  fwd_tf32<WARPS, CS, BK, QRES, true>(a);
 }
 
 // --- the launch plans ----------------------------------------------------------
@@ -126,17 +129,21 @@ cudaError_t launch_block(const Args<bf16>& a, cudaStream_t stream) {
   });
 }
 
-// fp32: flash_fwd_anyd<float>'s grid
+// fp32: the any-head-dim forward's plan (fwd_tf32_plan) at key blocks of BK
 template <bool TWO_PASS, int BK>
 cudaError_t launch_block(const Args<float>& a, cudaStream_t stream) {
-  void (*kern)(Args<float>);
-  if constexpr (TWO_PASS)
-    kern = flash_pipelined_anyd<float, BK>;
-  else
-    kern = flash_resident_anyd<float, BK>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FwdSimt<BK>::SMEM);
-  return launch<float>(kern, attr, FwdSimt<BK>::SMEM, a, stream);
+  return fwd_tf32_plan<BK, TWO_PASS>(a, [&](auto warps, auto cs, auto qres) {
+    constexpr int W = decltype(warps)::value, C = decltype(cs)::value;
+    constexpr bool R = decltype(qres)::value;
+    void (*kern)(Args<float>);
+    if constexpr (TWO_PASS)
+      kern = flash_pipelined_anyd_tf32<W, C, BK, R>;
+    else
+      kern = flash_resident_anyd_tf32<W, C, BK, R>;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+    return launch_fwd_tf32_tiles<W, C, BK, R, TWO_PASS>(kern, attr, a, stream);
+  });
 }
 
 // an entry's launch: key blocks of 32, 64 or 128 (cudaErrorInvalidValue

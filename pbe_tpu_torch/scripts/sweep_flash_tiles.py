@@ -5,7 +5,8 @@ with ``--variants`` the resident and pipelined kernels
 (csrc/flash_variants.cu), with ``--anyd`` the tensor-core kernels of
 csrc/flash_anyd.cu (the bf16 ``flash_fwd_anyd_mma``,
 ``flash_bwd_dq_anyd_mma`` and ``flash_bwd_dkv_anyd_mma``, the fp32
-``flash_bwd_dkv_anyd_tf32``).
+``flash_fwd_anyd_tf32`` and ``flash_bwd_dkv_anyd_tf32``) and the fp32 K3
+and K4 of csrc/flash_variants_anyd.cu on the same forward body.
 
     python -m pbe_tpu_torch.scripts.sweep_flash_tiles [--bwd | --variants | --anyd]
         [--repeats 50] [--settings "first:48=4x64,80=4x64,160=2x32" ...]
@@ -29,13 +30,21 @@ shapes (the pipelined kernel at every key chunk, the resident one at its
 default key block and every cluster size). With ``--anyd`` a setting
 rewrites flash_anyd.cu's ``fwarps=N``, ``fslice=N``, ``split=N``,
 ``stages=N``, ``qwarps=N``, ``qslice=N`` and ``frows=N`` (``kFwdWarps``,
-``kFwdSlice``, ``kDkvSplit``, ``STAGES``: every ring's slots,
-``kDqWarps``, ``kDqSlice``, ``kDkvF32Rows``), and
-``--baseline`` adds another checkout's flash_anyd.cu as one more setting;
-each setting's bf16 forward, dQ and dK/dV and fp32 dK/dV are timed by CUDA
-graph at ANYD_SHAPES (the DDPM CIFAR-10 UNet's two attention shapes at
-batch 128, and d = 64, 128 and 1024 at N = 256), twice, the settings in
-turn and then in reverse order. The settings are
+``kFwdSlice``, ``kDkvSplit``, ``STAGES``: every ring's slots but the
+SIMT dQ's, ``kDqWarps``, ``kDqSlice``, ``kDkvF32Rows``) and the fp32
+forward's ``f32warps=N`` and ``f32slice=N`` (``kFwdF32Warps``: rows a
+block in warps of 16, ``kFwdF32Slice``: output columns a block past d =
+128), each setting's flash_variants_anyd.cu including its copy of
+flash_anyd.cu; ``--baseline`` adds another checkout's flash_anyd.cu (and
+the flash_variants_anyd.cu beside it) as one more setting, and a setting
+``name:file=PATH`` does the same for any other copy. Each setting's bf16
+forward, dQ and dK/dV, fp32 forward and dK/dV, and fp32 K3 and K4 at
+their default key blocks are timed by CUDA graph at ANYD_SHAPES (the DDPM
+CIFAR-10 UNet's two attention shapes at batch 128, d = 64, 128 and 1024
+at N = 256, and the attention benchmark's ds1 geometry at d = 64), twice,
+the settings in turn and then in reverse order, beside the forward's
+plain version and torch's scaled_dot_product_attention on the same
+inputs (JSON lines with ``"reference"``). The settings are
 built side by side with nvcc into ``csrc/build/sweep/`` (the shipped
 library is not touched). Each is checked against its plain version (rel
 L2 <= 1e-2 for every output) and timed at the UNet shapes of the edit and
@@ -55,6 +64,7 @@ import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -108,16 +118,21 @@ ANYD_SETTINGS = (
     "qw4:qwarps=4",
     "qs128:qslice=128",
     "fr2:frows=2",
+    "f32w4:f32warps=4",
+    "f32s128:f32slice=128",
 )
 ANYD_CONSTANTS = {"fwarps": "kFwdWarps", "fslice": "kFwdSlice", "split": "kDkvSplit",
                   "stages": "STAGES", "qwarps": "kDqWarps", "qslice": "kDqSlice",
-                  "frows": "kDkvF32Rows"}
+                  "frows": "kDkvF32Rows", "f32warps": "kFwdF32Warps",
+                  "f32slice": "kFwdF32Slice"}
 # the kernels the --anyd sweep times: (name, wrapper kind, operand dtype)
 ANYD_KERNELS = (("fwd", "fwd", torch.bfloat16), ("dq", "dq", torch.bfloat16),
-                ("dkv", "dkv", torch.bfloat16), ("dkv_f32", "dkv", torch.float32))
+                ("dkv", "dkv", torch.bfloat16), ("fwd_f32", "fwd", torch.float32),
+                ("dkv_f32", "dkv", torch.float32), ("resident_f32", "resident", torch.float32),
+                ("pipelined_f32", "pipelined", torch.float32))
 ANYD_SHAPES = {"ddpm_n256": (128, 256, 1, 256), "ddpm_mid_n16": (128, 16, 1, 256),
                "d64": (128, 256, 1, 64), "d128": (128, 256, 1, 128),
-               "d1024": (128, 256, 1, 1024)}
+               "d1024": (128, 256, 1, 1024), "ds1_d64": (2, 4096, 8, 64)}
 # template arguments after the head dim of each backward launch line
 BWD_ARGS = {"dq": ("warps", "bk", "hold", "minb"),
             "dkv": ("warps", "bq", "hold", "split", "minb")}
@@ -132,8 +147,15 @@ FTZ_EXP2 = """__device__ __forceinline__ float ex2_ftz(float x) {
 """
 
 
-def variant_source(spec: str, source: str = "flash_fwd") -> str:
-    """csrc/<source>.cu with the tiles (and exp2) of one setting."""
+def variant_source(spec: str, source: str = "flash_fwd", name: str = "") -> str:
+    """csrc/<source>.cu with the tiles (and exp2) of one setting;
+    flash_variants_anyd.cu (its constants are flash_anyd.cu's) including
+    setting ``name``'s copy of flash_anyd.cu."""
+    if source == "flash_variants_anyd":
+        path = (Path(spec.removeprefix("file=")).with_name(f"{source}.cu")
+                if spec.startswith("file=") else cuda_build.CSRC / f"{source}.cu")
+        return path.read_text().replace('#include "flash_anyd.cu"',
+                                        f'#include "flash_anyd_{name}.cu"')
     if spec.startswith("file="):  # another checkout's source, as it is
         return open(spec.removeprefix("file=")).read()
     src = (cuda_build.CSRC / f"{source}.cu").read_text()
@@ -169,8 +191,8 @@ def ptxas_report(log: str) -> str:
     """One line per instantiation of the flash kernels (forward, its
     resident and pipelined variants, backward, and their fp32 kernels: the
     forward at d <= 160 and at 512, resident, pipelined, dQ, dK/dV; the
-    any-head-dim SIMT forward, dQ, resident and pipelined kernels and the
-    tensor-core forward, dQ, dK/dV, resident and pipelined ones) in a
+    any-head-dim SIMT dQ and the tensor-core forward, dQ, dK/dV, resident
+    and pipelined ones) in a
     -Xptxas -v log: its template arguments (led by the operand type where
     the template takes one), registers and spill bytes."""
     lines = log.splitlines()
@@ -187,14 +209,13 @@ def ptxas_report(log: str) -> str:
 def kernel_label(mangled: str) -> str | None:
     """``name<template arguments>`` of a flash kernel's mangled symbol, its
     operand type first where the template takes one (the SIMT any-head-dim
-    kernels: ``flash_fwd_anyd<fp32>``, ``flash_resident_anyd<fp32, 64>``),
-    or None for any other symbol."""
+    dQ: ``flash_bwd_dq_anyd<fp32>``), or None for any other symbol."""
     m = re.search(r"(flash_(?:fwd|fwd_wide|resident|resident_wide|pipelined|pipelined_wide"
                   r"|bwd_dq|bwd_dq_wide|bwd_dkv|bwd_dkv_wide|fwd_f32|fwd_wide_f32|bwd_dq_f32"
                   r"|bwd_dkv_f32"
                   r"|resident_f32|pipelined_f32)"
                   r"_kernel|flash_(?:fwd|bwd_dq|bwd_dkv|resident|pipelined)_anyd_mma"
-                  r"|flash_bwd_dkv_anyd_tf32"
+                  r"|flash_(?:fwd|bwd_dkv|resident|pipelined)_anyd_tf32"
                   r"|flash_(?:fwd|bwd_dq|bwd_dkv|resident|pipelined)_anyd)"
                   r"(I\w+?EE)?", mangled)
     if m is None:
@@ -205,12 +226,23 @@ def kernel_label(mangled: str) -> str | None:
     return f"{m[1]}<{args}>"
 
 
-def build(name: str, spec: str, source: str = "flash_fwd") -> tuple[str, str]:
-    """-> (library path, ptxas lines of the kernels)."""
+def write_source(name: str, spec: str, source: str) -> None:
+    """Setting ``name``'s copy of csrc/<source>.cu in csrc/build/sweep/,
+    left as it is where it holds the same text (another build may be
+    reading it)."""
     out_dir = cuda_build.BUILD_DIR / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
+    path, text = out_dir / f"{source}_{name}.cu", variant_source(spec, source, name)
+    if not path.exists() or path.read_text() != text:
+        path.write_text(text)
+
+
+def build(name: str, spec: str, source: str = "flash_fwd") -> tuple[str, str]:
+    """-> (library path, ptxas lines of the kernels). flash_variants_anyd
+    includes the setting's flash_anyd copy: write that first."""
+    out_dir = cuda_build.BUILD_DIR / "sweep"
+    write_source(name, spec, source)
     src, lib = out_dir / f"{source}_{name}.cu", out_dir / f"lib{source}_{name}.so"
-    src.write_text(variant_source(spec, source))
     proc = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
                            str(cuda_build.CSRC), "-o", str(lib), str(src)],
                           capture_output=True, text=True)
@@ -337,22 +369,29 @@ def sweep_variants(built: dict, settings: dict, repeats: int) -> None:
 
 
 def sweep_anyd(built: dict, settings: dict, repeats: int) -> None:
-    """Each setting's tensor-core kernels of flash_anyd.cu (ANYD_KERNELS) at
-    ANYD_SHAPES, checked against their plain versions (rel L2 <= 1e-2) and
-    timed by CUDA graph, the settings in turn and then in reverse."""
+    """Each setting's tensor-core kernels of flash_anyd.cu and the fp32 K3
+    and K4 of its flash_variants_anyd.cu (ANYD_KERNELS) at ANYD_SHAPES,
+    checked against their plain versions (rel L2 <= 1e-2) and timed by CUDA
+    graph, the settings in turn and then in reverse. ``built``: setting ->
+    {source: (library, ptxas report)}."""
+    import torch.nn.functional as F
+
     from pbe_tpu_torch.scripts.bench_attention import time_us
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kerns = {name: fa.FlashForward() if kind == "fwd" else fa.FlashBackward(kind)
+    kerns = {name: (fa.FlashForward(None if kind == "fwd" else kind)
+                    if kind in ("fwd", *fa.VARIANT_KINDS) else fa.FlashBackward(kind))
              for name, kind, _ in ANYD_KERNELS}
     dtypes = {name: dtype for name, _, dtype in ANYD_KERNELS}
     fns = {}
-    for name, (lib, report) in built.items():
-        print(f"[{name}] {settings[name] or 'as shipped'}\n{report}", flush=True)
+    for name, libs in built.items():
+        print(f"[{name}] {settings[name] or 'as shipped'}", flush=True)
+        for lib, report in libs.values():
+            print(report, flush=True)
         fns[name] = {}
         for which, kern in kerns.items():
-            symbol = kern.entry(dtypes[which], 256)[1]
-            fn = getattr(ctypes.CDLL(lib), symbol)
+            source, symbol = kern.entry(dtypes[which], 256)
+            fn = getattr(ctypes.CDLL(libs[source][0]), symbol)
             fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
             fns[name][which] = (symbol, fn)
 
@@ -364,17 +403,28 @@ def sweep_anyd(built: dict, settings: dict, repeats: int) -> None:
     order = list(built) + list(built)[::-1]
     for sname, shape in ANYD_SHAPES.items():
         times = {name: {which: [] for which in kerns} for name in built}
+        refs = {"plain": {}, "sdpa": {}}
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                            for _ in range(4))
             out, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            key = "fwd_ms" if dtype == torch.bfloat16 else "fwd_f32_ms"
+            refs["plain"][key] = time_us(lambda: fa.flash_attention_plain(q, k, v), repeats,
+                                         q.device) / 1e3
+            refs["sdpa"][key] = time_us(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                        repeats, q.device) / 1e3
             dd = fa.rowsum_do_o(do, out)
             want = {"fwd": (out,), "dq": (fa.flash_bwd_dq_plain(q, k, v, do, lse, dd),),
-                    "dkv": fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd)}
+                    "dkv": fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd),
+                    "resident": (out,), "pipelined": (out,)}
             calls = {"fwd": lambda: (kerns["fwd"](q, k, v),),
                      "dq": lambda: (kerns["dq"](q, k, v, do, lse, dd),),
                      "dkv": lambda: kerns["dkv"](q, k, v, do, lse, dd),
-                     "dkv_f32": lambda: kerns["dkv_f32"](q, k, v, do, lse, dd)}
+                     "fwd_f32": lambda: (kerns["fwd_f32"](q, k, v),),
+                     "dkv_f32": lambda: kerns["dkv_f32"](q, k, v, do, lse, dd),
+                     "resident_f32": lambda: (kerns["resident_f32"](q, k, v),),
+                     "pipelined_f32": lambda: (kerns["pipelined_f32"](q, k, v),)}
             mine = [w for w in kerns if dtypes[w] == dtype]
             for name in order:
                 use(name)
@@ -386,8 +436,10 @@ def sweep_anyd(built: dict, settings: dict, repeats: int) -> None:
                         raise AssertionError(f"setting {name} {which} disagrees with the plain "
                                              f"version at {sname}: rel L2 {rel_l2:.3e}")
                     times[name][which].append(time_us(calls[which], repeats, q.device) / 1e3)
-            del q, k, v, do, out, lse, dd, want
+            del q, k, v, do, out, lse, dd, want, qt, kt, vt
             torch.cuda.empty_cache()
+        for ref, ms in refs.items():
+            print(json.dumps({"reference": ref, "shape": sname, **ms}), flush=True)
         for name in built:
             print(json.dumps({"setting": name, "shape": sname,
                               **{f"{w}_ms": t for w, t in times[name].items()}}), flush=True)
@@ -419,10 +471,31 @@ def main(argv=None) -> None:
         "flash_variants": VARIANT_SETTINGS, "flash_anyd": ANYD_SETTINGS}[source])
     if args.baseline:
         settings["baseline"] = f"file={args.baseline}"
+    # flash_anyd.cu's settings build flash_variants_anyd.cu beside it
+    sources = [source] + ["flash_variants_anyd"] * (source == "flash_anyd")
+    for name, spec in settings.items():
+        for src in sources:
+            write_source(name, spec, src)
+    jobs = [(name, spec, src) for name, spec in settings.items() for src in sources]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(settings)) as pool:
-        built = dict(zip(settings, pool.map(build, settings, settings.values(),
-                                            [source] * len(settings))))
+    def try_build(job):
+        try:
+            return build(*job)
+        except RuntimeError as e:  # reported, and the setting left out
+            print(e, flush=True)
+            return None
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(try_build, jobs))
+    failed = {name for (name, _, _), lib in zip(jobs, libs) if lib is None}
+    if failed:
+        print(f"left out (no build): {sorted(failed)}", flush=True)
+    built = {name: {} for name in settings if name not in failed}
+    for (name, _, src), lib in zip(jobs, libs):
+        if name not in failed:
+            built[name][src] = lib
+    if source != "flash_anyd":
+        built = {name: b[source] for name, b in built.items()}
     print(f"built {len(built)} settings of {source}.cu side by side in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     {"flash_fwd": sweep_forward, "flash_bwd": sweep_backward,

@@ -190,6 +190,27 @@ def mma_k8(acc, a, b):
     return torch.where(f.double().abs() > exact.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
 
+def tf32_steps(acc, a, b, k0, k1, terms: int, pair: bool):
+    """acc + a[..., k0:k1] b[..., k0:k1, :] as csrc/mma_sm90.cuh's mma_3xtf32
+    over the k8 steps of [k0, k1) (terms 1: hi hi alone): hi = to_tf32(x),
+    lo = x - hi read as its top 19 bits, each step added with the tensor
+    cores' truncation. With ``pair`` hi hi goes into one zeroed partial and
+    lo hi, hi lo into another, then acc + (big + small) in fp32; else all
+    three into one zeroed partial (lo hi, hi lo, hi hi), then acc + it."""
+    big = small = torch.zeros_like(acc)
+    for k in range(k0, min(k1, a.shape[-1]), 8):
+        x, y = a[..., k:k + 8], b[..., k:k + 8, :]
+        xh, yh = tf32(x), tf32(y)
+        if terms == 3:
+            small = mma_k8(small, top19(x - xh), yh)
+            small = mma_k8(small, xh, top19(y - yh))
+        if pair:
+            big = mma_k8(big, xh, yh)
+        else:
+            small = mma_k8(small, xh, yh)
+    return acc + (big + small) if pair else acc + small
+
+
 def stress_inputs(kind: str, shape, seed: int = 20, count: int = 3):
     """chip_smoke.py's fp32 inputs on the CPU (q, k, v and, with count 4,
     dO): randn, peaked scores (q and k x8) and a row max that rises by 0.02

@@ -30,7 +30,7 @@ from pbe_tpu_torch.models import vae_legacy as tvl
 from pbe_tpu_torch.ops import cuda_build
 from pbe_tpu_torch.ops import flash_attention as tfa
 
-from _torch_port import mma_k8, rel_errors, stress_inputs, tf32, top19
+from _torch_port import rel_errors, stress_inputs, tf32_steps
 
 CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
 DTYPES = [torch.bfloat16, torch.float32]
@@ -200,11 +200,10 @@ def test_wrappers_refuse_cpu_tensors_at_any_head_dim():
 def test_source_defines_every_anyd_entry_with_its_twins_arguments():
     """csrc/flash_anyd.cu exports the six symbols the wrappers load, each
     with its tuned twin's parameter list (the wrappers share argtypes); the
-    bf16 entries launch the mma.sync kernels, the fp32 dK/dV entry the
-    3xTF32 one, the fp32 forward and dQ their SIMT kernels; the SIMT
-    forward and dQ exist at fp32 only and the SIMT dK/dV not at all, and
-    the 3xTF32 and C-layout helpers come from the header flash_fp32.cu
-    shares."""
+    bf16 entries launch the mma.sync kernels, the fp32 forward and dK/dV
+    entries the 3xTF32 ones, the fp32 dQ its SIMT kernel; the SIMT dQ
+    exists at fp32 only and no SIMT forward or dK/dV at all, and the 3xTF32
+    and C-layout helpers come from the header flash_fp32.cu shares."""
     def entry(path, symbol):
         src = (CSRC / path).read_text()
         m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\) \{(.*?)\n\}", src, re.S)
@@ -220,13 +219,14 @@ def test_source_defines_every_anyd_entry_with_its_twins_arguments():
                            ("bwd_dq", "bf16", "launch_dq_bf16(a"),
                            ("bwd_dkv", "bf16", "launch_dkv_bf16(a"),
                            ("bwd_dkv", "f32", "launch_dkv_f32(a"),
-                           ("fwd", "f32", "run_fwd<float>"), ("bwd_dq", "f32", "run_dq<float>")):
+                           ("fwd", "f32", "launch_fwd_f32(a"), ("bwd_dq", "f32", "run_dq<float>")):
         assert run in body[kind, sfx], (kind, sfx)
     src = (CSRC / "flash_anyd.cu").read_text()
-    assert "run_fwd<bf16>" not in src and "run_dq<bf16>" not in src and "run_dkv" not in src
-    assert "flash_bwd_dkv_anyd(" not in src
+    assert "run_fwd" not in src and "run_dq<bf16>" not in src and "run_dkv" not in src
+    assert "flash_bwd_dkv_anyd(" not in src and "flash_fwd_anyd(" not in src
+    assert "fwd_simt" not in src and "FwdSimt" not in src
     for kern in ("flash_fwd_anyd_mma<", "flash_bwd_dq_anyd_mma<", "flash_bwd_dkv_anyd_mma<",
-                 "flash_bwd_dkv_anyd_tf32<"):
+                 "flash_fwd_anyd_tf32<", "flash_bwd_dkv_anyd_tf32<"):
         assert f"auto kern = {kern}" in src
     assert '#include "mma_sm90.cuh"' in src and "mma_bf16(" in src
     assert "mma_3xtf32(" in src
@@ -333,46 +333,30 @@ def test_ptxas_report_names_the_anyd_kernels_by_operand_type():
                 "ptxas info    : Used 168 registers, used 1 barriers"]
 
     log, want = [], []
-    # the SIMT kernels, at fp32 only
+    # the SIMT kernels, at fp32 only (the forward's is gone: the report
+    # must still name one, so that chip_smoke.py refuses it)
     for name in ("flash_fwd_anyd", "flash_bwd_dq_anyd"):
         log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}IfEEvNS_4ArgsIT_EE")
         want.append(f"  {name}<fp32>: 0 bytes stack frame")
-    # the bf16 forward, dQ and dK/dV on mma.sync and the fp32 dK/dV on
-    # 3xTF32, by their tile arguments
+    # the bf16 forward, dQ and dK/dV on mma.sync and the fp32 forward and
+    # dK/dV on 3xTF32, by their tile arguments (the forward's q2 resident,
+    # 1, or streamed, 0)
     for name, args, dtype in (("flash_fwd_anyd_mma", (4, 128), "I13__nv_bfloat16EE"),
                               ("flash_fwd_anyd_mma", (4, 256), "I13__nv_bfloat16EE"),
                               ("flash_bwd_dq_anyd_mma", (8, 256), "I13__nv_bfloat16EE"),
                               ("flash_bwd_dq_anyd_mma", (2, 256), "I13__nv_bfloat16EE"),
                               ("flash_bwd_dkv_anyd_mma", (4, 1), "I13__nv_bfloat16EE"),
                               ("flash_bwd_dkv_anyd_mma", (2, 2), "I13__nv_bfloat16EE"),
+                              ("flash_fwd_anyd_tf32", (8, 256, 1), "IfEE"),
+                              ("flash_fwd_anyd_tf32", (4, 128, 0), "IfEE"),
                               ("flash_bwd_dkv_anyd_tf32", (4, 128), "IfEE"),
                               ("flash_bwd_dkv_anyd_tf32", (1, 256), "IfEE")):
-        targs = "".join(f"Li{a}E" for a in args)
+        targs = "".join(f"L{'b' if i == 2 and 'fwd' in name and 'tf32' in name else 'i'}{a}E"
+                        for i, a in enumerate(args))
         log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvNS_4Args{dtype}")
         want.append(f"  {name}<{', '.join(map(str, args))}>: 0 bytes stack frame")
     report = ptxas_report("\n".join(log)).splitlines()
     assert [line[:len(w)] for line, w in zip(report, want)] == want and len(report) == len(want)
-
-
-def _tf32_steps(acc, a, b, k0, k1, terms: int, pair: bool):
-    """acc + a[..., k0:k1] b[..., k0:k1, :] as csrc/mma_sm90.cuh's mma_3xtf32
-    over the k8 steps of [k0, k1) (terms 1: hi hi alone): hi = to_tf32(x),
-    lo = x - hi read as its top 19 bits, each step added with the tensor
-    cores' truncation. With ``pair`` hi hi goes into one zeroed partial and
-    lo hi, hi lo into another, then acc + (big + small) in fp32; else all
-    three into one zeroed partial (lo hi, hi lo, hi hi), then acc + it."""
-    big = small = torch.zeros_like(acc)
-    for k in range(k0, min(k1, a.shape[-1]), 8):
-        x, y = a[..., k:k + 8], b[..., k:k + 8, :]
-        xh, yh = tf32(x), tf32(y)
-        if terms == 3:
-            small = mma_k8(small, top19(x - xh), yh)
-            small = mma_k8(small, xh, top19(y - yh))
-        if pair:
-            big = mma_k8(big, xh, yh)
-        else:
-            small = mma_k8(small, xh, yh)
-    return acc + (big + small) if pair else acc + small
 
 
 def _dkv_tf32(q, k, v, do, terms: int):
@@ -389,13 +373,13 @@ def _dkv_tf32(q, k, v, do, terms: int):
     dph = torch.zeros_like(p)
     doh, vt = tfa._heads(do), tfa._heads(v).transpose(-1, -2)
     for c0 in range(0, d, 64):
-        dph = _tf32_steps(dph, doh, vt, c0, c0 + 64, terms, True)
+        dph = tf32_steps(dph, doh, vt, c0, c0 + 64, terms, True)
     ds = p * (dph - dd) * d ** -0.5
     dk, dv = torch.zeros(b, h, n, d), torch.zeros(b, h, n, d)
     pt, dst, qh = p.transpose(-1, -2), ds.transpose(-1, -2), tfa._heads(q)
     for q0 in range(0, n, 32):
-        dv = _tf32_steps(dv, pt, doh, q0, q0 + 32, terms, False)
-        dk = _tf32_steps(dk, dst, qh, q0, q0 + 32, terms, False)
+        dv = tf32_steps(dv, pt, doh, q0, q0 + 32, terms, False)
+        dk = tf32_steps(dk, dst, qh, q0, q0 + 32, terms, False)
     return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
 
 

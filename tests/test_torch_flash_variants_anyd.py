@@ -6,8 +6,11 @@ flash_forward(variant=...) against the JAX package's Pallas K3 and K4
 dims outside the tuned table; the rule that names the kernel; the
 wrappers' routes and counts (a stand-in library records the entry each
 launch loads); the refusals that remain; the C entries' argument lists; the
-ptxas report's names. The CUDA kernels themselves are held against the
-plain version on the card by chip_smoke.py phase 30."""
+ptxas report's names; the fp32 body's 3xTF32 P V, emulated in its order
+and held to phase 29's fp32 tolerances, which 1xTF32 misses. The CUDA
+kernels themselves are held against the plain version on the card by
+chip_smoke.py phase 30."""
+import itertools
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -20,9 +23,12 @@ from jax.experimental.pallas import tpu as pltpu
 
 from pbe_tpu.ops import flash_attention as jfa
 
+import chip_smoke
 from pbe_tpu_torch.ops import cuda_build
 from pbe_tpu_torch.ops import flash_attention as tfa
 from pbe_tpu_torch.scripts.sweep_flash_tiles import ptxas_report
+
+from _torch_port import rel_errors, stress_inputs, tf32_steps
 
 CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
 WRAPPERS = {"resident": tfa.flash_fwd_resident, "pipelined": tfa.flash_fwd_pipelined}
@@ -194,10 +200,10 @@ def test_source_defines_every_entry_with_its_twins_arguments():
     load, each with its tuned twin's parameter list (the wrappers share
     argtypes), each running its own kernel: K3 and K4 by the schedule
     argument of run_variant, on the any-head-dim forward's bodies with the
-    key block a template argument (the bf16 ones on mma.sync), whose
-    kernels are K3 at block 64; none relaunches the any-head-dim forward.
-    The library is keyed on flash_anyd.cu too, whose device code it
-    includes."""
+    key block a template argument (bf16 on mma.sync, fp32 on 3xTF32 with S
+    on FMA), whose kernels are K3 at block 64; none relaunches the
+    any-head-dim forward, and no SIMT body is left. The library is keyed on
+    flash_anyd.cu too, whose device code it includes."""
     src = (CSRC / "flash_variants_anyd.cu").read_text()
     for variant, two_pass in (("resident", "false"), ("pipelined", "true")):
         twin = _entry("flash_variants.cu", f"pbe_flash_{variant}_bf16")[0]
@@ -207,23 +213,32 @@ def test_source_defines_every_entry_with_its_twins_arguments():
             assert f"run_variant<{dtype}, {two_pass}>(" in body
             assert ("cluster != 1" in body) == (variant == "resident")
         assert f"flash_{variant}_anyd_mma(const Args<bf16> a) {{\n  fwd_mma<WARPS, CS, BK, {two_pass}>(a);" in src
-        assert f"flash_{variant}_anyd(const Args<T> a) {{\n  fwd_simt<T, BK, {two_pass}>(a);" in src
+        assert (f"flash_{variant}_anyd_tf32(const Args<float> a) {{\n"
+                f"  fwd_tf32<WARPS, CS, BK, QRES, {two_pass}>(a);") in src
     for kern in ("flash_resident_anyd_mma<", "flash_pipelined_anyd_mma<",
-                 "flash_resident_anyd<", "flash_pipelined_anyd<"):
+                 "flash_resident_anyd_tf32<", "flash_pipelined_anyd_tf32<"):
         assert f"kern = {kern}" in src
     assert "mma_bf16(" not in src and "chunk_scores<" not in src and "fwd_mma_plan<BK>(" in src
+    assert "scores_fma<" not in src and "fwd_tf32_plan<BK, TWO_PASS>(" in src and "fwd_simt" not in src
     assert "launch_fwd_bf16" not in src and "pbe_flash_fwd_anyd" not in src
     assert src.index("#define PBE_ANYD_DEVICE_ONLY") < src.index('#include "flash_anyd.cu"')
     anyd = (CSRC / "flash_anyd.cu").read_text()
     assert anyd.count("#ifndef PBE_ANYD_DEVICE_ONLY") == 2
     cut = anyd.index("#ifndef PBE_ANYD_DEVICE_ONLY")
     assert cut < anyd.index("launch_fwd_bf16(") and "fwd_mma_plan<64>(" in anyd[cut:]
-    for body in ("void fwd_mma(", "void fwd_simt(", "cudaError_t fwd_mma_plan("):
+    assert "fwd_tf32_plan<64, false>(" in anyd[cut:]
+    for body in ("void fwd_mma(", "void fwd_tf32(", "cudaError_t fwd_mma_plan(",
+                 "cudaError_t fwd_tf32_plan(", "cudaError_t launch_fwd_tf32_tiles("):
         assert anyd.index(body) < cut
     assert "flash_fwd_anyd_mma(const Args<bf16> a) {\n  fwd_mma<WARPS, CS, 64, false>(a);" in anyd
-    assert "flash_fwd_anyd(const Args<T> a) {\n  fwd_simt<T, BT, false>(a);" in anyd
+    assert ("flash_fwd_anyd_tf32(const Args<float> a) {\n"
+            "  fwd_tf32<WARPS, CS, 64, QRES, false>(a);") in anyd
+    assert "fwd_simt" not in anyd and "FwdSimt" not in anyd
     fwd = anyd[anyd.index("void fwd_mma("):anyd.index("void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_mma(")]
     assert "chunk_scores<" in fwd and "softmax_step<" in fwd and "final_p<" in fwd
+    fwd = anyd[anyd.index("void fwd_tf32("):anyd.index("void __launch_bounds__(32 * WARPS, 1) flash_fwd_anyd_tf32(")]
+    assert "scores_pair_fma<" in fwd and "pair_to_c<" in fwd and "pv_panel_tf32<" in fwd
+    assert "softmax_steps_f32<" in fwd
 
 
 def test_library_key_covers_the_included_source(tmp_path, monkeypatch):
@@ -248,9 +263,11 @@ def test_library_key_covers_the_included_source(tmp_path, monkeypatch):
 
 
 def test_ptxas_report_names_the_new_kernels_by_operand_type():
-    """chip_smoke.py phase 30's build log names each kernel: the SIMT ones
-    with their operand type and key block, the mma.sync ones with their
-    warps, slice and key block."""
+    """chip_smoke.py phase 30's build log names each kernel: the mma.sync
+    ones with their warps, slice and key block, the 3xTF32 ones with their
+    warps, slice, key block and q2 residency, and a SIMT one (gone from the
+    source; phase 30 refuses any left) with its operand type and key
+    block."""
     def compiled(mangled):
         return [f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
                 "ptxas info    : Function properties for x",
@@ -268,5 +285,60 @@ def test_ptxas_report_names_the_new_kernels_by_operand_type():
             log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvNS_4ArgsI13"
                             f"__nv_bfloat16EE")
             want.append(f"  {name}<{', '.join(map(str, args))}>: 0 bytes stack frame")
+    for name in ("flash_resident_anyd_tf32", "flash_pipelined_anyd_tf32"):
+        for args in ((8, 256, 32, 1), (4, 128, 128, 0)):
+            targs = "".join(f"Li{a}E" for a in args[:3]) + f"Lb{args[3]}E"
+            log += compiled(f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvNS_4ArgsIfEE")
+            want.append(f"  {name}<{', '.join(map(str, args))}>: 0 bytes stack frame")
     report = ptxas_report("\n".join(log)).splitlines()
     assert [line[:len(w)] for line, w in zip(report, want)] == want and len(report) == len(want)
+
+
+def _fwd_tf32(q, k, v, block: int, two_pass: bool, terms: int):
+    """csrc/flash_anyd.cu's fp32 forward body (fwd_tf32: the any-head-dim
+    forward, K3 and K4) in torch -> (O, LSE) as flash_attention_plain gives
+    them: S in fp32 (the plain version's S, as the kernel's fmaf chain is
+    cuBLAS's order), key tiles of ``block``; K3 (two_pass False) one
+    online-softmax step a tile, O and l rescaled by exp2(m_old - m_new)
+    before the tile's P V; K4 against the final row max, never rescaled;
+    P V in 3xTF32 (terms 3; 1: hi hi alone), one zeroed partial a run of at
+    most 64 keys (8 k8 steps) of a tile, joined to O in fp32."""
+    b, n, h, d = q.shape
+    s2 = tfa._heads(tfa.prescale(q)) @ tfa._heads(k).transpose(-1, -2)
+    vh = tfa._heads(v)
+    o, l = torch.zeros(b, h, n, d), torch.zeros(b, h, n, 1)
+    m = s2.amax(-1, keepdim=True) if two_pass else torch.full((b, h, n, 1), -torch.inf)
+    for t0 in range(0, n, block):
+        s = s2[..., t0:t0 + block]
+        if not two_pass:
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - mx)
+            m, o, l = mx, o * alpha, l * alpha
+        p = torch.exp2(s - m)
+        l = l + p.sum(-1, keepdim=True)
+        for k0 in range(0, block, 64):
+            o = tf32_steps(o, p, vh[..., t0:t0 + block, :], k0, k0 + 64, terms, False)
+    out = (o / l).permute(0, 2, 1, 3)
+    return out, (m + torch.log2(l)).reshape(b * h, n)
+
+
+@pytest.mark.parametrize("block", tfa.KEY_BLOCKS)
+@pytest.mark.parametrize("kind", ["randn", "peaked", "rising"])
+@pytest.mark.parametrize("d", chip_smoke.ANYD_STRESS_DIMS)
+def test_3xtf32_forward_meets_the_fp32_tolerances_where_1xtf32_fails(d, kind, block):
+    """The fp32 any-head-dim forward, K3 and K4 (one body, fwd_tf32): P V
+    as 3xTF32 tensor-core steps in the kernel's order, with K3's rescale and
+    K4's final max, lands within phase 29's F32_MAX_REL / F32_L2_REL of
+    flash_attention_plain on its randn, peaked and rising-max inputs at N =
+    200 (a ragged last key tile) at every key block, O and the LSE (the
+    LSE to F32_MAX_REL of its largest magnitude, compare_flash's measure);
+    at 1xTF32 O does not. This is why P V runs in 3xTF32."""
+    q, k, v = stress_inputs(kind, (1, 200, 2, d), seed=d)
+    want, want_lse = tfa.flash_attention_plain(q, k, v, return_lse=True)
+    lse_tol = chip_smoke.F32_MAX_REL * want_lse.abs().max().item()
+    for two_pass, terms in itertools.product((False, True), (3, 1)):
+        out, lse = _fwd_tf32(q, k, v, block, two_pass, terms)
+        m, l2 = rel_errors(out, want)
+        assert (lse - want_lse).abs().max().item() <= lse_tol, (two_pass, terms)
+        inside = m <= chip_smoke.F32_MAX_REL and l2 <= chip_smoke.F32_L2_REL
+        assert inside == (terms == 3), (two_pass, terms, m, l2)
